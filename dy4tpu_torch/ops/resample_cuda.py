@@ -1,14 +1,23 @@
-"""RDS back end: the CUDA kernel (``csrc/rds_backend.cu``) and its plain
-torch version.
+"""The rational-resampler back ends: two CUDA kernels and their plain
+torch versions.
 
-Replaces ``dy4tpu/ops/resample_pallas.py :: fused_rds_backend``: the
-quadrature mix of the delayed RDS band with the RDS NCO pair, the rational
-U/D resampler with its 3 kHz LPF (19/120 with 1919 taps at mode 0), and
-the RRC matched filter, for the I and Q legs with four tails carried.  The
-kernel keeps the mixed and resampled streams of a leg in shared memory and
-visits only the valid polyphase taps (see the note in
-``csrc/rds_backend.cu``).  It matches the plain version to float32
-tolerance; the LPF tails are exact.
+``fused_rds_backend`` (``csrc/rds_backend.cu``) replaces
+``dy4tpu/ops/resample_pallas.py :: fused_rds_backend``: the quadrature mix
+of the delayed RDS band with the RDS NCO pair, the rational U/D resampler
+with its 3 kHz LPF (19/120 with 1919 taps at mode 0, 171/640 with 17271
+taps at mode 2), and the RRC matched filter, for the I and Q legs with
+four tails carried.  The kernel keeps the mixed and resampled streams of a
+leg in shared memory and visits only the valid polyphase taps (see the
+note in ``csrc/rds_backend.cu``).
+
+``fused_audio_backend_rational`` (``csrc/audio_rational.cu``) replaces
+``resample_pallas.fused_audio_backend_rational``: the audio back end of
+the U>1 modes 2 and 3 (147/800 and 147/1280 with 14847 taps), the
+``2 * nco * stereo_band`` mix, the mono and stereo rational resamplers and
+the L/R matrix.
+
+Both match their plain versions to float32 tolerance; the carried
+resampler tails are exact.
 """
 
 from __future__ import annotations
@@ -89,3 +98,70 @@ def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
 
 
 fused_rds_backend.launches = 0
+
+_AUDIO_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def fused_audio_backend_rational_plain(fm_delayed, stereo_band, nco,
+                                       h_audio, mono_tail, stereo_tail,
+                                       up: int, down: int):
+    """Plain torch version of ``fused_audio_backend_rational`` (any
+    leading batch dims, any device): mix, one stacked rational resampler
+    call over the mono and stereo legs, stereo matrix."""
+    stereo_mixed = mix.mix(nco, stereo_band, gain=2.0)
+    audio_in = torch.stack([fm_delayed, stereo_mixed], dim=-2)
+    tails = torch.stack([mono_tail, stereo_tail], dim=-2)
+    out, tails = fir.block_fir_resample(audio_in, h_audio, tails, up=up,
+                                        down=down)
+    mono, stereo_lp = out[..., 0, :], out[..., 1, :]
+    left, right = mix.stereo_matrix(mono, stereo_lp)
+    return mono, left, right, tails[..., 0, :], tails[..., 1, :]
+
+
+def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
+                                 mono_tail, stereo_tail, up: int,
+                                 down: int):
+    """Returns ``(mono, left, right, new_mono_tail, new_stereo_tail)``:
+    the kernel for CUDA tensors, the plain version for CPU ones.
+
+    ``fm_delayed``, ``stereo_band``, ``nco``: [C, N]; ``h_audio`` [K];
+    tails [C, (K-1)//up]; all float32 and contiguous.  Outputs
+    [C, N*up/down].
+    """
+    args = (fm_delayed, stereo_band, nco, h_audio, mono_tail, stereo_tail)
+    if fm_delayed.device.type == "cpu":
+        return fused_audio_backend_rational_plain(*args, up, down)
+    c, n = fm_delayed.shape
+    k = h_audio.shape[0]
+    s = fir.state_len(k, up)
+    if (n * up) % down or n < s:
+        raise ValueError(f"block of {n} samples does not resample by "
+                         f"{up}/{down} or is shorter than the {s}-sample "
+                         f"tail")
+    dev = fm_delayed.device
+    for t, name, shape in ((fm_delayed, "fm_delayed", (c, n)),
+                           (stereo_band, "stereo_band", (c, n)),
+                           (nco, "nco", (c, n)), (h_audio, "h_audio", (k,)),
+                           (mono_tail, "mono_tail", (c, s)),
+                           (stereo_tail, "stereo_tail", (c, s))):
+        kernels.require(t, name, shape, device=dev)
+    kernels.check_smem("audio_rational", "dy4_audio_rational_smem",
+                       "fused_audio_backend_rational", n, up, down, k)
+    m = n * up // down
+    outs = ([torch.empty(c, m, dtype=torch.float32, device=dev)
+             for _ in range(3)]
+            + [torch.empty(c, s, dtype=torch.float32, device=dev)
+               for _ in range(2)])
+    fn = kernels.entry("audio_rational", "dy4_audio_rational", _AUDIO_ARGS)
+    with torch.cuda.device(dev):
+        status = fn(*(t.data_ptr() for t in args),
+                    *(t.data_ptr() for t in outs), c, n, up, down, k,
+                    kernels.stream_of(fm_delayed))
+    kernels.check_launch(status, "audio_rational "
+                                 "fused_audio_backend_rational")
+    fused_audio_backend_rational.launches += 1
+    return tuple(outs)
+
+
+fused_audio_backend_rational.launches = 0

@@ -49,7 +49,8 @@ def _build(cls, paths: dict, prefix: str, device):
             if not any(k.startswith(key + ".") for k in paths):
                 vals[name] = None
             elif kids[name] is None:
-                raise NotImplementedError(f"{key} is not ported yet")
+                raise NotImplementedError(f"{key} is not ported yet: "
+                                          f"ROADMAP Queue A item 9")
             else:
                 vals[name] = _build(kids[name], paths, key + ".", device)
         elif key in paths:

@@ -1,16 +1,21 @@
 """The per-block FM receiver in PyTorch: the counterpart of
-``dy4tpu/pipeline/receiver.py`` for mode 0 (mono, stereo and RDS).
+``dy4tpu/pipeline/receiver.py`` in all four modes (mono, stereo, and RDS
+where the mode has it), from raw RF or from IF I/Q.
 
     receiver_step(params, state, iq_u8, cfg) -> (state', outputs)
+    receiver_step_if(params, state, i_if, q_if, cfg) -> (state', outputs)
 
-over a ``[channels, block]`` u8 batch, with every piece of carried state
-in ``ReceiverState``.  The NamedTuples mirror dy4tpu's field for field,
+over a ``[channels, block]`` u8 batch (or ``[channels, if_per_block]``
+float32 I and Q at the IF rate), with every piece of carried state in
+``ReceiverState``.  The NamedTuples mirror dy4tpu's field for field,
 so a state can be handed from one package to the other mid-stream
 (``pipeline/convert.py``).
 
-Three stages, as in dy4tpu: ``front_step`` (the LTI front half), the
-stacked pilot + RDS-carrier PLL, and ``back_step`` (the NCO-mixed LTI back
-half) + clock/data recovery.  Each stage selects its implementation:
+Three stages, as in dy4tpu: ``front_step`` / ``front_step_if`` (the LTI
+front half), the pilot PLL (stacked with the RDS-carrier PLL where RDS is
+on), and ``back_step`` (the NCO-mixed LTI back half: the U=1 audio back end
+in modes 0 and 1, the rational one in modes 2 and 3) + clock/data
+recovery.  Each stage selects its implementation:
 
   * ``"auto"`` (default): the hand-written CUDA kernel for a CUDA tensor,
     the plain torch version for a CPU tensor;
@@ -30,8 +35,8 @@ import numpy as np
 import torch
 
 from dy4tpu.config import ModeConfig
-from dy4tpu_torch.ops import (backend_cuda, fir, firdes, frontend_cuda,
-                              mix, pll, resample_cuda)
+from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,
+                              frontend_cuda, mix, pll, resample_cuda)
 
 Tensor = torch.Tensor
 
@@ -134,13 +139,8 @@ class BackOut(NamedTuple):
 
 
 _IMPLS = ("auto", "plain")
-
-
-def _require_mode0(cfg: ModeConfig) -> None:
-    if cfg.mode != 0:
-        raise NotImplementedError(
-            f"mode {cfg.mode} is not ported yet (ROADMAP Queue A item 6: "
-            f"modes 1-3); the port runs mode 0")
+_IQCORR = ("the IQ tracker (ops/iqcorr.py) is not ported yet: ROADMAP "
+           "Queue A item 9")
 
 
 def _rds_on(cfg: ModeConfig, with_rds) -> bool:
@@ -193,7 +193,6 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
     kernel on a CUDA tensor, the plain version on a CPU one) or "plain"
     (normalize + FIR + demod, then ``_front_post_demod``, on any device).
     """
-    _require_mode0(cfg)
     if iq_u8.shape[-1] != cfg.block_size:
         raise ValueError(f"block of {iq_u8.shape[-1]} bytes; mode "
                          f"{cfg.mode} takes {cfg.block_size}")
@@ -246,18 +245,51 @@ def _front_post_demod(params: ReceiverParams, fstate: FrontState,
                      rds_delayed=rds_delayed))
 
 
-_IF_ENTRY = ("the IF entry (front_step_if, receiver_step_if) is not ported "
-             "yet: ROADMAP Queue A item 10 (wideband) and kernel B6")
+def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
+                  q_if: Tensor, cfg: ModeConfig, *, rds_enabled: bool = True,
+                  frontend: str = "auto") -> tuple[FrontState, FrontOut]:
+    """IF-entry front half: complex baseband at the IF rate (e.g. one
+    channel of a channelizer) instead of raw RF u8.  The RF LPF and
+    decimation are skipped; from the FM demod on it is ``front_step``.
+    ``i_if``/``q_if``: [..., if_per_block] float32.  The RF ``iq_tail`` is
+    carried through untouched, so the state stays interchangeable with
+    the RF entry's.
 
-
-def front_step_if(*args, **kwargs):
-    """IF-entry front half (dy4tpu ``front_step_if``): not ported yet."""
-    raise NotImplementedError(_IF_ENTRY)
-
-
-def receiver_step_if(*args, **kwargs):
-    """IF-entry receiver step (dy4tpu ``receiver_step_if``): not ported."""
-    raise NotImplementedError(_IF_ENTRY)
+    ``frontend``: "auto" (``frontend_cuda.fused_frontend_if``: the kernel
+    on a CUDA tensor, the plain version on a CPU one) or "plain" (demod,
+    then ``_front_post_demod``, on any device).
+    """
+    if i_if.shape[-1] != cfg.if_per_block or q_if.shape != i_if.shape:
+        raise ValueError(f"IF blocks of {tuple(i_if.shape)} and "
+                         f"{tuple(q_if.shape)}; mode {cfg.mode} takes "
+                         f"[..., {cfg.if_per_block}] for both")
+    if frontend == "plain":
+        fm, prev_i, prev_q = demod.fm_demod_diff(i_if, q_if, fstate.rf.prev_i,
+                                                 fstate.rf.prev_q)
+        new_rf = RFState(iq_tail=fstate.rf.iq_tail, prev_i=prev_i,
+                         prev_q=prev_q)
+        return _front_post_demod(params, fstate, fm, new_rf, rds_enabled)
+    if frontend != "auto":
+        raise ValueError(f"frontend must be one of {_IMPLS}, got "
+                         f"{frontend!r}")
+    batch = i_if.shape[:-1]
+    flat, unflat = _flattener(batch)
+    (fmd, pilot, stereo, carrier, rds_delayed, prev_i, prev_q, bank_tail,
+     mono_delay, carrier_tail, rds_delay) = frontend_cuda.fused_frontend_if(
+        flat(i_if), flat(q_if), flat(fstate.rf.prev_i),
+        flat(fstate.rf.prev_q), params.bank_coeff, params.rds_carrier_coeff,
+        flat(fstate.bank_tail), flat(fstate.mono_delay),
+        flat(fstate.carrier_tail), flat(fstate.rds_delay), rds=rds_enabled)
+    return (FrontState(rf=RFState(iq_tail=fstate.rf.iq_tail,
+                                  prev_i=unflat(prev_i),
+                                  prev_q=unflat(prev_q)),
+                       mono_delay=unflat(mono_delay),
+                       bank_tail=unflat(bank_tail),
+                       carrier_tail=unflat(carrier_tail),
+                       rds_delay=unflat(rds_delay)),
+            FrontOut(fm_delayed=unflat(fmd), pilot=unflat(pilot),
+                     stereo_band=unflat(stereo), carrier=unflat(carrier),
+                     rds_delayed=unflat(rds_delayed)))
 
 
 def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
@@ -270,22 +302,29 @@ def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
     pair (None when RDS is off).
 
     ``backend``: "auto" (the ``backend_cuda``/``resample_cuda`` wrappers:
-    kernels on CUDA tensors, plain versions on CPU ones) or "plain".
+    kernels on CUDA tensors, plain versions on CPU ones) or "plain".  The
+    audio leg takes the U=1 back end when ``cfg.audio_up`` is 1 (modes 0
+    and 1) and the rational one otherwise (modes 2 and 3).
     """
-    _require_mode0(cfg)
     if backend not in _IMPLS:
         raise ValueError(f"backend must be one of {_IMPLS}, got {backend!r}")
     plain = backend == "plain"
     batch = fo.fm_delayed.shape[:-1]
     flat, unflat = ((lambda a: a), (lambda a: a)) if plain else (
         _flattener(batch))
-    audio = (backend_cuda.fused_audio_backend_plain if plain
-             else backend_cuda.fused_audio_backend)
+    if cfg.audio_up == 1:
+        audio = (backend_cuda.fused_audio_backend_plain if plain
+                 else backend_cuda.fused_audio_backend)
+        rate = (cfg.audio_down,)
+    else:
+        audio = (resample_cuda.fused_audio_backend_rational_plain if plain
+                 else resample_cuda.fused_audio_backend_rational)
+        rate = (cfg.audio_up, cfg.audio_down)
     mono, left, right, mono_tail, stereo_tail = (
         unflat(o) for o in audio(
             flat(fo.fm_delayed), flat(fo.stereo_band), flat(nco),
             params.audio_coeff, flat(bstate.mono_tail),
-            flat(bstate.stereo_tail), cfg.audio_down))
+            flat(bstate.stereo_tail), *rate))
 
     bb_i = bb_q = None
     lpf_tail_i = lpf_tail_q = rrc_tail_i = rrc_tail_q = None
@@ -310,8 +349,9 @@ def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
 def make_params(cfg: ModeConfig, with_rds: Optional[bool] = None,
                 device="cpu") -> ReceiverParams:
     """Design all filters for a mode (host-side, run once) and put them
-    on ``device``.  The audio LPF is the reference's Hann windowed sinc."""
-    _require_mode0(cfg)
+    on ``device``.  The audio LPF is the reference's Hann windowed sinc.
+    ``with_rds=False`` omits the RDS filters (and must be matched by the
+    same flag in ``init_state``)."""
     if_fs = cfg.if_fs
     t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
         a, device=device)
@@ -337,10 +377,8 @@ def make_params(cfg: ModeConfig, with_rds: Optional[bool] = None,
 def init_state(cfg: ModeConfig, batch: tuple[int, ...] = (),
                dtype=torch.float32, with_rds: Optional[bool] = None,
                with_iqcorr: bool = False, device="cpu") -> ReceiverState:
-    _require_mode0(cfg)
     if with_iqcorr:
-        raise NotImplementedError("the IQ tracker (ops/iqcorr.py) is not "
-                                  "ported yet: ROADMAP Queue A item 9")
+        raise NotImplementedError(_IQCORR)
     t = cfg.num_taps
     z = lambda *s: torch.zeros((*batch, *s), dtype=dtype,  # noqa: E731
                                device=device)
@@ -364,17 +402,39 @@ def init_state(cfg: ModeConfig, batch: tuple[int, ...] = (),
     return ReceiverState(rf=rf, audio=audio, rds=rds)
 
 
-def _cdr(bb_i: Tensor, bb_q: Tensor, state: CDRState, sps: int):
+_CDR_TIMINGS = ("peak", "envelope")
+
+
+def _cdr(bb_i: Tensor, bb_q: Tensor, state: CDRState, sps: int,
+         timing: str = "peak"):
     """Clock/data recovery: pick a sampling phase when unlocked, then
     sample every ``sps``-th baseband sample (fmSupportLib.py:209-247,
     with the offset reduced mod sps so every block yields ``len/sps``
-    symbols).  The phase is dy4tpu's ``timing="peak"``: the strongest |I|
-    sample in the first 2*sps; ties take the first, as ``jnp.argmax``
-    does.  (dy4tpu's ``"envelope"`` timing is not ported: ROADMAP Queue A
-    item 6.)  Returns ``(sym_i, sym_q, symbols, resync, new_state)``."""
-    m = bb_i.shape[-1] // sps
-    search = torch.abs(bb_i[..., : 2 * sps])
-    cand = (torch.argmax(search, dim=-1) % sps).to(torch.int32)
+    symbols).  ``timing`` picks the acquisition estimator, as dy4tpu's
+    (``_check_step`` refuses any other value):
+
+    - "peak" (the reference's): the strongest |I| sample in the first
+      2*sps; ties take the first, as ``jnp.argmax`` does;
+    - "envelope": square-law spectral timing (Oerder & Meyr): the
+      envelope i^2+q^2 of the RRC-shaped baseband has a line at the
+      symbol rate whose phase is the sampling phase, ``tau = arg(sum_n
+      e[n] exp(-j 2 pi n/sps)) * sps/(2 pi)``, so every sample of the
+      block votes.
+
+    Returns ``(sym_i, sym_q, symbols, resync, new_state)``."""
+    n = bb_i.shape[-1]
+    m = n // sps
+    if timing == "envelope":
+        w = 2.0 * np.pi * np.arange(n) / sps
+        cos = torch.as_tensor(np.cos(w), dtype=bb_i.dtype, device=bb_i.device)
+        sin = torch.as_tensor(np.sin(w), dtype=bb_i.dtype, device=bb_i.device)
+        e = bb_i * bb_i + bb_q * bb_q
+        tau = torch.atan2(torch.sum(e * sin, dim=-1),
+                          torch.sum(e * cos, dim=-1)) * (sps / (2.0 * np.pi))
+        cand = torch.round(tau).to(torch.int32) % sps
+    else:
+        search = torch.abs(bb_i[..., : 2 * sps])
+        cand = (torch.argmax(search, dim=-1) % sps).to(torch.int32)
     resync = ~state.found
     offset = torch.where(resync, cand, state.offset)
     idx = (offset.to(torch.int64)[..., None]
@@ -392,28 +452,57 @@ def _cdr(bb_i: Tensor, bb_q: Tensor, state: CDRState, sps: int):
 def receiver_step(params: ReceiverParams, state: ReceiverState,
                   iq_u8: Tensor, cfg: ModeConfig,
                   with_rds: Optional[bool] = None, frontend: str = "auto",
-                  backend: str = "auto", pll_impl: str = "auto"
+                  backend: str = "auto", pll_impl: str = "auto",
+                  cdr_timing: str = "peak"
                   ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of interleaved u8 IQ samples.
 
     ``iq_u8``: [..., block_size] uint8 (I even, Q odd).  ``frontend`` /
     ``backend``: "auto" or "plain" (module docstring); ``pll_impl``:
-    "auto", "kernel" or "plain" (``ops/pll.py``).
+    "auto", "kernel" or "plain" (``ops/pll.py``); ``cdr_timing``: "peak"
+    or "envelope" (``_cdr``; dy4tpu's default when ``DY4TPU_CDR`` is
+    unset is "peak", and the port reads no environment variable).
     """
-    if state.iqcorr is not None:
-        raise NotImplementedError("the IQ tracker is not ported yet: "
-                                  "ROADMAP Queue A item 9")
+    _check_step(state, cdr_timing)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
     fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
                             rds_enabled=rds_enabled, frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
-                        backend, pll_impl)
+                        backend, pll_impl, cdr_timing)
+
+
+def receiver_step_if(params: ReceiverParams, state: ReceiverState,
+                     i_if: Tensor, q_if: Tensor, cfg: ModeConfig,
+                     with_rds: Optional[bool] = None, frontend: str = "auto",
+                     backend: str = "auto", pll_impl: str = "auto",
+                     cdr_timing: str = "peak"
+                     ) -> tuple[ReceiverState, StepOutputs]:
+    """Process one block of IF-rate complex baseband (I/Q at
+    ``cfg.if_fs``, [..., if_per_block] float32), e.g. one channel of a
+    channelizer: ``receiver_step`` from the FM demod on, with the RF LPF
+    left to whoever made the IF stream.  Keywords as ``receiver_step``.
+    """
+    _check_step(state, cdr_timing)
+    rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
+    fstate, fo = front_step_if(params, front_state_of(state), i_if, q_if,
+                               cfg, rds_enabled=rds_enabled,
+                               frontend=frontend)
+    return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
+                        backend, pll_impl, cdr_timing)
+
+
+def _check_step(state: ReceiverState, cdr_timing: str) -> None:
+    if state.iqcorr is not None:
+        raise NotImplementedError(_IQCORR)
+    if cdr_timing not in _CDR_TIMINGS:
+        raise ValueError(f"unknown cdr_timing {cdr_timing!r}; expected one "
+                         f"of {_CDR_TIMINGS}")
 
 
 def _finish_step(params: ReceiverParams, state: ReceiverState,
                  fstate: FrontState, fo: FrontOut, cfg: ModeConfig,
-                 rds_enabled: bool, backend: str, pll_impl: str
-                 ) -> tuple[ReceiverState, StepOutputs]:
+                 rds_enabled: bool, backend: str, pll_impl: str,
+                 cdr_timing: str) -> tuple[ReceiverState, StepOutputs]:
     # ---- stereo + RDS PLLs (project.cpp:118-133; fmMonoBlock.py:683) ----
     if rds_enabled:
         # the pilot (19 kHz, x2, bw .01) and RDS carrier (114 kHz, x0.5,
@@ -465,7 +554,7 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
     rds_out = (None,) * 6
     if rds_enabled:
         sym_i, _, symbols, resync, cdr = _cdr(bo.bb_i, bo.bb_q, rds.cdr,
-                                              cfg.rds_sps)
+                                              cfg.rds_sps, cdr_timing)
         new_rds = RDSState(carrier_tail=fstate.carrier_tail,
                            delay=fstate.rds_delay,
                            lpf_tail_i=bstate.lpf_tail_i,
@@ -486,12 +575,13 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
 
 def receiver_step_pcm(params: ReceiverParams, state: ReceiverState,
                       iq_u8: Tensor, cfg: ModeConfig, stereo: bool = True,
-                      with_rds: Optional[bool] = None):
+                      with_rds: Optional[bool] = None,
+                      cdr_timing: str = "peak"):
     """One step returning quantised s16 PCM like the reference CLI
     (project.cpp:307-317): the counterpart of dy4tpu's
     ``receiver_step_jit``.  Returns ``(state', pcm, outputs)``."""
     new_state, out = receiver_step(params, state, iq_u8, cfg,
-                                   with_rds=with_rds)
+                                   with_rds=with_rds, cdr_timing=cdr_timing)
     if stereo:
         pcm = mix.quantize_s16(mix.interleave(out.left, out.right))
     else:

@@ -34,7 +34,11 @@ KERNELS: dict[str, tuple[str, ...]] = {
     "pll": ("-fmad=false",),
     "audio_backend": (),
     "rds_backend": (),
+    "audio_rational": (),
 }
+
+# dynamic shared memory one thread block may take on Hopper (227 KB)
+SMEM_MAX = 232448
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -146,6 +150,22 @@ def require(t, name: str, shape, dtype=torch.float32,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_smem(name: str, symbol: str, what: str, *geometry: int) -> None:
+    """Raise ``ValueError`` with the figure when the thread block of
+    kernel ``name`` at this geometry needs more shared memory than
+    ``SMEM_MAX``; the library's ``symbol`` (int arguments, returning
+    bytes) computes it with the kernel's own formula."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * len(geometry)
+    fn.restype = ctypes.c_longlong
+    need = fn(*geometry)
+    if need > SMEM_MAX:
+        raise ValueError(f"{what}: a thread block needs {need} bytes "
+                         f"({need / 1024:.1f} KB) of shared memory at "
+                         f"this geometry; the card allows {SMEM_MAX} "
+                         f"(227 KB)")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -32,11 +32,11 @@ C = 2
 N_BLOCKS = 3
 
 
-def _broadcast(n_blocks):
-    n_audio = n_blocks * cfg.audio_per_block
+def _broadcast(n_blocks, c=cfg):
+    n_audio = n_blocks * c.audio_per_block
     bits = coding.make_ps_bitstream(fm.PI_CODE, 10, fm.PS_NAME, repeats=4)
-    return dict(left=jfm.tone(800.0, cfg.audio_fs, n_audio, amp=0.7),
-                right=jfm.tone(2400.0, cfg.audio_fs, n_audio, amp=0.7),
+    return dict(left=jfm.tone(800.0, c.audio_fs, n_audio, amp=0.7),
+                right=jfm.tone(2400.0, c.audio_fs, n_audio, amp=0.7),
                 rds_bits=bits, noise=0.02, seed=5)
 
 
@@ -147,10 +147,12 @@ def test_receiver_step_pcm_matches_dy4tpu_quantizer(runs):
     assert mono.shape == (C, 1536)
 
 
-def test_tx_synthesis_equals_dy4tpu():
-    kw = _broadcast(2)
-    np.testing.assert_array_equal(fm.synthesize(cfg, 2, **kw),
-                                  jfm.synthesize(cfg, 2, **kw))
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_tx_synthesis_equals_dy4tpu(mode):
+    c = get_mode(mode)
+    kw = _broadcast(2, c)
+    np.testing.assert_array_equal(fm.synthesize(c, 2, **kw),
+                                  jfm.synthesize(c, 2, **kw))
 
 
 def test_16_block_decode_recovers_pi():
@@ -166,14 +168,18 @@ def test_16_block_decode_recovers_pi():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rx.make_params(get_mode(1))
+    """The IQ tracker is not ported (in ``init_state`` and in a state
+    handed to the IF entry); unknown options are refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rx.init_state(cfg, with_iqcorr=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rx.front_step_if()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rx.receiver_step_if()
+    st = rx.init_state(cfg, (1,))._replace(iqcorr=object())
+    i_if = torch.zeros(1, cfg.if_per_block)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
+        rx.receiver_step_if(rx.make_params(cfg), st, i_if, i_if, cfg)
+    with pytest.raises(ValueError, match="cdr_timing"):
+        rx.receiver_step(rx.make_params(cfg), rx.init_state(cfg),
+                         torch.zeros(cfg.block_size, dtype=torch.uint8),
+                         cfg, cdr_timing="bogus")
     with pytest.raises(ValueError, match="frontend"):
         rx.receiver_step(rx.make_params(cfg), rx.init_state(cfg),
                          torch.zeros(cfg.block_size, dtype=torch.uint8),

@@ -1,8 +1,9 @@
 """Packaging and dispatch rules of the port (dy4tpu_torch) that hold on a
 machine without a GPU: it never imports JAX, a CPU tensor takes the plain
-versions without counting a launch, any other non-CUDA tensor is refused
-by the kernel wrappers, the kernels are built for sm_90a (the PLL without
-FMA contraction), and chip_smoke.py fails instead of falling back.
+versions without counting a launch (in every mode and through the IF
+entry), any other non-CUDA tensor is refused by the kernel wrappers, the
+kernels are built for sm_90a (the PLL without FMA contraction), and
+chip_smoke.py fails instead of falling back.
 """
 
 import os
@@ -26,7 +27,9 @@ from dy4tpu_torch.runtime import kernels  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 cfg = get_mode(0)
 WRAPPERS = (frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
-            backend_cuda.fused_audio_backend, resample_cuda.fused_rds_backend)
+            backend_cuda.fused_audio_backend, resample_cuda.fused_rds_backend,
+            resample_cuda.fused_audio_backend_rational,
+            frontend_cuda.fused_frontend_if)
 
 
 def _env():
@@ -61,7 +64,22 @@ def test_cpu_receiver_step_launches_no_kernel():
     assert [w.launches for w in WRAPPERS] == counts
 
 
-@pytest.mark.parametrize("which", range(4))
+def test_cpu_mode2_and_if_entry_launch_no_kernel():
+    """Mode 2 (the rational back ends) and the IF entry on CPU tensors."""
+    c = get_mode(2)
+    counts = [w.launches for w in WRAPPERS]
+    rng = np.random.default_rng(1)
+    blk = torch.from_numpy(rng.integers(0, 256, (2, c.block_size),
+                                        dtype=np.uint8))
+    params = rx.make_params(c)
+    rx.receiver_step(params, rx.init_state(c, (2,)), blk, c)
+    i_if = torch.from_numpy(rng.standard_normal(
+        (2, c.if_per_block)).astype(np.float32))
+    rx.receiver_step_if(params, rx.init_state(c, (2,)), i_if, i_if, c)
+    assert [w.launches for w in WRAPPERS] == counts
+
+
+@pytest.mark.parametrize("which", range(len(WRAPPERS)))
 def test_wrappers_refuse_non_cuda_devices(which):
     """A tensor that is not on the CPU goes to the kernel or raises: here
     a 'meta' tensor, which no kernel takes."""
@@ -81,6 +99,12 @@ def test_wrappers_refuse_non_cuda_devices(which):
         lambda: resample_cuda.fused_rds_backend(
             m(c, n), m(c, n), m(c, n), m(1919), m(101), m(c, 100),
             m(c, 100), m(c, 100), m(c, 100), cfg.rds_up, cfg.rds_down),
+        lambda: resample_cuda.fused_audio_backend_rational(
+            m(c, 9600), m(c, 9600), m(c, 9600), m(14847), m(c, 100),
+            m(c, 100), 147, 800),
+        lambda: frontend_cuda.fused_frontend_if(
+            m(c, n), m(c, n), m(c), m(c), m(3, 101), m(101), m(c, 100),
+            m(c, 50), m(c, 100), m(c, 50)),
     ]
     before = WRAPPERS[which].launches
     with pytest.raises(ValueError, match="CUDA"):
@@ -88,14 +112,21 @@ def test_wrappers_refuse_non_cuda_devices(which):
     assert WRAPPERS[which].launches == before
 
 
-def test_kernel_path_without_rds_is_not_ported():
+def test_kernel_path_without_rds_reaches_the_kernel():
+    """``rds=False`` (modes 1 and 3) goes to the kernel route like RDS
+    does, with no RDS taps or tails: a meta tensor is refused there."""
     m = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,  # noqa: E731
                                                  device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        frontend_cuda.fused_frontend_full(
-            m(2, cfg.block_size, dt=torch.uint8), m(101), m(2, 101), None,
-            m(2, 2, 100), m(2), m(2), m(2, 100), m(2, 50), None, None,
-            cfg.rf_decim, rds=False)
+    for call in (
+            lambda: frontend_cuda.fused_frontend_full(
+                m(2, cfg.block_size, dt=torch.uint8), m(101), m(2, 101),
+                None, m(2, 2, 100), m(2), m(2), m(2, 100), m(2, 50), None,
+                None, cfg.rf_decim, rds=False),
+            lambda: frontend_cuda.fused_frontend_if(
+                m(2, 9216), m(2, 9216), m(2), m(2), m(2, 101), None,
+                m(2, 100), m(2, 50), None, None, rds=False)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     with pytest.raises(ValueError, match="CUDA"):
         pll.pll(torch.zeros(2, 64), pll.init_state((2,)), freq=19e3,
                 fs=cfg.if_fs, impl="kernel")
