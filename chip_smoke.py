@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's receiver on the card through its six hand-written CUDA
-kernels, in all four modes and through the IF entry:
+Drives the port's receiver on the card through its seven hand-written CUDA
+kernels, in all four modes, through the IF entry, and through the wideband
+channelizer front door:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -23,7 +24,18 @@ kernels, in all four modes and through the IF entry:
    modes 0 and 2), compares four channels with an all-plain run over the
    first blocks, and times the chain.  At modes 0 and 1 it also runs the
    IF entry (``receiver_step_if``) over the same 24 blocks as IF I/Q, with
-   the same checks, and holds it against the RF entry's kernel run.
+   the same checks, and holds it against the RF entry's kernel run;
+4. the wideband front door at mode 0: phase 2 holds the channelizer kernel
+   (B7) against its plain version at six bank geometries on 32 distinct
+   band rows, and ``channelize_block_u8``'s kernel route (folded IQ
+   correction) against its plain route (post-bank correction); phase 3
+   runs ``run_wideband_blocks`` over 32 bands x 16 channels x 32 steps of
+   ``bench.py``'s wideband capture (band b starts 74*b bytes in), checks
+   that B7, B6, B2, B3 and B4 launched on every step and nothing else did,
+   decodes channel 3 of bands 0 and 31, checks the RSSI scan, holds that
+   channel of both bands to an all-plain run, and times the chain; phase
+   3b runs AFC and the IQ tracker on 4 bands x 8 steps against the
+   all-plain run.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry), then, as its last line, ``{"ok": true, "device": {...}}``.  Any
@@ -48,6 +60,13 @@ SHIFT = 74       # bytes (37 complex samples) between neighbouring channels
 CHAIN_TOL = 5e-2                     # audio and baseband, kernel vs plain
 SYM_AGREE = 0.99                     # share of equal RDS symbols
 B6_MODES = (0, 1)                    # IF-entry kernel checked at these
+WB_C, WB_T = 16, 12                  # the wideband bench point: 16 channels
+WB_BANDS, WB_STEPS = 32, 32          # ... x 32 bands (512 stations) x 32
+WB_STATION = 3                       # the live channel of every band
+WB_ROWS = [0, WB_BANDS - 1]          # bands decoded and held to all-plain
+WB_GEOMS = ((16, 12), (8, 12), (32, 12), (4, 16), (64, 12), (128, 12))
+WB_OPT_BANDS, WB_OPT_STEPS = 4, 8    # AFC + IQ tracker, kernel vs plain
+AFC_TOL_HZ = 1000.0                  # on-grid station: |AFC estimate|
 
 
 def _say(msg: str) -> None:
@@ -120,6 +139,7 @@ class _Row:
     kern: Callable
     plain: Optional[Callable] = None
     plain_ms: Optional[float] = None
+    where: str = f"C={C}"
 
     def finish(self, smi: str, mode: int) -> dict:
         if not self.err <= self.tol:
@@ -131,7 +151,7 @@ class _Row:
                     else _time_ms(self.plain, 5))
         _say(f"phase 2: {self.kernel} {self.geometry}: max |kernel - "
              f"plain| {self.err:.3g} (tolerance {self.tol:g}); kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms at C={C} ({smi})")
+             f"{ms:.4f} ms, plain {plain_ms:.4f} ms at {self.where} ({smi})")
         return dict(name=f"{self.kernel.split()[1]}:{self.geometry}",
                     route="cuda", source=self.source,
                     replaces=self.replaces, max_abs_err=self.err,
@@ -320,24 +340,29 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     return [r.finish(smi, cfg.mode) for r in rows]
 
 
-def _path(cfg, if_entry: bool = False):
-    """The kernel wrappers a mode's main path launches."""
-    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll_cuda,
-                                  resample_cuda)
-    front = (frontend_cuda.fused_frontend_if if if_entry
-             else frontend_cuda.fused_frontend_full)
+def _path(cfg, entry: str = "rf"):
+    """The kernel wrappers a mode's main path launches: ``entry`` "rf"
+    (``receiver_step``), "if" (``receiver_step_if``) or "wideband"
+    (``wideband_step``: the channelizer, then the IF entry)."""
+    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,
+                                  frontend_cuda, pll_cuda, resample_cuda)
+    front = (frontend_cuda.fused_frontend_full if entry == "rf"
+             else frontend_cuda.fused_frontend_if)
     audio = (backend_cuda.fused_audio_backend if cfg.audio_up == 1
              else resample_cuda.fused_audio_backend_rational)
     path = [front, pll_cuda.phase_scan, audio]
     if cfg.supports_rds:
         path.append(resample_cuda.fused_rds_backend)
+    if entry == "wideband":
+        path.insert(0, channelizer_cuda.channelize_branches)
     return path
 
 
-def _run_path(label, cfg, run, all_wrappers, if_entry=False):
+def _run_path(label, cfg, run, all_wrappers, entry="rf",
+              n_blocks=N_BLOCKS):
     """Zero every launch count, ``run()``, and check that each kernel of
-    the path launched on every block and no other kernel launched.
-    Returns ``(run's result, {wrapper: launches})``."""
+    the path launched on every one of ``n_blocks`` blocks and no other
+    kernel launched.  Returns ``(run's result, {wrapper: launches})``."""
     import torch
     for w in all_wrappers:
         w.launches = 0
@@ -347,11 +372,11 @@ def _run_path(label, cfg, run, all_wrappers, if_entry=False):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {w: w.launches for w in all_wrappers}
-    path = _path(cfg, if_entry)
+    path = _path(cfg, entry)
     for w, n in counts.items():
-        if w in path and n < N_BLOCKS:
+        if w in path and n < n_blocks:
             raise AssertionError(f"{label}: kernel {w.__name__} launched "
-                                 f"{n} times over {N_BLOCKS} blocks")
+                                 f"{n} times over {n_blocks} blocks")
         if w not in path and n:
             raise AssertionError(f"{label}: kernel {w.__name__} is not on "
                                  f"this path but launched {n} times")
@@ -391,9 +416,10 @@ def _check_outputs(label, cfg, outs) -> None:
             if rds else ""))
 
 
-def _compare_chain(label, cfg, outs, ref, n_blocks) -> None:
-    """Hold ``outs`` (channels CHAIN_ROWS, first ``n_blocks``) to ``ref``
-    within the chain tolerances."""
+def _compare_chain(label, cfg, outs, ref, n_blocks,
+                   rows=f"channels {CHAIN_ROWS}") -> None:
+    """Hold ``outs`` (the rows named by ``rows``, first ``n_blocks``) to
+    ``ref`` within the chain tolerances."""
     fields = ["mono", "left", "right"]
     if cfg.supports_rds:
         fields += ["rds_bb_i", "rds_bb_q"]
@@ -405,8 +431,8 @@ def _compare_chain(label, cfg, outs, ref, n_blocks) -> None:
         sym_agree = float((outs.rds_symbols[:n_blocks]
                            == ref.rds_symbols[:n_blocks]).double().mean())
         msg += f"; RDS symbols agree {sym_agree:.4f}"
-    _say(f"phase 3: {label}, channels {CHAIN_ROWS}, blocks "
-         f"0-{n_blocks - 1}: max |err| {msg}")
+    _say(f"phase 3: {label}, {rows}, blocks 0-{n_blocks - 1}: max |err| "
+         f"{msg}")
     if max(errs.values()) > CHAIN_TOL or sym_agree < SYM_AGREE:
         raise AssertionError(f"{label}: departs beyond the chain "
                              f"tolerance ({CHAIN_TOL:g} on audio and "
@@ -526,7 +552,7 @@ def _run_if_entry(cfg, params, blocks, rf_kept, dev, smi,
 
     t0 = time.perf_counter()
     label = f"IF entry mode {cfg.mode}"
-    outs, counts = _run_path(label, cfg, run, all_wrappers, if_entry=True)
+    outs, counts = _run_path(label, cfg, run, all_wrappers, entry="if")
     _check_outputs(label, cfg, outs)
     sel = torch.tensor(CHAIN_ROWS, device=dev)
     kept = _select(outs, sel)
@@ -543,6 +569,228 @@ def _run_if_entry(cfg, params, blocks, rf_kept, dev, smi,
     return counts[frontend_cuda.fused_frontend_if]
 
 
+def _check_channelizer(cfg, dev, smi) -> list[dict]:
+    """Phase 2 of the wideband front door: B7 against its plain version at
+    every geometry of ``WB_GEOMS`` on 32 band rows of mode 0's block,
+    mid-stream (random u8 rows and tails from a seed), and the kernel
+    route of ``channelize_block_u8`` against its plain route with a
+    per-band IQ correction.  Returns the JSON entries."""
+    import torch
+    from dy4tpu_torch.ops import channelizer as chz
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    from dy4tpu_torch.ops import iqcorr
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = []
+    for c, t in WB_GEOMS:
+        p = chz.make_channelizer(c, cfg.if_fs, taps_per_branch=t,
+                                 device=dev).p
+        n2 = 2 * c * cfg.if_per_block
+        x = torch.randint(0, 256, (WB_BANDS, n2), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        ti, tq = (torch.randn(WB_BANDS, c * t - 1, generator=gen,
+                              device=dev) for _ in range(2))
+        args = (x, p, ti, tq)
+        _distinct_rows("B7", x, ti, tq)
+        k_out = chc.channelize_branches(*args)
+        p_out = chc.channelize_branches_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k_out[1:], p_out[1:])):
+            raise AssertionError(f"B7 C={c} T={t}: tails differ from the "
+                                 f"plain version")
+        # 1e-5: T float32 products summed in the same order, maybe fused
+        rows.append(_Row(
+            "B7 channelizer", f"C={c} T={t}",
+            "dy4tpu_torch/csrc/channelizer.cu",
+            "dy4tpu/ops/channelizer.py:344", chc.channelize_branches,
+            _max_err(k_out, p_out), 1e-5,
+            lambda a=args: chc.channelize_branches(*a),
+            lambda a=args: chc.channelize_branches_plain(*a),
+            where=f"{WB_BANDS} bands x {n2} bytes"))
+        del k_out, p_out
+    out = [r.finish(smi, cfg.mode) for r in rows]
+    del rows
+
+    # the kernel route (B7, DFT matrices with the correction folded in)
+    # against the plain route (post-bank correction), per-band coefficients
+    chan = chz.make_channelizer(WB_C, cfg.if_fs, taps_per_branch=WB_T,
+                                device=dev)
+    x = torch.randint(0, 256, (WB_BANDS, 2 * WB_C * cfg.if_per_block),
+                      generator=gen, device=dev, dtype=torch.uint8)
+    tails = [torch.randn(WB_BANDS, WB_C * WB_T - 1, generator=gen,
+                         device=dev) for _ in range(2)]
+    st = chz.ChannelizerState(*tails)
+    u = lambda lo, hi: (torch.rand(WB_BANDS, generator=gen,  # noqa: E731
+                                   device=dev) * (hi - lo) + lo)
+    corr = iqcorr.IQCorrCoeffs(dc_i=u(-0.04, 0.04), dc_q=u(-0.04, 0.04),
+                               rho=u(-0.2, 0.2), s=u(0.8, 1.2))
+    (ki, kq), ks = chz.channelize_block_u8(chan, st, x, corr=corr)
+    (pi, pq), ps = chz.channelize_block_u8(chan, st, x, impl="plain",
+                                           corr=corr)
+    torch.cuda.synchronize()
+    err = _max_err((ki, kq), (pi, pq))
+    _say(f"phase 2: channelize_block_u8 C={WB_C} T={WB_T}, {WB_BANDS} "
+         f"bands, per-band IQ correction: kernel route (folded DFT) vs "
+         f"plain route (post-bank): max |err| {err:.3g} (tolerance 1e-5)")
+    if not (err <= 1e-5 and torch.equal(ks.tail_i, ps.tail_i)
+            and torch.equal(ks.tail_q, ps.tail_q)):
+        raise AssertionError("channelize_block_u8: the kernel route departs "
+                             "from the plain route")
+    return out
+
+
+def _wideband_capture(cfg, dev):
+    """[WB_STEPS, WB_BANDS, 2*C*if_per_block] u8 on ``dev``: ``bench.py``'s
+    wideband capture (one stereo + RDS station on channel WB_STATION,
+    800/2400 Hz, PI 54A7, PS DY4TPU), band b starting 74*b bytes in, so
+    that every band row differs while the station stays on its channel."""
+    import torch
+    from dy4tpu.rds import coding
+    from dy4tpu_torch.tx import fm
+
+    n = WB_STEPS + 1
+    n_audio = n * cfg.audio_per_block
+    bits = coding.make_ps_bitstream(fm.PI_CODE, 10, fm.PS_NAME, repeats=n)
+    cap = fm.synthesize_wideband(cfg, WB_C, n, stations={WB_STATION: dict(
+        left=fm.tone(800.0, cfg.audio_fs, n_audio, amp=0.7),
+        right=fm.tone(2400.0, cfg.audio_fs, n_audio, amp=0.7),
+        rds_bits=bits)})
+    flat = torch.from_numpy(cap).to(dev)
+    step = 2 * WB_C * cfg.if_per_block
+    blocks = torch.empty(WB_STEPS, WB_BANDS, step, dtype=torch.uint8,
+                         device=dev)
+    for b in range(WB_BANDS):
+        blocks[:, b] = flat[SHIFT * b:SHIFT * b + WB_STEPS * step].view(
+            WB_STEPS, step)
+    return blocks
+
+
+def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
+    """The wideband front door: phases 2, 3 and 3b.  Returns B7's JSON
+    entries, each with the launches of the phase-3 run."""
+    import torch
+    from dy4tpu.config import get_mode
+    from dy4tpu_torch.ops import afc, channelizer_cuda
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.pipeline import wideband as wb
+    from dy4tpu_torch.tx import fm
+
+    cfg = get_mode(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = _check_channelizer(cfg, dev, smi)
+    _say(f"phase 2 wideband: {len(results)} B7 checks and the route check "
+         f"in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    blocks = _wideband_capture(cfg, dev)
+    _distinct_rows("wideband bands", blocks[0])
+    _say(f"setup wideband: synthesized {WB_STEPS} steps, spread to "
+         f"{tuple(blocks.shape)} u8 on the card ({blocks.numel() / 1e6:.0f} "
+         f"MB; band b starts {SHIFT}*b bytes in) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    params = rx.make_params(cfg, device=dev)
+    chan = wb.make_wideband(cfg, WB_C, taps_per_branch=WB_T, device=dev)
+
+    def run():
+        st = wb.wideband_init(cfg, chan, (WB_BANDS,))
+        return wb.run_wideband_blocks(params, chan, st, blocks, cfg)
+
+    t0 = time.perf_counter()
+    label = f"wideband {WB_BANDS} bands x {WB_C} channels"
+    (_, outs), counts = _run_path(label, cfg, run, all_wrappers,
+                                  entry="wideband", n_blocks=WB_STEPS)
+    for r in results:
+        r["launches"] = counts[channelizer_cuda.channelize_branches]
+    want = {"mono": cfg.audio_per_block, "left": cfg.audio_per_block,
+            "right": cfg.audio_per_block,
+            "rds_symbols": cfg.rds_symbols_per_block}
+    for name, n in want.items():
+        got_shape = tuple(getattr(outs.rx, name).shape)
+        if got_shape != (WB_STEPS, WB_BANDS, WB_C, n):
+            raise AssertionError(f"{label} {name}: shape {got_shape}")
+    for f in (*outs.rx, outs.rssi):
+        if f is not None and f.is_floating_point() and not bool(
+                torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite output")
+    rssi = outs.rssi.mean(0)                       # [bands, C]
+    for b in WB_ROWS:
+        o = outs.rx
+        got = fm.check_reception(
+            cfg, o.left[:, b, WB_STATION].cpu().numpy(),
+            o.right[:, b, WB_STATION].cpu().numpy(),
+            o.rds_symbols[:, b, WB_STATION].cpu().numpy(),
+            o.rds_resync[:, b, WB_STATION].cpu().numpy())
+        live = float(rssi[b, WB_STATION])
+        dead = max(float(v) for c, v in enumerate(rssi[b]) if c != WB_STATION)
+        _say(f"phase 3: {label}: band {b} channel {WB_STATION} decoded: "
+             f"separation L {got['sep_l_db']:.1f} dB, R {got['sep_r_db']:.1f} "
+             f"dB, PI {got['pi']}, PS {got['ps']!r} ({got['groups']} groups);"
+             f" RSSI {live:.1f} dBFS, loudest other channel {dead:.1f} dBFS")
+        if not live >= dead + 15.0:
+            raise AssertionError(f"{label}: band {b}: channel {WB_STATION} "
+                                 f"is not 15 dB over every other channel")
+
+    sel = torch.tensor(WB_ROWS, device=dev)
+    n_check = N_CHAIN_CHECK[0]
+    plain = dict(frontend="plain", backend="plain", pll_impl="plain",
+                 channelizer="plain")
+    _, ref = wb.run_wideband_blocks(
+        params, chan, wb.wideband_init(cfg, chan, (len(WB_ROWS),)),
+        blocks[:n_check, sel].contiguous(), cfg, **plain)
+    # the live channel only: an empty channel demodulates to static, where
+    # float32 rounding differences grow without bound
+    live = lambda o, rows=slice(None): rx.StepOutputs(*(  # noqa: E731
+        None if f is None else f[:, rows, WB_STATION] for f in o))
+    _compare_chain(f"{label}: kernel path vs all-plain path", cfg,
+                   live(outs.rx, sel), live(ref.rx), n_check,
+                   rows=f"channel {WB_STATION} of bands {WB_ROWS}")
+    del outs, ref
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    msps = WB_STEPS * WB_BANDS * WB_C * cfg.if_per_block / wall / 1e6
+    bands_rt = msps * 1e6 / (WB_C * cfg.if_fs)
+    _say(f"phase 3: {label}: {msps:.1f} MS/s wideband complex IQ = "
+         f"{bands_rt:.1f} bands of {WB_C * cfg.if_fs / 1e6:g} MS/s in real "
+         f"time ({WB_STEPS} steps x {WB_BANDS * WB_C} stations in "
+         f"{wall:.3f} s, kernels, after warm-up); peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+         f"{time.perf_counter() - t0:.1f} s on {smi}")
+
+    # ---- 3b. AFC and the IQ tracker, kernel path vs all-plain ----
+    t0 = time.perf_counter()
+    opt = blocks[:WB_OPT_STEPS, :WB_OPT_BANDS].contiguous()
+    del blocks
+
+    def run_opt(**kw):
+        st = wb.wideband_init(cfg, chan, (WB_OPT_BANDS,), afc=True,
+                              iqcorr=True)
+        return wb.run_wideband_blocks(params, chan, st, opt, cfg, **kw)
+
+    k_st, k_out = run_opt()
+    p_st, p_out = run_opt(**plain)
+    label = (f"wideband AFC + IQ tracker, {WB_OPT_BANDS} bands x "
+             f"{WB_OPT_STEPS} steps")
+    _compare_chain(f"{label}: kernel path vs all-plain path", cfg,
+                   live(k_out.rx), live(p_out.rx), WB_OPT_STEPS,
+                   rows=f"channel {WB_STATION} of bands 0-{WB_OPT_BANDS - 1}")
+    hz = afc.freq_hz(k_st.afc, cfg.if_fs)[:, WB_STATION]
+    hz_plain = afc.freq_hz(p_st.afc, cfg.if_fs)[:, WB_STATION]
+    _say(f"phase 3b: {label}: AFC estimate of channel {WB_STATION}: "
+         f"{[round(float(v), 1) for v in hz]} Hz (all-plain "
+         f"{[round(float(v), 1) for v in hz_plain]} Hz); "
+         f"{time.perf_counter() - t0:.1f} s")
+    if not float(hz.abs().max()) <= AFC_TOL_HZ:
+        raise AssertionError(f"{label}: the AFC estimate of the on-grid "
+                             f"station left +-{AFC_TOL_HZ:g} Hz")
+    return results
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -551,8 +799,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's kernels run only on a CUDA device")
-    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll_cuda,
-                                  resample_cuda)
+    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,
+                                  frontend_cuda, pll_cuda, resample_cuda)
     from dy4tpu_torch.runtime import kernels
 
     # float32 throughout (dy4tpu's precision=HIGHEST): no TF32 anywhere
@@ -577,12 +825,14 @@ def main() -> None:
                     frontend_cuda.fused_frontend_if, pll_cuda.phase_scan,
                     backend_cuda.fused_audio_backend,
                     resample_cuda.fused_audio_backend_rational,
-                    resample_cuda.fused_rds_backend]
-    # ---- 2 + 3, mode by mode ----
+                    resample_cuda.fused_rds_backend,
+                    channelizer_cuda.channelize_branches]
+    # ---- 2 + 3, mode by mode, then the wideband front door ----
     results: list[dict] = []
     for mode in (0, 1, 2, 3):
         results += _run_mode(mode, dev, smi, all_wrappers)
         torch.cuda.empty_cache()
+    results += _run_wideband(dev, smi, all_wrappers)
 
     for r in results:
         del r["wrapper"]

@@ -3,7 +3,8 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The package mirrors ``dy4tpu``'s layout module for module.  It imports
 ``torch`` and never ``jax``; the JAX-free host layer of ``dy4tpu``
-(``dy4tpu.config`` and ``dy4tpu.rds.*``) is shared, not copied.
+(``dy4tpu.config``, ``dy4tpu.rds.*``, ``dy4tpu.runtime.native`` and
+``dy4tpu.utils.io``) is shared, not copied.
 
 ``import dy4tpu_torch`` stays light: subpackages load on first use.
 """

@@ -1,9 +1,10 @@
-"""Carry receiver params and state between ``dy4tpu`` and the port.
+"""Carry receiver and wideband params and state between ``dy4tpu`` and
+the port.
 
 The two packages' NamedTuples have the same fields, so a tree maps by
-field path ("rf.iq_tail", "audio.pll.phase_est", ...), not by JAX's
-pickled treedef.  A dict of numpy arrays keyed by field path is also what
-a checkpoint of the port stores.
+field path ("rf.iq_tail", "audio.pll.phase_est", "chan.tail_i",
+"rx.rds.cdr.offset", ...), not by JAX's pickled treedef.  A dict of numpy
+arrays keyed by field path is also what a checkpoint of the port stores.
 """
 
 from __future__ import annotations
@@ -11,8 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dy4tpu_torch.ops import pll
+from dy4tpu_torch.ops import afc, channelizer, iqcorr, pll
 from dy4tpu_torch.pipeline import receiver as rx
+from dy4tpu_torch.pipeline import wideband as wb
 
 # NamedTuple field -> the port's type of that subtree (None: not ported)
 _SUBTREES = {
@@ -20,6 +22,9 @@ _SUBTREES = {
                        "rds": rx.RDSState, "iqcorr": None},
     rx.AudioState: {"pll": pll.PLLState},
     rx.RDSState: {"pll": pll.PLLState, "cdr": rx.CDRState},
+    wb.WidebandState: {"chan": channelizer.ChannelizerState,
+                       "rx": rx.ReceiverState, "afc": afc.AFCState,
+                       "iqcorr": iqcorr.IQCorrState},
 }
 
 
@@ -78,6 +83,22 @@ def state_from_numpy(tree, device="cpu") -> rx.ReceiverState:
     return _build(rx.ReceiverState, _paths(tree), "", device)
 
 
-def state_to_numpy(state: rx.ReceiverState) -> dict[str, np.ndarray]:
-    """The port's state as numpy arrays keyed by field path."""
+def state_to_numpy(state) -> dict[str, np.ndarray]:
+    """The port's receiver or wideband state as numpy arrays keyed by
+    field path."""
     return leaves_by_path(state)
+
+
+def chan_params_from_numpy(tree, device="cpu"
+                           ) -> channelizer.ChannelizerParams:
+    """``dy4tpu``'s ``ChannelizerParams`` (or a dict by field path) -> the
+    port's, on ``device``."""
+    return _build(channelizer.ChannelizerParams, _paths(tree), "", device)
+
+
+def wideband_state_from_numpy(tree, device="cpu") -> wb.WidebandState:
+    """``dy4tpu``'s ``WidebandState`` (or a dict by field path) -> the
+    port's, on ``device``: the channelizer tails, the receiver state over
+    [*bands, C], and the AFC and iqcorr states where present (the iqcorr
+    block count stays int32)."""
+    return _build(wb.WidebandState, _paths(tree), "", device)

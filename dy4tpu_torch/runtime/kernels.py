@@ -35,6 +35,7 @@ KERNELS: dict[str, tuple[str, ...]] = {
     "audio_backend": (),
     "rds_backend": (),
     "audio_rational": (),
+    "channelizer": (),
 }
 
 # dynamic shared memory one thread block may take on Hopper (227 KB)

@@ -3,9 +3,9 @@
 
 The port carries this copy because ``dy4tpu.tx.fm`` imports
 ``dy4tpu.ops``, whose ``__init__`` imports JAX.  It keeps the single-
-station path (``synthesize`` with noise); multipath, the tuner-fault
-injection and the wideband synthesiser stay in dy4tpu until the port
-imports dy4tpu's module instead of this copy.
+station path (``synthesize`` with noise) and the wideband multi-station
+synthesiser (``synthesize_wideband``); multipath and the tuner-fault
+injection of the single-station path stay in dy4tpu.
 
 Multiplex (FM broadcast standard):
 
@@ -123,6 +123,56 @@ def tone(freq: float, fs: float, n: int, amp: float = 1.0,
          phase: float = 0.0) -> np.ndarray:
     """Test tone (equivalent of generateSin, src/genfunc.cpp:13-24)."""
     return amp * np.sin(2 * np.pi * freq * np.arange(n) / fs + phase)
+
+
+def synthesize_wideband(cfg: ModeConfig, channels: int, n_steps: int, *,
+                        stations: dict[int, dict],
+                        kf: float = 75e3, amp: float | None = None,
+                        noise: float = 0.0, seed: int = 0) -> np.ndarray:
+    """Multi-station wideband capture for ``ops/channelizer.py``.
+
+    One complex stream at ``fs_w = channels * cfg.if_fs`` holding an FM
+    station on carrier ``+c * cfg.if_fs`` for each entry of
+    ``stations`` — ``{channel_index: multiplex kwargs}`` (left/right/
+    rds_bits/a_*).  Returns interleaved u8 IQ of length
+    ``2 * n_steps * channels * cfg.if_per_block``.  ``amp`` is the
+    per-station amplitude (default ``0.9 / len(stations)``).
+
+    A station dict may carry ``carrier_offset_hz`` (the carrier sits that
+    far off the channel grid; the wideband AFC loop tracks it) and
+    ``station_amp`` (its own amplitude instead of ``amp``), both popped
+    before the multiplex.  ``noise``: complex white Gaussian noise per
+    sample, from ``seed``.
+    """
+    n_if = n_steps * cfg.if_per_block
+    n_w = n_if * channels
+    fs_w = cfg.if_fs * channels
+    if amp is None:
+        amp = 0.9 / max(1, len(stations))
+
+    x = np.zeros(n_w, np.complex128)
+    n = np.arange(n_w)
+    for c, kw in stations.items():
+        if not 0 <= c < channels:
+            raise ValueError(f"station channel {c} outside [0, {channels})")
+        kw = dict(kw)
+        df = kw.pop("carrier_offset_hz", 0.0)
+        a_st = kw.pop("station_amp", amp)
+        m = multiplex(cfg, n_steps, **kw)
+        m_w = sp.resample_poly(m, channels, 1)
+        m_w = np.pad(m_w[:n_w], (0, max(0, n_w - len(m_w))))
+        phase = 2 * np.pi * kf / fs_w * np.cumsum(m_w)
+        x = x + a_st * np.exp(1j * (phase + 2 * np.pi * c * n / channels
+                                    + 2 * np.pi * df / fs_w * n))
+
+    if noise > 0:
+        rng = np.random.default_rng(seed)
+        x = x + noise * (rng.standard_normal(n_w)
+                         + 1j * rng.standard_normal(n_w))
+
+    iq = np.empty(2 * n_w, np.float64)
+    iq[0::2], iq[1::2] = x.real, x.imag
+    return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
 
 
 def stereo_rds_broadcast(cfg: ModeConfig, n_blocks: int) -> np.ndarray:

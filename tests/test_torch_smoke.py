@@ -19,8 +19,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from dy4tpu.config import get_mode  # noqa: E402
-from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll,  # noqa: E402
-                              pll_cuda, resample_cuda)
+from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,  # noqa: E402
+                              frontend_cuda, pll, pll_cuda, resample_cuda)
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
 from dy4tpu_torch.runtime import kernels  # noqa: E402
 
@@ -29,7 +29,8 @@ cfg = get_mode(0)
 WRAPPERS = (frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
             backend_cuda.fused_audio_backend, resample_cuda.fused_rds_backend,
             resample_cuda.fused_audio_backend_rational,
-            frontend_cuda.fused_frontend_if)
+            frontend_cuda.fused_frontend_if,
+            channelizer_cuda.channelize_branches)
 
 
 def _env():
@@ -42,10 +43,12 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import dy4tpu_torch\n"
             "assert 'torch' not in sys.modules, 'import dy4tpu_torch is heavy'\n"
-            "from dy4tpu_torch.pipeline import convert, receiver\n"
-            "from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,"
-            " frontend_cuda, mix, pll, pll_cuda, resample_cuda, trig)\n"
+            "from dy4tpu_torch.pipeline import convert, receiver, wideband\n"
+            "from dy4tpu_torch.ops import (afc, backend_cuda, channelizer,"
+            " channelizer_cuda, demod, fir, firdes, frontend_cuda, iqcorr,"
+            " mix, pll, pll_cuda, resample_cuda, trig)\n"
             "from dy4tpu_torch.runtime import kernels\n"
+            "from dy4tpu_torch.tools import wideband as tool\n"
             "from dy4tpu_torch.tx import fm\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
             "print('JAX-MODULES', bad)\n")
@@ -105,6 +108,9 @@ def test_wrappers_refuse_non_cuda_devices(which):
         lambda: frontend_cuda.fused_frontend_if(
             m(c, n), m(c, n), m(c), m(c), m(3, 101), m(101), m(c, 100),
             m(c, 50), m(c, 100), m(c, 50)),
+        lambda: channelizer_cuda.channelize_branches(
+            m(c, 2 * 16 * n, dt=torch.uint8), m(16, 12), m(c, 191),
+            m(c, 191)),
     ]
     before = WRAPPERS[which].launches
     with pytest.raises(ValueError, match="CUDA"):
