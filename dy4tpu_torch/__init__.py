@@ -2,14 +2,17 @@
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The package mirrors ``dy4tpu``'s layout module for module.  It imports
-``torch`` and never ``jax``; the JAX-free host layer of ``dy4tpu``
-(``dy4tpu.config``, ``dy4tpu.rds.*``, ``dy4tpu.runtime.native`` and
-``dy4tpu.utils.io``) is shared, not copied.
+``torch`` and never ``jax``, and nothing of the ``dy4tpu`` package: it
+carries its own copies of dy4tpu's JAX-free host layer (``config``,
+``rds``, ``runtime/native`` with ``native/dy4_runtime.cpp``, and
+``utils/io``).
 
 ``import dy4tpu_torch`` stays light: subpackages load on first use.
 """
 
 __version__ = "0.1.0"
+
+from dy4tpu_torch.config import MODES, ModeConfig, get_mode  # noqa: F401
 
 
 def __getattr__(name):

@@ -10,6 +10,14 @@
 //   3. the pilot / stereo (/ RDS-band) bank, one shared history, and the
 //      mono delay
 //   4. (RDS only) squaring, the 114 kHz carrier BPF, and the RDS delay
+// B1 with kCorr is the same kernel with fused_frontend_full's `corr`
+// epilogue (the narrowband IQ tracker): after stage 1 it takes the 14
+// conic-fit moments E[i^p q^r] (order <= 4, iqcorr.py's _POWERS order) of
+// the row's decimated I/Q, before the correction, as a block reduction in
+// a fixed order (per-thread sums over a fixed stride, a warp shuffle tree,
+// then one thread over the warps; no atomics, so the result is the same
+// on every run), and applies i -= dc_i; q = (q - dc_q - rho*i)*s to the
+// I/Q in shared memory before the demod.
 // B6 frontend_if_kernel replaces fused_frontend_if (_kernel_front_if): its
 // stage 1 reads float32 IF I/Q rows (a channelizer's output, already band-
 // limited and decimated) instead of running the u8 read and the RF LPF;
@@ -47,7 +55,9 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 256;  // RF outputs per u8 tile
+constexpr int kMoments = 14;  // IQ-tracker moments (corr epilogue)
 
 struct Geometry {
   long long bs;    // u8 bytes per row (I and Q interleaved); 2*n_out for B6
@@ -85,15 +95,17 @@ Geometry make_geometry(long long bs, int decim, int k_rf, int kb) {
 //   buf_b [b_len]      q_ds; then the RDS band
 //   fm_ext [s_b+n_out] [bank_tail || fm]
 //   tile_i, tile_q [tile_in] the u8 tile of each leg (B1 only)
+//   red [kMoments, kWarps] per-warp moment sums (B1 with corr only)
 __host__ __device__ inline int bank_rows(bool rds) { return rds ? 3 : 2; }
 __host__ __device__ inline int buf_a_len(const Geometry& g, bool rds) {
   return rds ? g.s_b + g.n_out : g.n_out;
 }
 
-__host__ __device__ inline size_t smem_floats(const Geometry& g, bool rds) {
+__host__ __device__ inline size_t smem_floats(const Geometry& g, bool rds,
+                                              bool corr) {
   return static_cast<size_t>(g.k_rf) + (bank_rows(rds) + rds) * g.kb +
          2 * static_cast<size_t>(buf_a_len(g, rds)) + g.s_b + g.n_out +
-         2 * static_cast<size_t>(g.tile_in);
+         2 * static_cast<size_t>(g.tile_in) + (corr ? kMoments * kWarps : 0);
 }
 
 struct Smem {
@@ -105,6 +117,7 @@ struct Smem {
   float* fm_ext;
   float* tile_i;
   float* tile_q;
+  float* red;
 };
 
 template <bool kRds>
@@ -118,6 +131,7 @@ __device__ Smem carve(float* smem, const Geometry& g) {
   s.fm_ext = s.buf_b + buf_a_len(g, kRds);
   s.tile_i = s.fm_ext + g.s_b + g.n_out;
   s.tile_q = s.tile_i + g.tile_in;
+  s.red = s.tile_q + g.tile_in;
   return s;
 }
 
@@ -217,12 +231,56 @@ __device__ void band_stages(const Smem& s, const Geometry& g, long long row,
     io.rds_delay_out[row * g.dly + d] = buf_b[g.n_out - g.dly + d];
 }
 
-template <bool kRds>
+// The corr epilogue of one row.  On entry buf_a/buf_b [0, n_out) hold the
+// row's decimated I and Q, visible to every thread.  Writes the 14 means
+// of the pre-correction moments to mom[0, 14) and leaves the corrected
+// I/Q in place, visible to every thread.
+__device__ void corr_epilogue(const Smem& s, const Geometry& g, int tid,
+                              const float* corr, float* mom) {
+  const float dci = corr[0], dcq = corr[1], rho = corr[2], sc = corr[3];
+  float acc[kMoments];
+#pragma unroll
+  for (int k = 0; k < kMoments; ++k) acc[k] = 0.0f;
+  for (int m = tid; m < g.n_out; m += kThreads) {
+    const float im = s.buf_a[m];
+    const float qm = s.buf_b[m];
+    const float i2 = im * im, q2 = qm * qm;
+    const float i3 = i2 * im, q3 = q2 * qm;
+    // _POWERS: (4,0) (3,1) (2,2) (1,3) (0,4) (3,0) (2,1) (1,2) (0,3)
+    //          (2,0) (1,1) (0,2) (1,0) (0,1)
+    acc[0] += i2 * i2;  acc[1] += i3 * qm;  acc[2] += i2 * q2;
+    acc[3] += im * q3;  acc[4] += q2 * q2;  acc[5] += i3;
+    acc[6] += i2 * qm;  acc[7] += im * q2;  acc[8] += q3;
+    acc[9] += i2;       acc[10] += im * qm; acc[11] += q2;
+    acc[12] += im;      acc[13] += qm;
+    const float ic = im - dci;
+    s.buf_a[m] = ic;
+    s.buf_b[m] = (qm - dcq - rho * ic) * sc;
+  }
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < kMoments; ++k) {
+    float v = acc[k];
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) s.red[k * kWarps + warp] = v;
+  }
+  __syncthreads();  // the per-warp sums and the corrected I/Q
+  if (tid < kMoments) {
+    float t = 0.0f;
+    for (int w = 0; w < kWarps; ++w) t += s.red[tid * kWarps + w];
+    mom[tid] = t / static_cast<float>(g.n_out);
+  }
+}
+
+template <bool kRds, bool kCorr>
 __global__ void __launch_bounds__(kThreads) frontend_full_kernel(
     const uint8_t* __restrict__ iq_u8, const float* __restrict__ h_rf,
     const float* __restrict__ h_bank, const float* __restrict__ h_carrier,
     const float* __restrict__ iq_tail, float* __restrict__ iq_tail_out,
-    BandIO io, Geometry g) {
+    const float* __restrict__ corr, float* __restrict__ mom, BandIO io,
+    Geometry g) {
   extern __shared__ float smem[];
   const Smem s = carve<kRds>(smem, g);
   const long long row = blockIdx.x;
@@ -275,6 +333,8 @@ __global__ void __launch_bounds__(kThreads) frontend_full_kernel(
         0.0078125f;
   }
   __syncthreads();
+  if (kCorr)
+    corr_epilogue(s, g, tid, corr + row * 4, mom + row * kMoments);
   band_stages<kRds>(s, g, row, tid, io);
 }
 
@@ -299,19 +359,21 @@ __global__ void __launch_bounds__(kThreads) frontend_if_kernel(
   band_stages<kRds>(s, g, row, tid, io);
 }
 
-template <bool kRds>
+template <bool kRds, bool kCorr>
 int launch_full(const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
                 const float* h_carrier, const float* iq_tail,
-                float* iq_tail_out, const BandIO& io, const Geometry& g,
-                long long c, cudaStream_t stream) {
-  const size_t smem = smem_floats(g, kRds) * sizeof(float);
+                float* iq_tail_out, const float* corr, float* mom,
+                const BandIO& io, const Geometry& g, long long c,
+                cudaStream_t stream) {
+  const size_t smem = smem_floats(g, kRds, kCorr) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      frontend_full_kernel<kRds>,
+      frontend_full_kernel<kRds, kCorr>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  frontend_full_kernel<kRds><<<static_cast<unsigned>(c), kThreads, smem,
-                               stream>>>(iq_u8, h_rf, h_bank, h_carrier,
-                                         iq_tail, iq_tail_out, io, g);
+  frontend_full_kernel<kRds, kCorr>
+      <<<static_cast<unsigned>(c), kThreads, smem, stream>>>(
+          iq_u8, h_rf, h_bank, h_carrier, iq_tail, iq_tail_out, corr, mom,
+          io, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -319,7 +381,7 @@ template <bool kRds>
 int launch_if(const float* i_if, const float* q_if, const float* h_bank,
               const float* h_carrier, const BandIO& io, const Geometry& g,
               long long c, cudaStream_t stream) {
-  const size_t smem = smem_floats(g, kRds) * sizeof(float);
+  const size_t smem = smem_floats(g, kRds, false) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       frontend_if_kernel<kRds>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -332,13 +394,15 @@ int launch_if(const float* i_if, const float* q_if, const float* h_bank,
 }  // namespace
 
 // Bytes of dynamic shared memory one thread block takes: B1 for a row of
-// n_in complex samples decimated by `decim` through k_rf RF taps, or B6
-// (k_rf = 0, decim = 1) for a row of n_in IF samples.  The wrappers check
-// it against the card's 227 KB before a launch.
+// n_in complex samples decimated by `decim` through k_rf RF taps (with the
+// corr epilogue when corr != 0), or B6 (k_rf = 0, decim = 1, corr = 0)
+// for a row of n_in IF samples.  The wrappers check it against the card's
+// 227 KB before a launch.
 extern "C" long long dy4_frontend_smem(int n_in, int decim, int k_rf, int kb,
-                                       int rds) {
+                                       int rds, int corr) {
   const Geometry g = make_geometry(2LL * n_in, decim, k_rf, kb);
-  return static_cast<long long>(smem_floats(g, rds != 0) * sizeof(float));
+  return static_cast<long long>(smem_floats(g, rds != 0, corr != 0) *
+                                sizeof(float));
 }
 
 // B1.  Shapes (all row-major, float32 unless said): iq_u8 [c, bs] u8,
@@ -367,10 +431,39 @@ extern "C" int dy4_frontend_full(
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
                   carrier_tail_out, rds_delay_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return rds ? launch_full<true>(iq_u8, h_rf, h_bank, h_carrier, iq_tail,
-                                 iq_tail_out, io, g, c, st)
-             : launch_full<false>(iq_u8, h_rf, h_bank, h_carrier, iq_tail,
-                                  iq_tail_out, io, g, c, st);
+  return rds ? launch_full<true, false>(iq_u8, h_rf, h_bank, h_carrier,
+                                        iq_tail, iq_tail_out, nullptr,
+                                        nullptr, io, g, c, st)
+             : launch_full<false, false>(iq_u8, h_rf, h_bank, h_carrier,
+                                         iq_tail, iq_tail_out, nullptr,
+                                         nullptr, io, g, c, st);
+}
+
+// B1 with the corr epilogue: the arguments of dy4_frontend_full, then
+// corr [c, 4] (dc_i, dc_q, rho, s per row) and mom [c, 14] (out).
+extern "C" int dy4_frontend_full_corr(
+    const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
+    const float* h_carrier, const float* iq_tail, const float* prev_i,
+    const float* prev_q, const float* bank_tail, const float* mono_delay,
+    const float* carrier_tail, const float* rds_delay, float* fmd,
+    float* pilot, float* stereo, float* carrier, float* rdsdel,
+    float* iq_tail_out, float* prev_i_out, float* prev_q_out,
+    float* bank_tail_out, float* mono_delay_out, float* carrier_tail_out,
+    float* rds_delay_out, const float* corr, float* mom, long long c,
+    long long bs, int decim, int k_rf, int kb, int rds, void* stream) {
+  if (c <= 0) return 0;
+  const Geometry g = make_geometry(bs, decim, k_rf, kb);
+  const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
+                  rds_delay, fmd, pilot, stereo, carrier, rdsdel,
+                  prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
+                  carrier_tail_out, rds_delay_out};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return rds ? launch_full<true, true>(iq_u8, h_rf, h_bank, h_carrier,
+                                       iq_tail, iq_tail_out, corr, mom, io,
+                                       g, c, st)
+             : launch_full<false, true>(iq_u8, h_rf, h_bank, h_carrier,
+                                        iq_tail, iq_tail_out, corr, mom, io,
+                                        g, c, st);
 }
 
 // B6.  i_if, q_if: [c, n_out] float32; the rest as for B1 without the RF

@@ -6,6 +6,12 @@ fused_frontend_full``: raw u8 IQ -> normalize -> RF LPF decimating on both
 legs -> FM demod -> mono delay, pilot/stereo(/RDS-band) bank, and with RDS
 squaring + carrier BPF and the RDS delay, with every tail carried.
 
+With ``corr=`` it launches B1's corr variant, dy4tpu's ``corr``
+epilogue, the narrowband IQ tracker's tap: the kernel also returns the 14
+conic-fit moments of the decimated I/Q before the correction
+(``iqcorr.moments``) and corrects the I/Q before the demod
+(``iqcorr.apply``).
+
 ``fused_frontend_if`` (B6) replaces ``frontend_pallas.fused_frontend_if``:
 the same stages from the demod on, for float32 IF I/Q rows (the IF entry,
 ``receiver_step_if``); the RF ``iq_tail`` is not its business.
@@ -23,13 +29,15 @@ import ctypes
 
 import torch
 
-from dy4tpu_torch.ops import demod, fir, mix
+from dy4tpu_torch.ops import demod, fir, iqcorr, mix
 from dy4tpu_torch.runtime import kernels
 
 Tensor = torch.Tensor
 
 _ARGS = ([ctypes.c_void_p] * 23 + [ctypes.c_longlong] * 2
          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_CORR_ARGS = ([ctypes.c_void_p] * 25 + [ctypes.c_longlong] * 2
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _IF_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -42,15 +50,6 @@ def rf_lpf_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor, decim: int):
     iq = x.reshape(*x.shape[:-1], bs // 2, 2).movedim(-1, -2)  # I row 0
     iq_ds, iq_tail = fir.block_fir_decim(iq, h_rf, iq_tail, decim)
     return iq_ds[..., 0, :], iq_ds[..., 1, :], iq_tail
-
-
-def rf_demod_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor,
-                   prev_i: Tensor, prev_q: Tensor, decim: int):
-    """u8 [..., bs] -> (fm [..., bs/2/decim], iq_tail, prev_i, prev_q):
-    ``rf_lpf_plain``, then the demod."""
-    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h_rf, iq_tail, decim)
-    fm, prev_i, prev_q = demod.fm_demod_diff(i_ds, q_ds, prev_i, prev_q)
-    return fm, iq_tail, prev_i, prev_q
 
 
 def band_stages_plain(fm: Tensor, h_bank: Tensor, h_carrier, bank_tail,
@@ -77,17 +76,23 @@ def band_stages_plain(fm: Tensor, h_bank: Tensor, h_carrier, bank_tail,
 def fused_frontend_full_plain(iq_u8, h_rf, h_bank, h_carrier, iq_tail,
                               prev_i, prev_q, bank_tail, mono_delay,
                               carrier_tail, rds_delay, decim: int, *,
-                              rds: bool = True):
+                              rds: bool = True, corr=None):
     """Plain torch version of ``fused_frontend_full`` (any leading batch
-    dims, any device)."""
-    fm, iq_tail, prev_i, prev_q = rf_demod_plain(iq_u8, h_rf, iq_tail,
-                                                 prev_i, prev_q, decim)
-    (fmd, pilot, stereo, carrier, rdsdel, bank_tail, mono_delay,
-     carrier_tail, rds_delay) = band_stages_plain(
-        fm, h_bank, h_carrier, bank_tail, mono_delay, carrier_tail,
-        rds_delay, rds=rds)
-    return (fmd, pilot, stereo, carrier, rdsdel, iq_tail, prev_i, prev_q,
-            bank_tail, mono_delay, carrier_tail, rds_delay)
+    dims, any device): the RF LPF; with ``corr`` [..., 4] the moments of
+    the decimated I/Q (``iqcorr.moments``) and the correction
+    (``iqcorr.apply``), as dy4tpu's stock ``front_step(corr=...,
+    corr_moments=True)``; then ``fused_frontend_if_plain``.  Returns B1's
+    outputs, and ``mom`` last with ``corr``."""
+    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h_rf, iq_tail, decim)
+    mom = ()
+    if corr is not None:
+        mom = (iqcorr.moments(i_ds, q_ds),)
+        i_ds, q_ds = iqcorr.apply(i_ds, q_ds,
+                                  iqcorr.IQCorrCoeffs(*corr.unbind(-1)))
+    outs = fused_frontend_if_plain(i_ds, q_ds, prev_i, prev_q, h_bank,
+                                   h_carrier, bank_tail, mono_delay,
+                                   carrier_tail, rds_delay, rds=rds)
+    return (*outs[:5], iq_tail, *outs[5:], *mom)
 
 
 def _require_bands(h_bank, h_carrier, bank_tail, mono_delay,
@@ -116,26 +121,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
-                        prev_q, bank_tail, mono_delay, carrier_tail,
-                        rds_delay, decim: int, *, rds: bool = True):
-    """The whole front half of one block: the kernel for CUDA tensors,
-    the plain version for CPU ones.
-
-    ``iq_u8`` [C, bs] uint8; ``h_rf`` [K]; ``h_bank`` [3, Kb] (pilot,
-    stereo, RDS band; [2, Kb] will do without ``rds``); ``h_carrier``
-    [Kb]; tails ``iq_tail`` [C, 2, K-1], ``prev_i``/``prev_q`` [C],
-    ``bank_tail`` [C, Kb-1], ``mono_delay`` [C, Kb//2], ``carrier_tail``
-    [C, Kb-1], ``rds_delay`` [C, Kb//2], all float32 and contiguous.
-    Returns ``(fm_delayed, pilot, stereo, carrier, rds_delayed, iq_tail,
-    prev_i, prev_q, bank_tail, mono_delay, carrier_tail, rds_delay)``, the
-    IF-rate streams [C, bs/2/decim].  Without ``rds`` the RDS inputs are
-    not read (None will do) and the RDS outputs are None.
-    """
-    args = (iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i, prev_q,
-            bank_tail, mono_delay, carrier_tail, rds_delay)
-    if iq_u8.device.type == "cpu":
-        return fused_frontend_full_plain(*args, decim, rds=rds)
+def _launch_full(args, decim: int, rds: bool, corr=None):
+    """Check the inputs and launch B1 (with the corr epilogue when ``corr``
+    is given).  ``args``: the eleven tensors of ``fused_frontend_full``.
+    Returns the twelve outputs, and ``mom`` [C, 14] as a thirteenth with
+    ``corr``."""
+    iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i, prev_q = args[:7]
+    bank_tail, mono_delay, carrier_tail, rds_delay = args[7:]
     c, bs = iq_u8.shape
     k = h_rf.shape[0]
     kb = h_bank.shape[-1]
@@ -151,9 +143,12 @@ def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
         kernels.require(t, name, shape, device=dev)
     _require_bands(h_bank, h_carrier, bank_tail, mono_delay, carrier_tail,
                    rds_delay, c, rds, dev)
+    with_corr = corr is not None
+    if with_corr:
+        kernels.require(corr, "corr", (c, 4), device=dev)
     kernels.check_smem("frontend", "dy4_frontend_smem",
                        "fused_frontend_full", bs // 2, decim, k, kb,
-                       int(rds))
+                       int(rds), int(with_corr))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     rds_new = lambda *shape: new(*shape) if rds else None  # noqa: E731
@@ -163,16 +158,68 @@ def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
             rds_new(c, kb // 2)]
     if not rds:
         args = args[:3] + (None,) + args[4:9] + (None, None)
-    fn = kernels.entry("frontend", "dy4_frontend_full", _ARGS)
+    ptrs = [_ptr(t) for t in (*args, *outs)]
+    if with_corr:
+        mom = new(c, len(iqcorr._POWERS))
+        fn = kernels.entry("frontend", "dy4_frontend_full_corr", _CORR_ARGS)
+        ptrs += [corr.data_ptr(), mom.data_ptr()]
+    else:
+        fn = kernels.entry("frontend", "dy4_frontend_full", _ARGS)
     with torch.cuda.device(dev):
-        status = fn(*(_ptr(t) for t in args), *(_ptr(t) for t in outs),
-                    c, bs, decim, k, kb, int(rds), kernels.stream_of(iq_u8))
+        status = fn(*ptrs, c, bs, decim, k, kb, int(rds),
+                    kernels.stream_of(iq_u8))
     kernels.check_launch(status, "frontend fused_frontend_full")
-    fused_frontend_full.launches += 1
-    return tuple(outs)
+    return (*outs, mom) if with_corr else tuple(outs)
+
+
+def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
+                        prev_q, bank_tail, mono_delay, carrier_tail,
+                        rds_delay, decim: int, *, rds: bool = True,
+                        corr=None):
+    """The whole front half of one block: the kernel for CUDA tensors,
+    the plain version for CPU ones.
+
+    ``iq_u8`` [C, bs] uint8; ``h_rf`` [K]; ``h_bank`` [3, Kb] (pilot,
+    stereo, RDS band; [2, Kb] will do without ``rds``); ``h_carrier``
+    [Kb]; tails ``iq_tail`` [C, 2, K-1], ``prev_i``/``prev_q`` [C],
+    ``bank_tail`` [C, Kb-1], ``mono_delay`` [C, Kb//2], ``carrier_tail``
+    [C, Kb-1], ``rds_delay`` [C, Kb//2], all float32 and contiguous.
+    Returns ``(fm_delayed, pilot, stereo, carrier, rds_delayed, iq_tail,
+    prev_i, prev_q, bank_tail, mono_delay, carrier_tail, rds_delay)``, the
+    IF-rate streams [C, bs/2/decim].  Without ``rds`` the RDS inputs are
+    not read (None will do) and the RDS outputs are None.
+
+    ``corr`` [C, 4] float32 rows (dc_i, dc_q, rho, s) select the corr
+    variant, the IQ tracker's epilogue: it corrects each row's decimated
+    I/Q before the demod, ``i -= dc_i; q = (q - dc_q - rho*i) * s``, and
+    returns ``mom`` [C, 14] as a thirteenth output, the means E[i^p q^r]
+    of the I/Q before the correction in ``iqcorr._POWERS`` order.
+
+    Launches are counted per variant: ``fused_frontend_full.launches``
+    for the stock kernel, ``fused_frontend_full.corr.launches`` for the
+    corr variant.
+    """
+    args = (iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i, prev_q,
+            bank_tail, mono_delay, carrier_tail, rds_delay)
+    if iq_u8.device.type == "cpu":
+        return fused_frontend_full_plain(*args, decim, rds=rds, corr=corr)
+    outs = _launch_full(args, decim, rds, corr)
+    (fused_frontend_full if corr is None
+     else fused_frontend_full.corr).launches += 1
+    return outs
+
+
+class _Variant:
+    """The launch count of one template variant of a kernel wrapper, read
+    as a wrapper's own ``launches`` is."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 fused_frontend_full.launches = 0
+fused_frontend_full.corr = _Variant("fused_frontend_full[corr]")
 
 
 def fused_frontend_if_plain(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
@@ -217,7 +264,7 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
     _require_bands(h_bank, h_carrier, bank_tail, mono_delay, carrier_tail,
                    rds_delay, c, rds, dev)
     kernels.check_smem("frontend", "dy4_frontend_smem", "fused_frontend_if",
-                       n, 1, 0, kb, int(rds))
+                       n, 1, 0, kb, int(rds), 0)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     rds_new = lambda *shape: new(*shape) if rds else None  # noqa: E731

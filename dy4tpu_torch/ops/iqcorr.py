@@ -1,22 +1,27 @@
-"""Blind I/Q impairment correction for a wideband tuner: the wideband half
-of ``dy4tpu/ops/iqcorr.py``.
+"""Blind I/Q impairment correction: the counterpart of
+``dy4tpu/ops/iqcorr.py``, narrowband and wideband.
 
 The tuner model is
 
     i_obs = i + d_i
     q_obs = g * (q*cos(phi) + i*sin(phi)) + d_q
 
-and a faulted wideband tuner images channel c into the mirrored channel
-(-c mod C).  The tracker keeps EMA'd raw moments E[i^p q^r] (order <= 4,
-``_POWERS`` order) of a contiguous prefix window of the raw u8 stream
-(``wideband_moments``), reads them out with the second-order Gaussian
-estimator (``coeffs_gaussian``: the multi-station sum is near-circular
-Gaussian), and the correction is the R-linear map of ``channel_affine``,
-applied after the bank (``apply_channelized``) or folded into its DFT
-matrices (``channelizer._dft_mats_corrected``).
+The narrowband tracker (the receiver's own, ``ReceiverState.iqcorr``) fits
+an ellipse: an FM carrier has constant modulus, so its clean samples lie on
+a circle, and the impairment is an affine map that turns the circle into
+an ellipse whose center is the DC offset and whose shape is the
+imbalance.  ``coeffs`` solves the conic normal equations (a batched,
+unrolled 5x5 Cholesky solve over the EMA'd moments) and reads the
+correction out; ``apply`` applies it; ``estimate`` folds one block in.
 
-The narrowband ellipse fit (``coeffs``), ``apply`` and ``estimate`` are
-not ported yet, nor the receiver's own IQ tracker.
+A faulted wideband tuner images channel c into the mirrored channel
+(-c mod C).  The wideband tracker keeps EMA'd raw moments E[i^p q^r]
+(order <= 4, ``_POWERS`` order) of a contiguous prefix window of the raw
+u8 stream (``wideband_moments``), reads them out with the second-order
+Gaussian estimator (``coeffs_gaussian``: the multi-station sum is
+near-circular Gaussian), and the correction is the R-linear map of
+``channel_affine``, applied after the bank (``apply_channelized``) or
+folded into its DFT matrices (``channelizer._dft_mats_corrected``).
 """
 
 from __future__ import annotations
@@ -75,6 +80,108 @@ def fold(state: IQCorrState, mom: Tensor, *,
     a = float(np.float32(alpha))
     return IQCorrState(m=state.m * float(np.float32(1.0 - a)) + a * mom,
                        count=state.count + 1)
+
+
+def estimate(i: Tensor, q: Tensor, state: IQCorrState, *,
+             alpha: float = 0.2) -> IQCorrState:
+    """Fold one block of observed I/Q ([..., N]) into the moments."""
+    return fold(state, moments(i, q), alpha=alpha)
+
+
+def coeffs(state: IQCorrState, *, min_power: float = 1e-6,
+           deadband_dc: float = 0.005, deadband: float = 0.02
+           ) -> IQCorrCoeffs:
+    """Correction coefficients from the accumulated moments: solve the
+    conic normal equations for ``a x^2 + b xy + c y^2 + d x + e y = 1``
+    (batched 5x5), then read the center and the shape:
+
+        center:  [[2a, b], [b, 2c]] @ p0 = [-d, -e]
+        rho = -b / (2c)             (= g sin(phi))
+        s   = 1 / sqrt(a/c - rho^2) (= 1 / (g cos(phi)))
+
+    The solve is an unrolled Cholesky in elementwise torch ops, in
+    dy4tpu's op order, so that the deadband decisions follow dy4tpu's.
+    Identity (dc=0, rho=0, s=1) until a block is folded in, under
+    ``min_power``, or when the fit is not an ellipse or not finite; each
+    component within its deadband of the identity snaps to it exactly,
+    so a healthy tuner decodes bit-identically with the tracker on."""
+    m = state.m
+    g = lambda p, r: m[..., _IDX[(p, r)]]  # noqa: E731
+
+    # normal equations for v = (x^2, xy, y^2, x, y), target 1:
+    # E[v v^T] beta = E[v]; the EMA warm-up scale cancels here
+    rows = [
+        [g(4, 0), g(3, 1), g(2, 2), g(3, 0), g(2, 1)],
+        [g(3, 1), g(2, 2), g(1, 3), g(2, 1), g(1, 2)],
+        [g(2, 2), g(1, 3), g(0, 4), g(1, 2), g(0, 3)],
+        [g(3, 0), g(2, 1), g(1, 2), g(2, 0), g(1, 1)],
+        [g(2, 1), g(1, 2), g(0, 3), g(1, 1), g(0, 2)],
+    ]
+    h = [g(2, 0), g(1, 1), g(0, 2), g(1, 0), g(0, 1)]
+
+    power = g(2, 0) - g(1, 0) ** 2
+    ok = (state.count > 0) & (power > min_power)
+
+    L = [[None] * 5 for _ in range(5)]
+    for i in range(5):
+        for j in range(i + 1):
+            v = rows[i][j]
+            for k in range(j):
+                v = v - L[i][k] * L[j][k]
+            if i == j:
+                L[i][j] = torch.sqrt(torch.clamp(v, min=1e-20))
+            else:
+                L[i][j] = v / L[j][j]
+    y = [None] * 5
+    for i in range(5):
+        v = h[i]
+        for k in range(i):
+            v = v - L[i][k] * y[k]
+        y[i] = v / L[i][i]
+    beta = [None] * 5
+    for i in reversed(range(5)):
+        v = y[i]
+        for k in range(i + 1, 5):
+            v = v - L[k][i] * beta[k]
+        beta[i] = v / L[i][i]
+    a, b, c, d, e = beta
+
+    one = torch.ones_like(a)
+    det2 = 4.0 * a * c - b * b
+    safe = torch.where(torch.abs(det2) > 1e-20, det2, one)
+    x0 = (-2.0 * c * d + b * e) / safe
+    y0 = (-2.0 * a * e + b * d) / safe
+    c_safe = torch.where(torch.abs(c) > 1e-20, c, one)
+    rho = -b / (2.0 * c_safe)
+    w22sq = a / c_safe - rho * rho
+    s = 1.0 / torch.sqrt(torch.clamp(w22sq, min=1e-12))
+
+    # trustworthy only when it is an ellipse and everything is finite
+    fin = (torch.isfinite(x0) & torch.isfinite(y0) & torch.isfinite(rho)
+           & torch.isfinite(s))
+    ok = ok & fin & (a > 0.0) & (c > 0.0) & (det2 > 0.0) & (w22sq > 1e-6)
+
+    zero = torch.zeros_like(rho)
+    gate = lambda v, off, t: torch.where(          # noqa: E731
+        torch.abs(v - off) > t, v, torch.full_like(v, off))
+    return IQCorrCoeffs(
+        dc_i=gate(torch.where(ok, x0, zero), 0.0, deadband_dc),
+        dc_q=gate(torch.where(ok, y0, zero), 0.0, deadband_dc),
+        rho=gate(torch.where(ok, rho, zero), 0.0, deadband),
+        s=gate(torch.where(ok, s, one), 1.0, deadband))
+
+
+def apply(i: Tensor, q: Tensor, c: IQCorrCoeffs, *,
+          dc_scale: float | Tensor = 1.0) -> tuple[Tensor, Tensor]:
+    """Apply the correction to an I/Q block ([..., N]; coeffs batch-
+    shaped).  ``dc_scale``: DC gain between the estimation point and the
+    application point (the 2x2 part commutes with any per-component LTI
+    filter; only the offsets pick up the filter's DC gain)."""
+    dci = (c.dc_i * dc_scale)[..., None]
+    dcq = (c.dc_q * dc_scale)[..., None]
+    i_c = i - dci
+    q_c = (q - dcq - c.rho[..., None] * i_c) * c.s[..., None]
+    return i_c, q_c
 
 
 def coeffs_gaussian(state: IQCorrState, *, min_power: float = 1e-6,

@@ -1,6 +1,6 @@
 """Pointwise mixers, stereo matrix, delay line and quantisation: the
-counterpart of ``dy4tpu/ops/mix.py`` (src/filter.cpp:229-301 and the
-output quantiser of project.cpp:313-316)."""
+counterpart of ``dy4tpu/ops/mix.py`` (src/filter.cpp:229-301, the
+output quantiser of project.cpp:313-316, and the stereo blend)."""
 
 from __future__ import annotations
 
@@ -46,3 +46,18 @@ def quantize_s16(x: Tensor, scale: float = 16384.0) -> Tensor:
 def squaring_nonlinearity(x: Tensor) -> Tensor:
     """x^2 carrier-recovery nonlinearity for RDS (fmMonoBlock.py:405-409)."""
     return x * x
+
+
+def stereo_blend(left: Tensor, right: Tensor, pilot_snr_db: Tensor,
+                 full_db: float = 14.0, mono_db: float = 4.0
+                 ) -> tuple[Tensor, Tensor]:
+    """Weak-signal stereo -> mono blend (dy4tpu's ``mix.stereo_blend``):
+    the stereo difference fades out as the pilot-lock SNR
+    (``StepOutputs.pilot_snr_db``) weakens, g=1 at ``full_db`` and above,
+    g=0 at ``mono_db`` and below, linear in dB between, applied after the
+    matrix: L' = M + g*S, R' = M - g*S with M=(L+R)/2, S=(L-R)/2."""
+    g = torch.clamp((pilot_snr_db - mono_db) / (full_db - mono_db),
+                    0.0, 1.0)[..., None]
+    m = 0.5 * (left + right)
+    s = 0.5 * (left - right)
+    return m + g * s, m - g * s

@@ -1,5 +1,5 @@
 """Type-II software PLL + NCO: the counterpart of ``dy4tpu/ops/pll.py``
-(sign-detector path).
+(the sign-detector path and the span PLL).
 
 Reference: ``fmPLL`` (src/filter.cpp:174-228) and the Python-model twin
 with quadrature output (``fmPll`` model/fmMonoBlock.py:344-379).  Loop
@@ -20,6 +20,13 @@ receiver uses (2.0 stereo, 0.5 RDS, 1.0) since scale*4*pi = 0 mod 2*pi.
 "kernel" runs the CUDA kernel (``ops/pll_cuda.py``; CUDA tensors only),
 "auto" takes the kernel for a CUDA tensor and the plain loop for a CPU
 one.  Kernel and plain loop are bit-identical on the card.
+
+``pll(span=K)`` with K > 1 is dy4tpu's decimated-feedback ("span") PLL, an
+opt-in throughput mode that is not bit-exact against the per-sample loop:
+one loop-filter update per K samples, driven by a span-averaged detector
+target (``_span_targets``), with the within-span phases rebuilt
+vectorized afterwards (``_span_expand``), so the serial chain is N/K steps
+long.  ``span`` is an argument: the library reads no environment variable.
 """
 
 from __future__ import annotations
@@ -103,9 +110,89 @@ def _make_step(kp, ki, dtheta):
     return step
 
 
+def _span_consts(kp, ki, dtheta, span: int):
+    """(k, kp_eff, ki_eff, dth_eff) of the span step as float32 numpy
+    values, computed in the order of dy4tpu's ``_make_span_step``, so that
+    the CUDA kernel and the plain scan take the same bits.  The per-span
+    angle increment is pre-wrapped (``span*dtheta`` can exceed WRAP for
+    the 114 kHz RDS carrier) so the in-loop conditional wrap stays total.
+    """
+    f32 = np.float32
+    k = f32(span)
+    wrap = f32(_WRAP)
+    kp_eff = k * kp + ki * f32(span * (span + 1) / 2.0)
+    ki_eff = k * ki
+    dth = k * np.asarray(dtheta, f32)
+    dth_eff = dth - wrap * np.floor(dth / wrap)
+    return k, kp_eff, ki_eff, dth_eff
+
+
+def _make_span_step(kp_eff, ki_eff, dth_eff, k: float):
+    """One loop-filter update per span, op for op dy4tpu's
+    ``_make_span_step`` (the error is held over the span and the loop
+    evolved through it in closed form; note that the integrator update
+    comes after ``pe`` here).  ``step(carry, target, dead)`` returns the
+    new carry and the emitted pre-update phase; ``dead`` (a NaN target)
+    zeroes the error.  The CUDA kernel (csrc/pll.cu) reproduces it
+    bitwise."""
+    def step(carry, tk, zk):
+        integrator, phase_est, angle = carry
+        phi = angle + phase_est
+        v = tk - phi + PI
+        error_d = v - TWO_PI * torch.floor(v * INV_TWO_PI) - PI
+        error_d = torch.where(zk, 0.0, error_d)
+        pe = phase_est + kp_eff * error_d + k * integrator
+        integrator = integrator + ki_eff * error_d
+        pe = pe - torch.where(pe >= WRAP, WRAP, 0.0)
+        pe = pe + torch.where(pe < 0.0, WRAP, 0.0)
+        ang = angle + dth_eff
+        angle = ang - torch.where(ang >= WRAP, WRAP, 0.0)
+        return (integrator, pe, angle), phi
+
+    return step
+
+
+def _span_targets(x: Tensor, dtheta: Tensor, span: int) -> Tensor:
+    """Span-averaged phase-detector targets ([..., N] -> [..., N/span]),
+    as dy4tpu's ``_span_targets``: the detector phasor sign(x_i) averaged
+    over the span with the NCO's known within-span ramp compensated,
+    ``T = arg(sum_i sign(x_i) exp(-j i dtheta))``.  Spans with no sign
+    information (all-zero input, or full cancellation) give NaN, which
+    the scan maps to a zero error."""
+    xr = x.reshape(*x.shape[:-1], x.shape[-1] // span, span)
+    sgn = torch.sign(xr)                                  # 0 drops a sample
+    i = torch.arange(span, dtype=x.dtype, device=x.device)
+    ramp = dtheta[..., None] * i                          # [(lanes), K]
+    cosr = torch.cos(ramp)[..., None, :]                  # [(lanes), 1, K]
+    sinr = torch.sin(ramp)[..., None, :]
+    s_re = torch.sum(sgn * cosr, dim=-1)                  # [..., M]
+    s_im = -torch.sum(sgn * sinr, dim=-1)
+    t = torch.atan2(s_im, s_re)
+    dead = s_re * s_re + s_im * s_im < float(np.float32(1e-6))
+    return torch.where(dead, float("nan"), t)
+
+
+def _span_expand(phi0: Tensor, i0: Tensor, targets: Tensor, kp: Tensor,
+                 ki: Tensor, dtheta: Tensor, span: int) -> Tensor:
+    """Within-span phase reconstruction, as dy4tpu's ``_span_expand``:
+    per-span (phi0, I0, detector target) [..., M] -> [..., M*span] with
+    ``out_j = phi0 + j*(dtheta + kp*err + I0) + j(j+1)/2 * ki*err``
+    (the per-sample ``kp``/``ki``/``dtheta``, not the span's)."""
+    v = targets - phi0 + PI
+    err = v - TWO_PI * torch.floor(v * INV_TWO_PI) - PI
+    err = torch.where(torch.isnan(targets), 0.0, err)
+    lin = dtheta[..., None] + kp[..., None] * err + i0    # [..., M]
+    quad = ki[..., None] * err
+    j = torch.arange(span, dtype=phi0.dtype, device=phi0.device)
+    tri = j * (j + 1.0) * 0.5
+    out = phi0[..., None] + j * lin[..., None] + tri * quad[..., None]
+    return out.reshape(*phi0.shape[:-1], phi0.shape[-1] * span)
+
+
 def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
         nco_scale=1.0, norm_bandwidth=0.01,
-        impl: str = "auto") -> tuple[Tensor, Tensor, PLLState]:
+        impl: str = "auto", span: int = 1
+        ) -> tuple[Tensor, Tensor, PLLState]:
     """Run the PLL over a block.
 
     ``pll_in``: [..., N] float32; state fields: [...].  Returns
@@ -113,23 +200,40 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
     ``freq``/``nco_scale``/``norm_bandwidth`` may be scalars or per-lane
     arrays broadcastable to the batch dims (several loop configurations
     in one scan, e.g. the stereo pilot and the RDS carrier on a lane axis).
+
+    ``span``: 1 (default) runs the exact per-sample loop (B2); K > 1 the
+    span PLL (module docstring; B9), which needs ``N % K == 0``.
     """
     from dy4tpu_torch.ops import pll_cuda  # its plain twin imports us
 
     dev = pll_in.device
-    kp, ki, dtheta = (torch.as_tensor(v, device=dev)
-                      for v in _loop_consts(freq, fs, norm_bandwidth))
+    consts = _loop_consts(freq, fs, norm_bandwidth)
+    kp, ki, dtheta = (torch.as_tensor(v, device=dev) for v in consts)
     scale = torch.as_tensor(np.asarray(nco_scale, np.float32), device=dev)
     carry0 = (state.integrator, state.phase_est, state.angle)
-    if impl == "plain":
-        scan = pll_cuda.phase_scan_plain
-    elif impl == "kernel" and not pll_in.is_cuda:
-        raise ValueError(f"impl='kernel' needs a CUDA tensor, got {dev}")
-    elif impl in ("kernel", "auto"):
-        scan = pll_cuda.phase_scan
-    else:
+    if impl not in ("plain", "kernel", "auto"):
         raise ValueError(f"unknown pll impl {impl!r}")
-    phis, (integ, pe, ang) = scan(pll_in, kp, ki, dtheta, carry0)
+    if impl == "kernel" and not pll_in.is_cuda:
+        raise ValueError(f"impl='kernel' needs a CUDA tensor, got {dev}")
+    plain = impl == "plain"
+    if span > 1:
+        n = pll_in.shape[-1]
+        if n % span:
+            raise ValueError(f"block length {n} not divisible by pll span "
+                             f"{span}")
+        k, *eff = _span_consts(*consts, span)
+        kp_e, ki_e, dth_e = (torch.as_tensor(v, device=dev) for v in eff)
+        targets = _span_targets(pll_in, dtheta, span).contiguous()
+        scan = (pll_cuda.phase_scan_target_plain if plain
+                else pll_cuda.phase_scan_target)
+        phi0, i0, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
+                                          carry0, span=span)
+        phis = _span_expand(phi0, i0, targets, kp, ki, dtheta, span)
+    elif span == 1:
+        scan = pll_cuda.phase_scan_plain if plain else pll_cuda.phase_scan
+        phis, (integ, pe, ang) = scan(pll_in, kp, ki, dtheta, carry0)
+    else:
+        raise ValueError(f"pll span must be >= 1, got {span}")
 
     nco_q, nco_i = trig.nco_sincos(phis * scale[..., None])
     # the first output comes from the carried NCO (handles the reference's

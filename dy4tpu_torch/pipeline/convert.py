@@ -16,10 +16,10 @@ from dy4tpu_torch.ops import afc, channelizer, iqcorr, pll
 from dy4tpu_torch.pipeline import receiver as rx
 from dy4tpu_torch.pipeline import wideband as wb
 
-# NamedTuple field -> the port's type of that subtree (None: not ported)
+# NamedTuple field -> the port's type of that subtree
 _SUBTREES = {
     rx.ReceiverState: {"rf": rx.RFState, "audio": rx.AudioState,
-                       "rds": rx.RDSState, "iqcorr": None},
+                       "rds": rx.RDSState, "iqcorr": iqcorr.IQCorrState},
     rx.AudioState: {"pll": pll.PLLState},
     rx.RDSState: {"pll": pll.PLLState, "cdr": rx.CDRState},
     wb.WidebandState: {"chan": channelizer.ChannelizerState,
@@ -53,9 +53,6 @@ def _build(cls, paths: dict, prefix: str, device):
         if name in kids:
             if not any(k.startswith(key + ".") for k in paths):
                 vals[name] = None
-            elif kids[name] is None:
-                raise NotImplementedError(f"{key} is not ported yet: "
-                                          f"ROADMAP Queue A item 9")
             else:
                 vals[name] = _build(kids[name], paths, key + ".", device)
         elif key in paths:
@@ -70,16 +67,16 @@ def _paths(tree) -> dict:
     return tree if isinstance(tree, dict) else leaves_by_path(tree)
 
 
-def params_from_numpy(tree, device="cpu") -> rx.ReceiverParams:
+def params_from_numpy(tree, device="cuda") -> rx.ReceiverParams:
     """``dy4tpu``'s ``ReceiverParams`` (or a dict by field path) -> the
     port's, on ``device``."""
     return _build(rx.ReceiverParams, _paths(tree), "", device)
 
 
-def state_from_numpy(tree, device="cpu") -> rx.ReceiverState:
+def state_from_numpy(tree, device="cuda") -> rx.ReceiverState:
     """``dy4tpu``'s ``ReceiverState`` (or a dict by field path) -> the
     port's, on ``device``; dtypes are kept (int32 CDR offset, bool
-    lock flag)."""
+    lock flag, int32 iqcorr block count)."""
     return _build(rx.ReceiverState, _paths(tree), "", device)
 
 
@@ -89,14 +86,14 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
     return leaves_by_path(state)
 
 
-def chan_params_from_numpy(tree, device="cpu"
+def chan_params_from_numpy(tree, device="cuda"
                            ) -> channelizer.ChannelizerParams:
     """``dy4tpu``'s ``ChannelizerParams`` (or a dict by field path) -> the
     port's, on ``device``."""
     return _build(channelizer.ChannelizerParams, _paths(tree), "", device)
 
 
-def wideband_state_from_numpy(tree, device="cpu") -> wb.WidebandState:
+def wideband_state_from_numpy(tree, device="cuda") -> wb.WidebandState:
     """``dy4tpu``'s ``WidebandState`` (or a dict by field path) -> the
     port's, on ``device``: the channelizer tails, the receiver state over
     [*bands, C], and the AFC and iqcorr states where present (the iqcorr

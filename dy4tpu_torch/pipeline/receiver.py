@@ -25,6 +25,15 @@ recovery.  Each stage selects its implementation:
 No environment variable picks the path, and a CUDA tensor never falls
 back to the plain version silently.  Everything is float32 (dy4tpu's
 ``precision=HIGHEST``).
+
+Opt-in features, as dy4tpu's: the narrowband IQ tracker
+(``init_state(with_iqcorr=True)``: each block is corrected with the
+coefficients of the blocks before it, inside B1's corr epilogue, and the
+block's pre-correction moments are folded in), the span PLL
+(``pll_span=K``), the Kaiser audio filter (``make_params(audio_filter=
+"kaiser")``) and the envelope CDR (``cdr_timing="envelope"``).  The entry
+points put params and state on the card unless the caller asks for the
+CPU (``device="cpu"``, as the tests do).
 """
 
 from __future__ import annotations
@@ -34,9 +43,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from dy4tpu.config import ModeConfig
-from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,
-                              frontend_cuda, mix, pll, resample_cuda)
+from dy4tpu_torch.config import ModeConfig
+from dy4tpu_torch.ops import (backend_cuda, fir, firdes, frontend_cuda,
+                              iqcorr, mix, pll, resample_cuda)
 
 Tensor = torch.Tensor
 
@@ -86,7 +95,7 @@ class ReceiverState(NamedTuple):
     rf: RFState
     audio: AudioState
     rds: Optional[RDSState]
-    iqcorr: None = None     # dy4tpu's opt-in IQ tracker: not ported yet
+    iqcorr: Optional[iqcorr.IQCorrState] = None   # opt-in IQ tracker
 
 
 class StepOutputs(NamedTuple):
@@ -139,8 +148,6 @@ class BackOut(NamedTuple):
 
 
 _IMPLS = ("auto", "plain")
-_IQCORR = ("the IQ tracker (ops/iqcorr.py) is not ported yet: ROADMAP "
-           "Queue A item 9")
 
 
 def _rds_on(cfg: ModeConfig, with_rds) -> bool:
@@ -185,64 +192,73 @@ def _flattener(batch: torch.Size):
 
 def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
                cfg: ModeConfig, *, rds_enabled: bool = True,
-               frontend: str = "auto") -> tuple[FrontState, FrontOut]:
+               frontend: str = "auto",
+               corr: Optional[iqcorr.IQCorrCoeffs] = None,
+               corr_moments: bool = False):
     """RF front end + band bank + RDS carrier recovery filters: the LTI
     half of the receiver (project.cpp:72-93 + fmMonoBlock.py:673-680).
+    Returns ``(FrontState, FrontOut)``, and with ``corr_moments`` the
+    block's IQ-tracker moments [..., 14] as a third value.
 
-    ``frontend``: "auto" (``frontend_cuda.fused_frontend_full``: the
-    kernel on a CUDA tensor, the plain version on a CPU one) or "plain"
-    (normalize + FIR + demod, then ``_front_post_demod``, on any device).
+    ``frontend``: "auto" (``frontend_cuda.fused_frontend_full``, its
+    corr variant with ``corr``: the kernel on a CUDA tensor, the plain
+    version on a CPU one) or "plain" (its plain version on any device).
+
+    ``corr``: batch-shaped IQ correction coefficients applied to the
+    decimated I/Q before the demod; ``corr_moments`` (which needs
+    ``corr``, as in dy4tpu) also returns the moments of that I/Q before
+    the correction.
     """
     if iq_u8.shape[-1] != cfg.block_size:
         raise ValueError(f"block of {iq_u8.shape[-1]} bytes; mode "
                          f"{cfg.mode} takes {cfg.block_size}")
-    if frontend == "plain":
-        fm, iq_tail, prev_i, prev_q = frontend_cuda.rf_demod_plain(
-            iq_u8, params.rf_coeff, fstate.rf.iq_tail, fstate.rf.prev_i,
-            fstate.rf.prev_q, cfg.rf_decim)
-        new_rf = RFState(iq_tail=iq_tail, prev_i=prev_i, prev_q=prev_q)
-        return _front_post_demod(params, fstate, fm, new_rf, rds_enabled)
-    if frontend != "auto":
-        raise ValueError(f"frontend must be one of {_IMPLS}, got "
-                         f"{frontend!r}")
-    batch = iq_u8.shape[:-1]
-    flat, unflat = _flattener(batch)
-    (fmd, pilot, stereo, carrier, rds_delayed, iq_tail, prev_i, prev_q,
-     bank_tail, mono_delay, carrier_tail, rds_delay) = (
-        frontend_cuda.fused_frontend_full(
-            flat(iq_u8), params.rf_coeff, params.bank_coeff,
+    if corr is not None and frontend not in _IMPLS:
+        raise ValueError(f"IQ correction unsupported with frontend="
+                         f"{frontend!r}; use one of {_IMPLS}")
+    if corr_moments and corr is None:
+        raise ValueError("corr_moments=True requires corr (the front end "
+                         "emits the moments with its correction epilogue)")
+    flat, unflat, plain = _route(frontend, iq_u8.shape[:-1])
+    args = (flat(iq_u8), params.rf_coeff, params.bank_coeff,
             params.rds_carrier_coeff, flat(fstate.rf.iq_tail),
             flat(fstate.rf.prev_i), flat(fstate.rf.prev_q),
             flat(fstate.bank_tail), flat(fstate.mono_delay),
-            flat(fstate.carrier_tail), flat(fstate.rds_delay),
-            cfg.rf_decim, rds=rds_enabled))
-    return (FrontState(rf=RFState(iq_tail=unflat(iq_tail),
-                                  prev_i=unflat(prev_i),
-                                  prev_q=unflat(prev_q)),
-                       mono_delay=unflat(mono_delay),
-                       bank_tail=unflat(bank_tail),
-                       carrier_tail=unflat(carrier_tail),
-                       rds_delay=unflat(rds_delay)),
-            FrontOut(fm_delayed=unflat(fmd), pilot=unflat(pilot),
-                     stereo_band=unflat(stereo), carrier=unflat(carrier),
-                     rds_delayed=unflat(rds_delayed)))
+            flat(fstate.carrier_tail), flat(fstate.rds_delay), cfg.rf_decim)
+    front = (frontend_cuda.fused_frontend_full_plain if plain
+             else frontend_cuda.fused_frontend_full)
+    corr_rows = (None if corr is None else
+                 torch.stack([flat(c) for c in corr], dim=-1))  # [..., 4]
+    outs = front(*args, rds=rds_enabled, corr=corr_rows)
+    ret = _front_state(outs[:5] + outs[6:12], unflat(outs[5]), unflat)
+    return (*ret, unflat(outs[12])) if corr_moments else ret
 
 
-def _front_post_demod(params: ReceiverParams, fstate: FrontState,
-                      fm: Tensor, new_rf: RFState, rds_enabled: bool
-                      ) -> tuple[FrontState, FrontOut]:
-    """Everything between the FM demod output and the PLLs (plain)."""
-    (fm_delayed, pilot, stereo, carrier, rds_delayed, bank_tail,
-     mono_delay, carrier_tail, rds_delay) = frontend_cuda.band_stages_plain(
-        fm, params.bank_coeff, params.rds_carrier_coeff, fstate.bank_tail,
-        fstate.mono_delay, fstate.carrier_tail, fstate.rds_delay,
-        rds=rds_enabled)
-    return (FrontState(rf=new_rf, mono_delay=mono_delay,
-                       bank_tail=bank_tail, carrier_tail=carrier_tail,
-                       rds_delay=rds_delay),
-            FrontOut(fm_delayed=fm_delayed, pilot=pilot,
-                     stereo_band=stereo, carrier=carrier,
-                     rds_delayed=rds_delayed))
+def _route(frontend: str, batch: torch.Size):
+    """``(flat, unflat, plain)`` for a front end: the plain versions take
+    any leading batch dims as they are, the kernel wrappers a contiguous
+    ``[C, ...]`` (``_flattener``)."""
+    if frontend not in _IMPLS:
+        raise ValueError(f"frontend must be one of {_IMPLS}, got "
+                         f"{frontend!r}")
+    if frontend == "plain":
+        same = lambda a: a  # noqa: E731
+        return same, same, True
+    return (*_flattener(batch), False)
+
+
+def _front_state(outs, iq_tail: Tensor, unflat
+                 ) -> tuple[FrontState, FrontOut]:
+    """``(FrontState, FrontOut)`` from a front end's outputs: the five
+    streams, ``prev_i``/``prev_q`` and the four band tails; ``iq_tail``
+    is the new RF tail."""
+    (fmd, pilot, stereo, carrier, rds_delayed, prev_i, prev_q, bank_tail,
+     mono_delay, carrier_tail, rds_delay) = (unflat(o) for o in outs)
+    return (FrontState(rf=RFState(iq_tail=iq_tail, prev_i=prev_i,
+                                  prev_q=prev_q),
+                       mono_delay=mono_delay, bank_tail=bank_tail,
+                       carrier_tail=carrier_tail, rds_delay=rds_delay),
+            FrontOut(fm_delayed=fmd, pilot=pilot, stereo_band=stereo,
+                     carrier=carrier, rds_delayed=rds_delayed))
 
 
 def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
@@ -256,40 +272,22 @@ def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
     the RF entry's.
 
     ``frontend``: "auto" (``frontend_cuda.fused_frontend_if``: the kernel
-    on a CUDA tensor, the plain version on a CPU one) or "plain" (demod,
-    then ``_front_post_demod``, on any device).
+    on a CUDA tensor, the plain version on a CPU one) or "plain" (its
+    plain version on any device).
     """
     if i_if.shape[-1] != cfg.if_per_block or q_if.shape != i_if.shape:
         raise ValueError(f"IF blocks of {tuple(i_if.shape)} and "
                          f"{tuple(q_if.shape)}; mode {cfg.mode} takes "
                          f"[..., {cfg.if_per_block}] for both")
-    if frontend == "plain":
-        fm, prev_i, prev_q = demod.fm_demod_diff(i_if, q_if, fstate.rf.prev_i,
-                                                 fstate.rf.prev_q)
-        new_rf = RFState(iq_tail=fstate.rf.iq_tail, prev_i=prev_i,
-                         prev_q=prev_q)
-        return _front_post_demod(params, fstate, fm, new_rf, rds_enabled)
-    if frontend != "auto":
-        raise ValueError(f"frontend must be one of {_IMPLS}, got "
-                         f"{frontend!r}")
-    batch = i_if.shape[:-1]
-    flat, unflat = _flattener(batch)
-    (fmd, pilot, stereo, carrier, rds_delayed, prev_i, prev_q, bank_tail,
-     mono_delay, carrier_tail, rds_delay) = frontend_cuda.fused_frontend_if(
-        flat(i_if), flat(q_if), flat(fstate.rf.prev_i),
-        flat(fstate.rf.prev_q), params.bank_coeff, params.rds_carrier_coeff,
-        flat(fstate.bank_tail), flat(fstate.mono_delay),
-        flat(fstate.carrier_tail), flat(fstate.rds_delay), rds=rds_enabled)
-    return (FrontState(rf=RFState(iq_tail=fstate.rf.iq_tail,
-                                  prev_i=unflat(prev_i),
-                                  prev_q=unflat(prev_q)),
-                       mono_delay=unflat(mono_delay),
-                       bank_tail=unflat(bank_tail),
-                       carrier_tail=unflat(carrier_tail),
-                       rds_delay=unflat(rds_delay)),
-            FrontOut(fm_delayed=unflat(fmd), pilot=unflat(pilot),
-                     stereo_band=unflat(stereo), carrier=unflat(carrier),
-                     rds_delayed=unflat(rds_delayed)))
+    flat, unflat, plain = _route(frontend, i_if.shape[:-1])
+    front = (frontend_cuda.fused_frontend_if_plain if plain
+             else frontend_cuda.fused_frontend_if)
+    outs = front(flat(i_if), flat(q_if), flat(fstate.rf.prev_i),
+                 flat(fstate.rf.prev_q), params.bank_coeff,
+                 params.rds_carrier_coeff, flat(fstate.bank_tail),
+                 flat(fstate.mono_delay), flat(fstate.carrier_tail),
+                 flat(fstate.rds_delay), rds=rds_enabled)
+    return _front_state(outs, fstate.rf.iq_tail, unflat)
 
 
 def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
@@ -347,17 +345,24 @@ def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
 
 
 def make_params(cfg: ModeConfig, with_rds: Optional[bool] = None,
-                device="cpu") -> ReceiverParams:
+                audio_filter: str = "reference",
+                device="cuda") -> ReceiverParams:
     """Design all filters for a mode (host-side, run once) and put them
-    on ``device``.  The audio LPF is the reference's Hann windowed sinc.
+    on ``device`` (the card unless the caller asks for the CPU).
     ``with_rds=False`` omits the RDS filters (and must be matched by the
-    same flag in ``init_state``)."""
+    same flag in ``init_state``).  ``audio_filter``: "reference" (the
+    reference's Hann windowed sinc) or "kaiser" (the same geometry, about
+    30 dB more alias rejection)."""
+    designs = {"reference": firdes.lpf, "kaiser": firdes.lpf_kaiser}
+    if audio_filter not in designs:
+        raise ValueError(f"audio_filter must be one of {sorted(designs)}, "
+                         f"got {audio_filter!r}")
     if_fs = cfg.if_fs
     t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
         a, device=device)
     rf = firdes.lpf(cfg.rf_fs, cfg.rf_fc, cfg.num_taps)
-    audio = firdes.lpf(if_fs * cfg.audio_up, cfg.audio_fc, cfg.audio_taps,
-                       up_factor=cfg.audio_up)
+    audio = designs[audio_filter](if_fs * cfg.audio_up, cfg.audio_fc,
+                                  cfg.audio_taps, up_factor=cfg.audio_up)
     bank = [firdes.bpf(if_fs, cfg.pilot_fb, cfg.pilot_fe, cfg.num_taps),
             firdes.bpf(if_fs, cfg.stereo_fb, cfg.stereo_fe, cfg.num_taps)]
     carrier = rds_lpf = rrc = None
@@ -376,9 +381,9 @@ def make_params(cfg: ModeConfig, with_rds: Optional[bool] = None,
 
 def init_state(cfg: ModeConfig, batch: tuple[int, ...] = (),
                dtype=torch.float32, with_rds: Optional[bool] = None,
-               with_iqcorr: bool = False, device="cpu") -> ReceiverState:
-    if with_iqcorr:
-        raise NotImplementedError(_IQCORR)
+               with_iqcorr: bool = False, device="cuda") -> ReceiverState:
+    """Zero state for ``batch`` streams on ``device`` (the card unless the
+    caller asks for the CPU); ``with_iqcorr`` adds the IQ tracker."""
     t = cfg.num_taps
     z = lambda *s: torch.zeros((*batch, *s), dtype=dtype,  # noqa: E731
                                device=device)
@@ -399,7 +404,10 @@ def init_state(cfg: ModeConfig, batch: tuple[int, ...] = (),
             cdr=CDRState(
                 offset=torch.zeros(batch, dtype=torch.int32, device=device),
                 found=torch.zeros(batch, dtype=torch.bool, device=device)))
-    return ReceiverState(rf=rf, audio=audio, rds=rds)
+    return ReceiverState(
+        rf=rf, audio=audio, rds=rds,
+        iqcorr=(iqcorr.init_iqcorr_state(batch, dtype, device)
+                if with_iqcorr else None))
 
 
 _CDR_TIMINGS = ("peak", "envelope")
@@ -453,7 +461,7 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
                   iq_u8: Tensor, cfg: ModeConfig,
                   with_rds: Optional[bool] = None, frontend: str = "auto",
                   backend: str = "auto", pll_impl: str = "auto",
-                  cdr_timing: str = "peak"
+                  cdr_timing: str = "peak", pll_span: int = 1
                   ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of interleaved u8 IQ samples.
 
@@ -461,39 +469,63 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
     ``backend``: "auto" or "plain" (module docstring); ``pll_impl``:
     "auto", "kernel" or "plain" (``ops/pll.py``); ``cdr_timing``: "peak"
     or "envelope" (``_cdr``; dy4tpu's default when ``DY4TPU_CDR`` is
-    unset is "peak", and the port reads no environment variable).
+    unset is "peak"); ``pll_span``: 1 (the exact per-sample PLL) or K > 1
+    (the span PLL; dy4tpu's ``DY4TPU_PLL_SPAN``).  The port reads no
+    environment variable.
+
+    With an ``iqcorr`` tracker in the state, the block is corrected with
+    the coefficients of the blocks before it (block 0 is the identity),
+    and the front end's decimated pre-correction I/Q moments are folded
+    into the tracker.
     """
     _check_step(state, cdr_timing)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
-    fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
-                            rds_enabled=rds_enabled, frontend=frontend)
+    new_iqcorr = None
+    if state.iqcorr is not None:
+        corr = iqcorr.coeffs(state.iqcorr)
+        fstate, fo, mom = front_step(
+            params, front_state_of(state), iq_u8, cfg,
+            rds_enabled=rds_enabled, frontend=frontend, corr=corr,
+            corr_moments=True)
+        new_iqcorr = iqcorr.fold(state.iqcorr, mom)
+    else:
+        fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
+                                rds_enabled=rds_enabled, frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
-                        backend, pll_impl, cdr_timing)
+                        backend, pll_impl, cdr_timing, pll_span, new_iqcorr)
 
 
 def receiver_step_if(params: ReceiverParams, state: ReceiverState,
                      i_if: Tensor, q_if: Tensor, cfg: ModeConfig,
                      with_rds: Optional[bool] = None, frontend: str = "auto",
                      backend: str = "auto", pll_impl: str = "auto",
-                     cdr_timing: str = "peak"
+                     cdr_timing: str = "peak", pll_span: int = 1
                      ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of IF-rate complex baseband (I/Q at
     ``cfg.if_fs``, [..., if_per_block] float32), e.g. one channel of a
     channelizer: ``receiver_step`` from the FM demod on, with the RF LPF
     left to whoever made the IF stream.  Keywords as ``receiver_step``.
+
+    An ``iqcorr`` tracker in the state estimates from (and corrects) the
+    IF stream itself, in torch before B6, as dy4tpu's does: right for a
+    direct IF capture (a wideband tuner's imbalance is corrected before
+    the channel bank instead).
     """
     _check_step(state, cdr_timing)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
+    new_iqcorr = None
+    if state.iqcorr is not None:
+        corr = iqcorr.coeffs(state.iqcorr)
+        new_iqcorr = iqcorr.estimate(i_if, q_if, state.iqcorr)
+        i_if, q_if = iqcorr.apply(i_if, q_if, corr)
     fstate, fo = front_step_if(params, front_state_of(state), i_if, q_if,
                                cfg, rds_enabled=rds_enabled,
                                frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
-                        backend, pll_impl, cdr_timing)
+                        backend, pll_impl, cdr_timing, pll_span, new_iqcorr)
 
 
 def _check_step(state: ReceiverState, cdr_timing: str) -> None:
-    if state.iqcorr is not None:
-        raise NotImplementedError(_IQCORR)
     if cdr_timing not in _CDR_TIMINGS:
         raise ValueError(f"unknown cdr_timing {cdr_timing!r}; expected one "
                          f"of {_CDR_TIMINGS}")
@@ -502,7 +534,9 @@ def _check_step(state: ReceiverState, cdr_timing: str) -> None:
 def _finish_step(params: ReceiverParams, state: ReceiverState,
                  fstate: FrontState, fo: FrontOut, cfg: ModeConfig,
                  rds_enabled: bool, backend: str, pll_impl: str,
-                 cdr_timing: str) -> tuple[ReceiverState, StepOutputs]:
+                 cdr_timing: str, pll_span: int = 1,
+                 new_iqcorr: Optional[iqcorr.IQCorrState] = None
+                 ) -> tuple[ReceiverState, StepOutputs]:
     # ---- stereo + RDS PLLs (project.cpp:118-133; fmMonoBlock.py:683) ----
     if rds_enabled:
         # the pilot (19 kHz, x2, bw .01) and RDS carrier (114 kHz, x0.5,
@@ -519,7 +553,7 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
                                np.float32),
             norm_bandwidth=np.array([cfg.pll_bandwidth,
                                      cfg.rds_pll_bandwidth], np.float32),
-            impl=pll_impl)
+            impl=pll_impl, span=pll_span)
         nco = nco_i2[..., 0, :]
         nco_i = nco_i2[..., 1, :]
         nco_q = nco_q2[..., 1, :]
@@ -530,7 +564,7 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
         nco, _, pll_state = pll.pll(
             fo.pilot.contiguous(), state.audio.pll, freq=cfg.pll_freq,
             fs=cfg.if_fs, nco_scale=cfg.pll_nco_scale,
-            norm_bandwidth=cfg.pll_bandwidth, impl=pll_impl)
+            norm_bandwidth=cfg.pll_bandwidth, impl=pll_impl, span=pll_span)
 
     # pilot-lock SNR estimate: E[pilot^2 * nco] = (A^2/4) cos(2 phase_err)
     # while the in-band noise is uncorrelated with the NCO
@@ -569,19 +603,20 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
                           rds_symbols=rds_out[2], rds_sym_i=rds_out[3],
                           rds_resync=rds_out[4], rds_offset=rds_out[5],
                           pilot_snr_db=pilot_snr_db)
-    return (ReceiverState(rf=fstate.rf, audio=new_audio, rds=new_rds),
-            outputs)
+    return (ReceiverState(rf=fstate.rf, audio=new_audio, rds=new_rds,
+                          iqcorr=new_iqcorr), outputs)
 
 
 def receiver_step_pcm(params: ReceiverParams, state: ReceiverState,
                       iq_u8: Tensor, cfg: ModeConfig, stereo: bool = True,
                       with_rds: Optional[bool] = None,
-                      cdr_timing: str = "peak"):
+                      cdr_timing: str = "peak", pll_span: int = 1):
     """One step returning quantised s16 PCM like the reference CLI
     (project.cpp:307-317): the counterpart of dy4tpu's
     ``receiver_step_jit``.  Returns ``(state', pcm, outputs)``."""
     new_state, out = receiver_step(params, state, iq_u8, cfg,
-                                   with_rds=with_rds, cdr_timing=cdr_timing)
+                                   with_rds=with_rds, cdr_timing=cdr_timing,
+                                   pll_span=pll_span)
     if stereo:
         pcm = mix.quantize_s16(mix.interleave(out.left, out.right))
     else:
@@ -590,15 +625,17 @@ def receiver_step_pcm(params: ReceiverParams, state: ReceiverState,
 
 
 def run_blocks(params: ReceiverParams, state: ReceiverState,
-               iq_u8_blocks: Tensor, cfg: ModeConfig, **step_kwargs
-               ) -> tuple[ReceiverState, StepOutputs]:
+               iq_u8_blocks: Tensor, cfg: ModeConfig, pll_span: int = 1,
+               **step_kwargs) -> tuple[ReceiverState, StepOutputs]:
     """Run the receiver over a [num_blocks, ..., block_size] stream.
     Returns the final state and every ``StepOutputs`` field stacked on a
     leading block axis (None fields stay None), as dy4tpu's
-    ``lax.scan`` does.  ``step_kwargs`` go to ``receiver_step``."""
+    ``lax.scan`` does.  ``pll_span`` and ``step_kwargs`` go to
+    ``receiver_step``."""
     outs = []
     for blk in iq_u8_blocks:
-        state, out = receiver_step(params, state, blk, cfg, **step_kwargs)
+        state, out = receiver_step(params, state, blk, cfg,
+                                   pll_span=pll_span, **step_kwargs)
         outs.append(out)
     return state, StepOutputs(*(
         None if fields[0] is None else torch.stack(fields)

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dy4tpu.config import ModeConfig
+from dy4tpu_torch.config import ModeConfig
 from dy4tpu_torch.ops import afc as afc_ops
 from dy4tpu_torch.ops import iqcorr as iqcorr_ops
 from dy4tpu_torch.ops.channelizer import (ChannelizerParams,
@@ -51,9 +51,10 @@ class WidebandOutputs(NamedTuple):
 
 def make_wideband(cfg: ModeConfig, channels: int, *,
                   taps_per_branch: int = 12,
-                  device="cpu") -> ChannelizerParams:
+                  device="cuda") -> ChannelizerParams:
     """Design the bank matched to a mode: spacing = output rate =
-    ``cfg.if_fs`` (channel c sits on carrier ``+c * cfg.if_fs``)."""
+    ``cfg.if_fs`` (channel c sits on carrier ``+c * cfg.if_fs``), on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return make_channelizer(channels, cfg.if_fs,
                             taps_per_branch=taps_per_branch, device=device)
 

@@ -80,8 +80,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from dy4tpu.config import get_mode
-    from dy4tpu.utils import io as dio
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.utils import io as dio
     from dy4tpu_torch.ops import afc as afc_ops
     from dy4tpu_torch.pipeline import receiver, wideband
 
@@ -163,12 +163,12 @@ def main(argv=None) -> int:
               f"RSSI {rssi[ch]:.1f} dBFS{extra})", file=sys.stderr)
 
     if rds_on:
-        from dy4tpu.rds.app import ApplicationLayer
-        from dy4tpu.runtime import native
+        from dy4tpu_torch.rds.app import ApplicationLayer
+        from dy4tpu_torch.runtime import native
         apps = {ch: ApplicationLayer() for ch in stations}
         sel = np.asarray(stations)
         if native.available():
-            from dy4tpu.rds.fleet import FleetDecoder
+            from dy4tpu_torch.rds.fleet import FleetDecoder
             dec = FleetDecoder(
                 len(stations),
                 on_group=lambda i, g: apps[stations[i]].process(g))
@@ -176,7 +176,7 @@ def main(argv=None) -> int:
                 o.rds_symbols[b, sel], resync=o.rds_resync[b, sel],
                 offsets=o.rds_offset[b, sel])
         else:  # pure-Python fallback: one RDSDecoder per station
-            from dy4tpu.rds.decoder import RDSDecoder
+            from dy4tpu_torch.rds.decoder import RDSDecoder
             decs = {ch: RDSDecoder(on_group=apps[ch].process)
                     for ch in stations}
             push = lambda o, b: [  # noqa: E731

@@ -3,9 +3,9 @@
 
 The port carries this copy because ``dy4tpu.tx.fm`` imports
 ``dy4tpu.ops``, whose ``__init__`` imports JAX.  It keeps the single-
-station path (``synthesize`` with noise) and the wideband multi-station
-synthesiser (``synthesize_wideband``); multipath and the tuner-fault
-injection of the single-station path stay in dy4tpu.
+station path (``synthesize`` with noise and the tuner-fault injection)
+and the wideband multi-station synthesiser (``synthesize_wideband``);
+multipath stays in dy4tpu.
 
 Multiplex (FM broadcast standard):
 
@@ -24,13 +24,16 @@ from __future__ import annotations
 import numpy as np
 from scipy import signal as sp
 
-from dy4tpu.config import ModeConfig
-from dy4tpu.rds import coding
+from dy4tpu_torch.config import ModeConfig
+from dy4tpu_torch.rds import coding
 from dy4tpu_torch.ops import firdes
 
 # the broadcast that bench.py and chip_smoke.py decode
 PI_CODE = 0x54A7
 PS_NAME = "DY4TPU  "
+# u8 codes per unit of signal: a capture holds round(128 + 100 x), so the
+# receiver's (u8 - 128) / 128 sees x scaled by 100/128
+U8_AMPLITUDE = 100.0
 
 
 def rds_baseband(bits, cfg: ModeConfig, n_if: int) -> np.ndarray:
@@ -91,12 +94,19 @@ def synthesize(cfg: ModeConfig, n_blocks: int, *,
                a_mono: float = 0.45, a_pilot: float = 0.10,
                a_stereo: float = 0.45, a_rds: float = 0.06,
                kf: float = 75e3, noise: float = 0.0,
-               seed: int = 0) -> np.ndarray:
+               seed: int = 0, dc_i: float = 0.0, dc_q: float = 0.0,
+               iq_gain: float = 1.0, iq_phase_deg: float = 0.0
+               ) -> np.ndarray:
     """Generate ``n_blocks`` blocks of interleaved u8 IQ for a mode.
 
     ``left``/``right``: audio at cfg.audio_fs (zero-padded/truncated to
     fit); None -> silence.  ``noise``: white Gaussian noise per I/Q
     sample, from ``seed``.  Returns uint8 [n_blocks * block_size].
+
+    ``dc_i``/``dc_q``/``iq_gain``/``iq_phase_deg`` inject the tuner
+    impairment model of ``ops/iqcorr.py`` (LO-leakage DC offsets in
+    signal units, Q-branch gain and quadrature-phase error) after the
+    channel noise: both ride the same analog front end.
     """
     m = multiplex(cfg, n_blocks, left=left, right=right,
                   rds_bits=rds_bits, a_mono=a_mono, a_pilot=a_pilot,
@@ -113,10 +123,14 @@ def synthesize(cfg: ModeConfig, n_blocks: int, *,
         rng = np.random.default_rng(seed)
         i = i + noise * rng.standard_normal(n_rf)
         q = q + noise * rng.standard_normal(n_rf)
+    if (dc_i, dc_q, iq_gain, iq_phase_deg) != (0.0, 0.0, 1.0, 0.0):
+        from dy4tpu_torch.ops import iqcorr
+        i, q = iqcorr.impair(i, q, dc_i=dc_i, dc_q=dc_q, gain=iq_gain,
+                             phase_deg=iq_phase_deg)
 
     iq = np.empty(2 * n_rf, np.float64)
     iq[0::2], iq[1::2] = i, q
-    return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
+    return np.clip(np.round(iq * U8_AMPLITUDE + 128.0), 0, 255).astype(np.uint8)
 
 
 def tone(freq: float, fs: float, n: int, amp: float = 1.0,
@@ -172,13 +186,16 @@ def synthesize_wideband(cfg: ModeConfig, channels: int, n_steps: int, *,
 
     iq = np.empty(2 * n_w, np.float64)
     iq[0::2], iq[1::2] = x.real, x.imag
-    return np.clip(np.round(iq * 100.0 + 128.0), 0, 255).astype(np.uint8)
+    return np.clip(np.round(iq * U8_AMPLITUDE + 128.0), 0, 255).astype(np.uint8)
 
 
-def stereo_rds_broadcast(cfg: ModeConfig, n_blocks: int) -> np.ndarray:
+def stereo_rds_broadcast(cfg: ModeConfig, n_blocks: int,
+                         **fault) -> np.ndarray:
     """The broadcast of ``bench.py``: an 800 Hz tone on the left, 2400 Hz
     on the right, and RDS groups 0A carrying ``PI_CODE``/``PS_NAME``.
-    Returns uint8 [n_blocks, block_size]."""
+    ``fault``: ``synthesize``'s tuner-impairment keywords (``dc_i``,
+    ``dc_q``, ``iq_gain``, ``iq_phase_deg``).  Returns uint8 [n_blocks,
+    block_size]."""
     n_audio = n_blocks * cfg.audio_per_block
     bits = None
     if cfg.supports_rds:
@@ -187,8 +204,24 @@ def stereo_rds_broadcast(cfg: ModeConfig, n_blocks: int) -> np.ndarray:
     iq = synthesize(cfg, n_blocks,
                     left=tone(800.0, cfg.audio_fs, n_audio, amp=0.7),
                     right=tone(2400.0, cfg.audio_fs, n_audio, amp=0.7),
-                    rds_bits=bits)
+                    rds_bits=bits, **fault)
     return iq.reshape(n_blocks, cfg.block_size)
+
+
+def stereo_separation_db(cfg: ModeConfig, left: np.ndarray,
+                         right: np.ndarray, skip_blocks: int = 3
+                         ) -> tuple[float, float]:
+    """Stereo separation of one channel's decode of
+    ``stereo_rds_broadcast`` (800 Hz left, 2400 Hz right), in dB on the
+    left and the right, after ``skip_blocks`` blocks of lock-in.
+    ``left``/``right``: [blocks, audio_per_block]."""
+    l = np.asarray(left)[skip_blocks:].ravel()
+    r = np.asarray(right)[skip_blocks:].ravel()
+    t = np.arange(len(l)) / cfg.audio_fs
+    probe = lambda x, f: np.abs(x @ np.exp(-2j * np.pi * f * t)) / len(x)  # noqa: E731
+    sep_l = 20 * np.log10(probe(l, 800.0) / max(probe(l, 2400.0), 1e-12))
+    sep_r = 20 * np.log10(probe(r, 2400.0) / max(probe(r, 800.0), 1e-12))
+    return float(sep_l), float(sep_r)
 
 
 def check_reception(cfg: ModeConfig, left: np.ndarray, right: np.ndarray,
@@ -202,15 +235,10 @@ def check_reception(cfg: ModeConfig, left: np.ndarray, right: np.ndarray,
     symbols_per_block] hard bits; ``resync``: [blocks].  Raises
     ``AssertionError`` when a bar is missed; returns what was measured.
     """
-    from dy4tpu.rds.app import ApplicationLayer
-    from dy4tpu.rds.decoder import RDSDecoder
+    from dy4tpu_torch.rds.app import ApplicationLayer
+    from dy4tpu_torch.rds.decoder import RDSDecoder
 
-    l = np.asarray(left)[skip_blocks:].ravel()
-    r = np.asarray(right)[skip_blocks:].ravel()
-    t = np.arange(len(l)) / cfg.audio_fs
-    probe = lambda x, f: np.abs(x @ np.exp(-2j * np.pi * f * t)) / len(x)  # noqa: E731
-    sep_l = 20 * np.log10(probe(l, 800.0) / max(probe(l, 2400.0), 1e-12))
-    sep_r = 20 * np.log10(probe(r, 2400.0) / max(probe(r, 800.0), 1e-12))
+    sep_l, sep_r = stereo_separation_db(cfg, left, right, skip_blocks)
     if not (sep_l > 15 and sep_r > 15):
         raise AssertionError(f"stereo separation failed: L={sep_l:.1f} dB "
                              f"R={sep_r:.1f} dB")

@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+DEV = "cpu"   # the port's entry points default to the card
 
 import jax.numpy as jnp  # noqa: E402
 from jax import lax  # noqa: E402
@@ -202,7 +203,7 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     rng = np.random.default_rng(2)
     blk = torch.from_numpy(rng.integers(0, 256, (C, cfg.block_size),
                                         dtype=np.uint8))
-    jp = convert.params_from_numpy(jrx.make_params(cfg))
+    jp = convert.params_from_numpy(jrx.make_params(cfg), device=DEV)
     args = (blk, jp.rf_coeff, jp.bank_coeff, jp.rds_carrier_coeff,
             *(torch.from_numpy(a) for a in _tails(rng)), cfg.rf_decim)
     before = frontend_cuda.fused_frontend_full.launches

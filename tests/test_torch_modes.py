@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+DEV = "cpu"   # the port's entry points default to the card
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -55,8 +56,8 @@ def runs(request):
     iq = _broadcast(cfg, N_BLOCKS)
     jp = jrx.make_params(cfg)
     js = jrx.init_state(cfg, batch=(C,))
-    tp = convert.params_from_numpy(jp)
-    ts = rx.init_state(cfg, batch=(C,))
+    tp = convert.params_from_numpy(jp, device=DEV)
+    ts = rx.init_state(cfg, batch=(C,), device=DEV)
     out = dict(cfg=cfg, iq=iq, tp=tp, j_out=[], j_state=[], t_out=[],
                t_state=[])
     for b in range(N_BLOCKS):
@@ -110,7 +111,8 @@ def test_state_matches_dy4tpu_after_every_block(runs):
 
 def test_run_blocks_equals_the_step_loop(runs):
     cfg = runs["cfg"]
-    state, outs = rx.run_blocks(runs["tp"], rx.init_state(cfg, (C,)),
+    state, outs = rx.run_blocks(runs["tp"],
+                                rx.init_state(cfg, (C,), device=DEV),
                                 torch.from_numpy(runs["iq"]), cfg)
     for f in rx.StepOutputs._fields:
         got = getattr(outs, f)
@@ -130,10 +132,10 @@ def test_midstream_handoff_from_dy4tpu_mode2():
     js = jrx.init_state(cfg, batch=(C,))
     for b in range(2):
         js, _ = jrx.receiver_step(jp, js, jnp.asarray(iq[b]), cfg)
-    st = convert.state_from_numpy(js)
+    st = convert.state_from_numpy(js, device=DEV)
     assert st.rds.cdr.offset.dtype == torch.int32
     _, jo = jrx.receiver_step(jp, js, jnp.asarray(iq[2]), cfg)
-    _, to = rx.receiver_step(convert.params_from_numpy(jp), st,
+    _, to = rx.receiver_step(convert.params_from_numpy(jp, device=DEV), st,
                              torch.from_numpy(iq[2]), cfg)
     _assert_outputs(to, jo, "block 2")
 
@@ -161,8 +163,8 @@ def test_receiver_step_if_matches_dy4tpu():
     bi, bq = _if_blocks(cfg, 2)
     jp = jrx.make_params(cfg)
     js = jrx.init_state(cfg, batch=(C,))
-    tp = convert.params_from_numpy(jp)
-    ts = rx.init_state(cfg, (C,))
+    tp = convert.params_from_numpy(jp, device=DEV)
+    ts = rx.init_state(cfg, (C,), device=DEV)
     for b in range(2):
         js, jo = jrx.receiver_step_if(jp, js, jnp.asarray(bi[b]),
                                       jnp.asarray(bq[b]), cfg)
@@ -233,8 +235,8 @@ def test_envelope_timing_through_receiver_step_matches_dy4tpu():
     iq = _broadcast(cfg, 2)
     jp = jrx.make_params(cfg)
     js = jrx.init_state(cfg, batch=(C,))
-    tp = convert.params_from_numpy(jp)
-    ts = rx.init_state(cfg, (C,))
+    tp = convert.params_from_numpy(jp, device=DEV)
+    ts = rx.init_state(cfg, (C,), device=DEV)
     for b in range(2):
         js, jo = jrx.receiver_step(jp, js, jnp.asarray(iq[b]), cfg,
                                    cdr_timing="envelope")

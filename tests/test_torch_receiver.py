@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+DEV = "cpu"   # the port's entry points default to the card
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -23,6 +24,7 @@ from dy4tpu.ops import mix as jmix  # noqa: E402
 from dy4tpu.pipeline import receiver as jrx  # noqa: E402
 from dy4tpu.rds import coding  # noqa: E402
 from dy4tpu.tx import fm as jfm  # noqa: E402
+from dy4tpu_torch.ops import iqcorr  # noqa: E402
 from dy4tpu_torch.pipeline import convert  # noqa: E402
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
 from dy4tpu_torch.tx import fm  # noqa: E402
@@ -50,8 +52,8 @@ def runs():
     iq = np.concatenate([iq, swapped], axis=1)
     jp = jrx.make_params(cfg)
     js = jrx.init_state(cfg, batch=(C,))
-    tp = convert.params_from_numpy(jp)
-    ts = rx.init_state(cfg, batch=(C,))
+    tp = convert.params_from_numpy(jp, device=DEV)
+    ts = rx.init_state(cfg, batch=(C,), device=DEV)
     out = dict(iq=iq, jp=jp, tp=tp, j_out=[], j_state=[], t_out=[],
                t_state=[])
     for b in range(N_BLOCKS):
@@ -97,7 +99,7 @@ def test_state_matches_dy4tpu_after_every_block(runs):
 def test_midstream_handoff_from_dy4tpu(runs):
     """dy4tpu runs blocks 0-1; its state crosses over; the port runs
     block 2 and matches dy4tpu's block 2."""
-    st = convert.state_from_numpy(runs["j_state"][1])
+    st = convert.state_from_numpy(runs["j_state"][1], device=DEV)
     assert st.rds.cdr.offset.dtype == torch.int32
     assert st.rds.cdr.found.dtype == torch.bool
     blk = torch.from_numpy(runs["iq"][2])
@@ -109,21 +111,22 @@ def test_midstream_handoff_from_dy4tpu(runs):
 
 
 def test_params_and_state_round_trip(runs):
-    tp = convert.params_from_numpy(runs["jp"])
-    ref = convert.leaves_by_path(rx.make_params(cfg))
+    tp = convert.params_from_numpy(runs["jp"], device=DEV)
+    ref = convert.leaves_by_path(rx.make_params(cfg, device=DEV))
     got = convert.leaves_by_path(tp)
     assert got.keys() == ref.keys()
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k])
     st = runs["t_state"][-1]
-    back = convert.state_from_numpy(convert.state_to_numpy(st))
+    back = convert.state_from_numpy(convert.state_to_numpy(st), device=DEV)
     for a, b in zip(convert.leaves_by_path(back).values(),
                     convert.leaves_by_path(st).values()):
         np.testing.assert_array_equal(a, b)
 
 
 def test_run_blocks_equals_the_step_loop(runs):
-    state, outs = rx.run_blocks(runs["tp"], rx.init_state(cfg, (C,)),
+    state, outs = rx.run_blocks(runs["tp"],
+                                rx.init_state(cfg, (C,), device=DEV),
                                 torch.from_numpy(runs["iq"]), cfg)
     for f in rx.StepOutputs._fields:
         stacked = torch.stack([getattr(o, f) for o in runs["t_out"]])
@@ -134,14 +137,16 @@ def test_run_blocks_equals_the_step_loop(runs):
 
 
 def test_receiver_step_pcm_matches_dy4tpu_quantizer(runs):
-    _, pcm, out = rx.receiver_step_pcm(runs["tp"], rx.init_state(cfg, (C,)),
+    _, pcm, out = rx.receiver_step_pcm(runs["tp"],
+                                       rx.init_state(cfg, (C,), device=DEV),
                                        torch.from_numpy(runs["iq"][0]), cfg)
     assert pcm.dtype == torch.int16 and pcm.shape == (C, 2 * 1536)
     jo = runs["j_out"][0]
     ref = np.asarray(jmix.quantize_s16(jmix.interleave(jo.left, jo.right)))
     # outputs within 1e-4 of each other quantize at most 2 LSB apart
     assert np.abs(pcm.numpy().astype(np.int32) - ref).max() <= 2
-    _, mono, _ = rx.receiver_step_pcm(runs["tp"], rx.init_state(cfg, (C,)),
+    _, mono, _ = rx.receiver_step_pcm(runs["tp"],
+                                      rx.init_state(cfg, (C,), device=DEV),
                                       torch.from_numpy(runs["iq"][0]), cfg,
                                       stereo=False)
     assert mono.shape == (C, 1536)
@@ -149,8 +154,13 @@ def test_receiver_step_pcm_matches_dy4tpu_quantizer(runs):
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
 def test_tx_synthesis_equals_dy4tpu(mode):
+    """The clean broadcast, and the same through test_iqcorr.py's tuner
+    fault (DC offsets, gain and quadrature error after the noise)."""
     c = get_mode(mode)
     kw = _broadcast(2, c)
+    np.testing.assert_array_equal(fm.synthesize(c, 2, **kw),
+                                  jfm.synthesize(c, 2, **kw))
+    kw.update(dc_i=0.12, dc_q=-0.08, iq_gain=0.7, iq_phase_deg=25.0)
     np.testing.assert_array_equal(fm.synthesize(c, 2, **kw),
                                   jfm.synthesize(c, 2, **kw))
 
@@ -159,7 +169,8 @@ def test_16_block_decode_recovers_pi():
     """One channel of the bench broadcast through 16 blocks: stereo
     separation above 15 dB and PI recovered through dy4tpu.rds."""
     iq = fm.stereo_rds_broadcast(cfg, 16)
-    _, outs = rx.run_blocks(rx.make_params(cfg), rx.init_state(cfg),
+    _, outs = rx.run_blocks(rx.make_params(cfg, device=DEV),
+                            rx.init_state(cfg, device=DEV),
                             torch.from_numpy(iq), cfg)
     got = fm.check_reception(cfg, outs.left.numpy(), outs.right.numpy(),
                              outs.rds_symbols.numpy(),
@@ -168,19 +179,24 @@ def test_16_block_decode_recovers_pi():
 
 
 def test_unported_paths_raise():
-    """The IQ tracker is not ported (in ``init_state`` and in a state
-    handed to the IF entry); unknown options are refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rx.init_state(cfg, with_iqcorr=True)
-    st = rx.init_state(cfg, (1,))._replace(iqcorr=object())
-    i_if = torch.zeros(1, cfg.if_per_block)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        rx.receiver_step_if(rx.make_params(cfg), st, i_if, i_if, cfg)
+    """Options the port does not have are refused: an unknown CDR timing,
+    a frontend other than "auto"/"plain" (dy4tpu's TPU A/B variants), an
+    IQ correction with such a frontend (dy4tpu refuses it with its
+    "fused-rf" and "fused-phase" kernels), and moments without a
+    correction."""
+    blk = torch.zeros(cfg.block_size, dtype=torch.uint8)
+    params = rx.make_params(cfg, device=DEV)
     with pytest.raises(ValueError, match="cdr_timing"):
-        rx.receiver_step(rx.make_params(cfg), rx.init_state(cfg),
-                         torch.zeros(cfg.block_size, dtype=torch.uint8),
-                         cfg, cdr_timing="bogus")
+        rx.receiver_step(params, rx.init_state(cfg, device=DEV), blk, cfg,
+                         cdr_timing="bogus")
     with pytest.raises(ValueError, match="frontend"):
-        rx.receiver_step(rx.make_params(cfg), rx.init_state(cfg),
-                         torch.zeros(cfg.block_size, dtype=torch.uint8),
-                         cfg, frontend="fused")
+        rx.receiver_step(params, rx.init_state(cfg, device=DEV), blk, cfg,
+                         frontend="fused")
+    corr = iqcorr.coeffs(iqcorr.init_iqcorr_state())
+    fs = rx.front_state_of(rx.init_state(cfg, device=DEV))
+    for frontend in ("fused-rf", "fused-phase"):
+        with pytest.raises(ValueError, match="IQ correction unsupported"):
+            rx.front_step(params, fs, blk, cfg, frontend=frontend,
+                          corr=corr)
+    with pytest.raises(ValueError, match="corr_moments=True requires corr"):
+        rx.front_step(params, fs, blk, cfg, corr_moments=True)

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+DEV = "cpu"   # the port's entry points default to the card
 
 from dy4tpu.config import get_mode  # noqa: E402
 from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,  # noqa: E402
@@ -30,7 +31,9 @@ WRAPPERS = (frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
             backend_cuda.fused_audio_backend, resample_cuda.fused_rds_backend,
             resample_cuda.fused_audio_backend_rational,
             frontend_cuda.fused_frontend_if,
-            channelizer_cuda.channelize_branches)
+            channelizer_cuda.channelize_branches,
+            pll_cuda.phase_scan_target,
+            frontend_cuda.fused_frontend_full.corr)
 
 
 def _env():
@@ -59,11 +62,16 @@ def test_port_never_imports_jax():
 
 
 def test_cpu_receiver_step_launches_no_kernel():
+    """Also with the IQ tracker and the span PLL (B1's corr variant and
+    B9 on the card)."""
     counts = [w.launches for w in WRAPPERS]
     rng = np.random.default_rng(0)
     blk = torch.from_numpy(rng.integers(0, 256, (2, cfg.block_size),
                                         dtype=np.uint8))
-    rx.receiver_step(rx.make_params(cfg), rx.init_state(cfg, (2,)), blk, cfg)
+    params = rx.make_params(cfg, device=DEV)
+    rx.receiver_step(params, rx.init_state(cfg, (2,), device=DEV), blk, cfg)
+    rx.receiver_step(params, rx.init_state(cfg, (2,), with_iqcorr=True,
+                                           device=DEV), blk, cfg, pll_span=8)
     assert [w.launches for w in WRAPPERS] == counts
 
 
@@ -74,11 +82,12 @@ def test_cpu_mode2_and_if_entry_launch_no_kernel():
     rng = np.random.default_rng(1)
     blk = torch.from_numpy(rng.integers(0, 256, (2, c.block_size),
                                         dtype=np.uint8))
-    params = rx.make_params(c)
-    rx.receiver_step(params, rx.init_state(c, (2,)), blk, c)
+    params = rx.make_params(c, device=DEV)
+    rx.receiver_step(params, rx.init_state(c, (2,), device=DEV), blk, c)
     i_if = torch.from_numpy(rng.standard_normal(
         (2, c.if_per_block)).astype(np.float32))
-    rx.receiver_step_if(params, rx.init_state(c, (2,)), i_if, i_if, c)
+    rx.receiver_step_if(params, rx.init_state(c, (2,), device=DEV), i_if,
+                        i_if, c)
     assert [w.launches for w in WRAPPERS] == counts
 
 
@@ -111,6 +120,13 @@ def test_wrappers_refuse_non_cuda_devices(which):
         lambda: channelizer_cuda.channelize_branches(
             m(c, 2 * 16 * n, dt=torch.uint8), m(16, 12), m(c, 191),
             m(c, 191)),
+        lambda: pll_cuda.phase_scan_target(
+            m(c, 2, n // 8), m(2), m(2), m(2), (m(c, 2), m(c, 2), m(c, 2)),
+            span=8),
+        lambda: frontend_cuda.fused_frontend_full(
+            m(c, cfg.block_size, dt=torch.uint8), m(101), m(3, 101), m(101),
+            m(c, 2, 100), m(c), m(c), m(c, 100), m(c, 50), m(c, 100),
+            m(c, 50), cfg.rf_decim, corr=m(c, 4)),
     ]
     before = WRAPPERS[which].launches
     with pytest.raises(ValueError, match="CUDA"):

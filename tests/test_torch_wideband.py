@@ -23,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+DEV = "cpu"   # the port's entry points default to the card
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -84,8 +85,8 @@ def runs(blocks):
     cache = {}
     jp = jrx.make_params(cfg)
     jc = jwb.make_wideband(cfg, C)
-    tp = convert.params_from_numpy(jp)
-    tc = convert.chan_params_from_numpy(jc)
+    tp = convert.params_from_numpy(jp, device=DEV)
+    tc = convert.chan_params_from_numpy(jc, device=DEV)
 
     def get(use_afc, use_iq):
         key = (use_afc, use_iq)
@@ -180,7 +181,7 @@ def test_midstream_handoff_from_dy4tpu(runs, blocks):
     ``WidebandState`` crosses over by field path; the port runs step 2 and
     matches dy4tpu's step 2."""
     got = runs["get"](True, True)
-    st = convert.wideband_state_from_numpy(got["j_state"][1])
+    st = convert.wideband_state_from_numpy(got["j_state"][1], device=DEV)
     assert st.iqcorr.count.dtype == torch.int32
     assert st.rx.rds.cdr.offset.dtype == torch.int32
     st, out = wb.wideband_step(runs["tp"], runs["tc"], st,
@@ -383,8 +384,8 @@ def test_wideband_two_stations_e2e():
     cap = fm.synthesize_wideband(
         cfg, C, n_steps, stations={1: dict(left=t1, right=t1),
                                    3: dict(left=t2, right=t2)}, kf=50e3)
-    params = rx.make_params(cfg)
-    chan = wb.make_wideband(cfg, C)
+    params = rx.make_params(cfg, device=DEV)
+    chan = wb.make_wideband(cfg, C, device=DEV)
     state = wb.wideband_init(cfg, chan, with_rds=False)
     _, outs = wb.run_wideband_blocks(
         params, chan, state,
