@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's receiver on the card through its nine hand-written CUDA
+Drives the port's receiver on the card through its ten hand-written CUDA
 kernels, in all four modes, through the IF entry, with the opt-in span PLL
-and IQ tracker, through the wideband channelizer front door, and through
-the receiver's command line:
+and IQ tracker, through the wideband channelizer front door, through the
+receiver's command line, and through the exact time-sharded receiver:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -53,7 +53,17 @@ the receiver's command line:
    mode-0 capture through the tuner fault, as a subprocess: PCM length,
    PI/PS in the JSON events, the real-time factor; then the same run cut
    by ``--checkpoint`` at 100 blocks and finished by ``--resume``, whose
-   PCM must equal the uninterrupted run's.
+   PCM must equal the uninterrupted run's;
+6. phase 5, the exact time-sharded receiver at mode 0 on a 1x1 mesh at
+   ``bench.py``'s sharded point (C=128, shard_blocks=6, the auto 1920-IF
+   halo): B8 against its plain version and against B2 on the float32
+   samples its codes came from, bitwise, at [128, 2, 48000] (some rows
+   with an INVALID prefix, one INVALID throughout); then 4 ``step`` calls
+   over 24 blocks, every output bitwise equal to ``run_blocks`` on the
+   card, B8 launched once per step and B1, B3, B4 seven times (the warm-up
+   and six blocks), B2 and B9 never; channel 0 decoded; and the sharded
+   step against plain ``run_blocks`` as ``bench.py``'s ``_time_sharded``
+   times them (medians of 5).
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -98,6 +108,11 @@ SPAN = 8                             # the span PLL's samples per update
 FAULT = dict(dc_i=0.12, dc_q=-0.08, iq_gain=0.7, iq_phase_deg=25.0)
 RATE_REPS = 5                        # chain rate: median of this many runs
 CLI_BLOCKS, CLI_SPLIT = 200, 100     # phase 4: blocks, checkpoint point
+# phase 5: bench.py's sharded point (_time_sharded(128, 6, ...)), one
+# card, 4 steps of 6 blocks = N_BLOCKS
+SH_C, SH_S, SH_STEPS = 128, 6, 4
+SH_PREFIX_EVERY = 4                  # B8 check: every 4th row from row 1
+#                                      starts with an INVALID prefix
 HBM_BYTES_S = 3.35e12                # H100 SXM device memory, bytes/s
 FP32_FLOP_S = 67e12                  # H100 SXM float32 outside tensor cores
 FP32_LATENCY = 4                     # cycles from one dependent float op
@@ -140,22 +155,22 @@ def _max_err(a, b) -> float:
                for x, y in zip(a, b) if x is not None)
 
 
-def _channels(stream, cfg, dev):
-    """[N_BLOCKS, C, block_size] u8 on ``dev``: channel c is the broadcast
-    from byte ``SHIFT * c`` on, with I and Q swapped on odd channels, so
-    that no two rows of any kernel's inputs, tails or carries are equal.
-    Channel 0 is the broadcast itself.  ``stream``: [N_BLOCKS + 1,
-    block_size] u8, the spare block covering the largest shift."""
+def _channels(stream, cfg, dev, c_all=C):
+    """[N_BLOCKS, c_all, block_size] u8 on ``dev``: channel c is the
+    broadcast from byte ``SHIFT * c`` on, with I and Q swapped on odd
+    channels, so that no two rows of any kernel's inputs, tails or carries
+    are equal.  Channel 0 is the broadcast itself.  ``stream``: [N_BLOCKS
+    + 1, block_size] u8, the spare block covering the largest shift."""
     import torch
     flat = torch.from_numpy(stream.ravel()).to(dev)
     n = N_BLOCKS * cfg.block_size
-    assert SHIFT * (C - 1) <= flat.numel() - n
-    blocks = torch.empty(N_BLOCKS, C, cfg.block_size, dtype=torch.uint8,
+    assert SHIFT * (c_all - 1) <= flat.numel() - n
+    blocks = torch.empty(N_BLOCKS, c_all, cfg.block_size, dtype=torch.uint8,
                          device=dev)
-    for c in range(C):
+    for c in range(c_all):
         blocks[:, c] = flat[SHIFT * c:SHIFT * c + n].view(N_BLOCKS, -1)
-    odd = blocks[:, 1::2].view(N_BLOCKS, C // 2, -1, 2)
-    blocks[:, 1::2] = odd.flip(-1).reshape(N_BLOCKS, C // 2, -1)
+    odd = blocks[:, 1::2].view(N_BLOCKS, c_all // 2, -1, 2)
+    blocks[:, 1::2] = odd.flip(-1).reshape(N_BLOCKS, c_all // 2, -1)
     return blocks
 
 
@@ -1419,6 +1434,272 @@ def _run_cli(smi) -> None:
              f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
 
+def _profile(fn) -> tuple[float, int, int]:
+    """One call of ``fn`` under ``torch.profiler``: (device busy ms, the
+    sum of the device events' durations; the number of device events;
+    the number of top-level torch ops the host issued)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = sum(1 for e in events if e.name.startswith("aten::")
+              and e.cpu_parent is None)
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
+            ops)
+
+
+def _check_b8(cfg, params, blocks, halo_if, dev) -> "_Row":
+    """Phase 5's kernel check: B8 at the sharded path's shape, codes
+    [SH_C, 2, halo_if + SH_S * N] of the broadcast's PLL inputs (the pilot
+    and RDS carrier rows from B1 over the first blocks, every row its own
+    channel), every SH_PREFIX_EVERY-th row from row 1 INVALID over its
+    first halo_if samples (as in the stream's first replay) and row SH_C-2
+    INVALID throughout (a padding row), from per-row carries, split where
+    the receiver splits.  Held bitwise to its plain version, and on the
+    valid samples to B2 run over the float32 samples the codes came from:
+    phases, the carry at the split and at the end.  Returns the row."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.ops import pll, pll_cuda
+    from dy4tpu_torch.pipeline import receiver as rx
+
+    n_if = cfg.if_per_block
+    m = halo_if + SH_S * n_if
+    split = SH_S * n_if                    # T * S * N on one card
+    st = rx.front_state_of(rx.init_state(cfg, (SH_C,), device=dev))
+    xs = []
+    for b in range(-(-m // n_if)):
+        st, fo = rx.front_step(params, st, blocks[b], cfg)
+        xs.append(torch.stack([fo.pilot, fo.carrier], dim=-2))
+    x = torch.cat(xs, -1)[..., :m].contiguous()          # [C, 2, m] f32
+    codes = pll.encode_sign(x)
+    rows = torch.arange(SH_C, device=dev)
+    prefix = rows % SH_PREFIX_EVERY == 1
+    dead = SH_C - 2
+    codes[prefix, :, :halo_if] = pll.CODE_INVALID
+    codes[dead] = pll.CODE_INVALID
+    draw = np.random.default_rng(5)
+    carry = tuple(torch.from_numpy(draw.uniform(lo, hi, (SH_C, 2)).astype(
+        np.float32)).to(dev) for lo, hi in ((-1e-3, 1e-3), (0, 4 * np.pi),
+                                            (0, 4 * np.pi)))
+    _distinct_rows("B8", codes, *carry)
+    consts = pll._loop_consts(
+        np.array([cfg.pll_freq, cfg.rds_pll_freq], np.float32), cfg.if_fs,
+        np.array([cfg.pll_bandwidth, cfg.rds_pll_bandwidth], np.float32))
+    kp, ki, dth = (torch.as_tensor(v, device=dev) for v in consts)
+    k_phi, k_mid, k_end = pll_cuda.phase_scan_coded(codes, kp, ki, dth,
+                                                    carry, split_at=split)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_phi, p_mid, p_end = pll_cuda.phase_scan_coded_plain(
+        codes, kp, ki, dth, carry, split_at=split)
+    stop.record()
+    torch.cuda.synchronize()
+    k_flat, p_flat = (k_phi, *k_mid, *k_end), (p_phi, *p_mid, *p_end)
+    if not all(torch.equal(a, b) for a, b in zip(k_flat, p_flat)):
+        raise AssertionError(f"B8 is not bitwise equal to its plain "
+                             f"version: max |dphi| "
+                             f"{_max_err(k_flat, p_flat)}")
+    # against B2 over the samples the codes came from: the rows without a
+    # prefix from sample 0, those with one from halo_if on
+    live = rows != dead
+    for sel, lo in ((live & ~prefix, 0), (live & prefix, halo_if)):
+        cr = tuple(c[sel].contiguous() for c in carry)
+        b_phi, b_end = pll_cuda.phase_scan(x[sel][..., lo:].contiguous(),
+                                           kp, ki, dth, cr)
+        _, b_mid = pll_cuda.phase_scan(x[sel][..., lo:split].contiguous(),
+                                       kp, ki, dth, cr)
+        torch.cuda.synchronize()
+        if not (torch.equal(k_phi[sel][..., lo:], b_phi)
+                and all(torch.equal(a[sel], b) for a, b in
+                        zip(k_mid + k_end, b_mid + b_end))):
+            raise AssertionError(f"B8 departs from B2 on the samples its "
+                                 f"codes came from (rows from sample {lo})")
+    frozen = carry[2][dead] + carry[1][dead]
+    if not (all(torch.equal(a[dead], b[dead]) for a, b in zip(k_end, carry))
+            and bool((k_phi[dead] == frozen[:, None]).all())):
+        raise AssertionError("B8: the INVALID row moved its carry")
+    _say(f"phase 5: B8 [{SH_C}, 2, {m}] split at {split}: bitwise equal to "
+         f"its plain version, and to B2 on the float32 samples (rows "
+         f"{int((live & ~prefix).sum())} from sample 0, "
+         f"{int((live & prefix).sum())} after a {halo_if}-sample INVALID "
+         f"prefix), phases and both carries; the INVALID row kept its "
+         f"carry")
+    return _Row(
+        "B8 pll_coded", f"mode0 {list(codes.shape)}",
+        "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:308",
+        pll_cuda.phase_scan_coded, _max_err(k_flat, p_flat), 0.0,
+        lambda: pll_cuda.phase_scan_coded(codes, kp, ki, dth, carry,
+                                          split_at=split),
+        plain_ms=start.elapsed_time(stop), where=f"C={SH_C}",
+        nbytes=_nbytes(codes, kp, ki, dth, carry, k_flat),
+        flops=B2_STEP_OPS * x.numel(), chain_steps=m)
+
+
+def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
+    """Phase 5: the exact time-sharded receiver at mode 0 on one card
+    (a 1x1 mesh) at ``bench.py``'s sharded point: B8 checked first
+    (``_check_b8``); then SH_STEPS ``step`` calls over N_BLOCKS blocks x
+    SH_C channels, every output bitwise equal to ``run_blocks`` over the
+    same blocks on the card, B8 launched once per step and B1, B3, B4
+    once per block and once per warm-up, nothing else; channel 0 decoded;
+    then sharded against plain ``run_blocks`` as ``bench.py``'s
+    ``_time_sharded`` times them.  Returns B8's JSON entry."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, mix,
+                                  pll_cuda, resample_cuda)
+    from dy4tpu_torch.parallel import ShardedReceiver, make_mesh
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tx import fm
+
+    assert SH_S * SH_STEPS == N_BLOCKS
+    cfg = get_mode(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rx.make_params(cfg, device=dev)
+    blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1), cfg, dev,
+                       SH_C)
+    chunks = [blocks[k * SH_S:(k + 1) * SH_S].permute(1, 0, 2)
+              .reshape(SH_C, -1).contiguous() for k in range(SH_STEPS)]
+    r = ShardedReceiver(cfg, make_mesh(), shard_blocks=SH_S)
+    _say(f"setup phase 5: {N_BLOCKS} blocks x {SH_C} channels, "
+         f"{SH_STEPS} chunks of {SH_S} blocks; halo {r.halo_if} IF "
+         f"samples; {time.perf_counter() - t0:.1f} s")
+    row = _check_b8(cfg, params, blocks, r.halo_if, dev)
+    result = row.finish(smi, cfg.mode)
+
+    def run():
+        carry = r.init(SH_C)
+        outs = []
+        for chunk in chunks:
+            carry, out = r.step(params, carry, chunk)
+            outs.append(out)
+        return outs
+
+    for w in all_wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = {w: w.launches for w in all_wrappers}
+    per_step = SH_S + 1                              # the warm-up, S blocks
+    want = {frontend_cuda.fused_frontend_full: SH_STEPS * per_step,
+            backend_cuda.fused_audio_backend: SH_STEPS * per_step,
+            resample_cuda.fused_rds_backend: SH_STEPS * per_step,
+            pll_cuda.phase_scan_coded: SH_STEPS}
+    off = {w.__name__: (n, want.get(w, 0)) for w, n in counts.items()
+           if n != want.get(w, 0)}
+    if off:
+        raise AssertionError(f"phase 5: launches (got, expected): {off}")
+    _say("phase 5: launches over " + f"{SH_STEPS} steps: " + ", ".join(
+        f"{w.__name__} {n}" for w, n in counts.items() if n)
+         + f"; none of B2, B9 or the others ({secs:.2f} s, first run)")
+    result["launches"] = counts[pll_cuda.phase_scan_coded]
+
+    got = {f: torch.cat([getattr(o, f) for o in outs], -1)
+           for f in outs[0]._fields if getattr(outs[0], f) is not None}
+    del outs
+    _, seq = rx.run_blocks(params, rx.init_state(cfg, (SH_C,), device=dev),
+                           blocks, cfg)
+    stream = lambda x: x.movedim(0, -2).reshape(SH_C, -1)  # noqa: E731
+    want_out = {f: stream(getattr(seq, f))
+                for f in ("mono", "left", "right", "rds_symbols")}
+    want_out["pcm"] = mix.quantize_s16(mix.interleave(want_out["left"],
+                                                      want_out["right"]))
+    want_out["rds_resync"] = seq.rds_resync.movedim(0, -1)
+    want_out["rds_offset"] = seq.rds_offset.movedim(0, -1)
+    del seq
+    if got.keys() != want_out.keys():
+        raise AssertionError(f"phase 5: fields {sorted(got)} against "
+                             f"{sorted(want_out)}")
+    for f, v in want_out.items():
+        if got[f].shape != v.shape:
+            raise AssertionError(f"phase 5: sharded {f} {tuple(got[f].shape)}"
+                                 f" against run_blocks' {tuple(v.shape)}")
+        if not torch.equal(got[f], v):
+            raise AssertionError(f"phase 5: sharded {f} is not bitwise equal "
+                                 f"to run_blocks': max |err| "
+                                 f"{_max_err([got[f]], [v])}")
+    for f in got:
+        if got[f].is_floating_point() and not bool(
+                torch.isfinite(got[f]).all()):
+            raise AssertionError(f"phase 5: non-finite {f}")
+    _say(f"phase 5: {N_BLOCKS} blocks x {SH_C} channels through "
+         f"{SH_STEPS} steps: every field ({', '.join(want_out)}) bitwise "
+         f"equal to run_blocks over the same blocks on the card")
+    dec = fm.check_reception(
+        cfg, got["left"][0].view(N_BLOCKS, -1).cpu().numpy(),
+        got["right"][0].view(N_BLOCKS, -1).cpu().numpy(),
+        got["rds_symbols"][0].view(N_BLOCKS, -1).cpu().numpy(),
+        got["rds_resync"][0].cpu().numpy())
+    _say(f"phase 5: channel 0 decoded: separation L {dec['sep_l_db']:.1f} "
+         f"dB, R {dec['sep_r_db']:.1f} dB, PI {dec['pi']}, PS "
+         f"{dec['ps']!r} ({dec['groups']} groups)")
+    del got
+
+    # bench.py's _time_sharded protocol on one card: the plain scan over
+    # one chunk's S blocks against one sharded step on the same chunk,
+    # state and carry threaded through, warm; medians of RATE_REPS, the
+    # two sides alternating which goes first
+    chunk_blocks = blocks[:SH_S].contiguous()
+    st = rx.init_state(cfg, (SH_C,), device=dev)
+    carry = r.init(SH_C)
+    samples = SH_C * SH_S * cfg.iq_per_block
+    rates = {"plain": [], "sharded": []}
+
+    def timed(side):
+        nonlocal st, carry
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if side == "plain":
+            st, _ = rx.run_blocks(params, st, chunk_blocks, cfg)
+        else:
+            carry, _ = r.step(params, carry, chunks[0])
+        torch.cuda.synchronize()
+        rates[side].append(samples / (time.perf_counter() - t) / 1e6)
+
+    timed("plain")
+    timed("sharded")
+    for v in rates.values():                          # the warm-up
+        v.clear()
+    for k in range(RATE_REPS):
+        for side in (("plain", "sharded") if k % 2 == 0
+                     else ("sharded", "plain")):
+            timed(side)
+    med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+    eff = med["sharded"] / med["plain"]
+    prof = {"plain": _profile(lambda: rx.run_blocks(params, st, chunk_blocks,
+                                                    cfg)),
+            "sharded": _profile(lambda: r.step(params, carry, chunks[0]))}
+    _say("phase 5: one warm call of each under torch.profiler, device busy "
+         "(CUDA kernel and copy time), device events, top-level torch ops: "
+         + "; ".join(f"{k} {v[0]:.3f} ms, {v[1]} events, {v[2]} ops"
+                     for k, v in prof.items())
+         + "; wall without the profiler (median): "
+         + ", ".join(f"{k} {samples / med[k] / 1e3:.3f} ms" for k in med))
+    _say(f"phase 5: exact time-sharded receiver on one card, C={SH_C}, "
+         f"S={SH_S}, halo {r.halo_if}: sharded {med['sharded']:.1f} MS/s, "
+         f"plain run_blocks {med['plain']:.1f} MS/s, efficiency {eff:.3f} "
+         f"(medians of {RATE_REPS}; sharded runs "
+         f"{', '.join(f'{v:.1f}' for v in rates['sharded'])}; plain "
+         f"{', '.join(f'{v:.1f}' for v in rates['plain'])}); peak device "
+         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 5 "
+         f"{time.perf_counter() - t0:.1f} s on {smi}")
+    result["sharded_eff_1dev"] = eff
+    return [result]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1453,6 +1734,7 @@ def main() -> None:
                     frontend_cuda.fused_frontend_full.corr,
                     frontend_cuda.fused_frontend_if, pll_cuda.phase_scan,
                     pll_cuda.phase_scan_target,
+                    pll_cuda.phase_scan_coded,
                     backend_cuda.fused_audio_backend,
                     resample_cuda.fused_audio_backend_rational,
                     resample_cuda.fused_rds_backend,
@@ -1465,6 +1747,8 @@ def main() -> None:
     results += _run_wideband(dev, smi, all_wrappers)
     torch.cuda.empty_cache()
     _run_cli(smi)
+    torch.cuda.empty_cache()
+    results += _run_sharded(dev, smi, all_wrappers)
 
     for r in results:
         del r["wrapper"]

@@ -20,4 +20,10 @@ def __getattr__(name):
     if name == "receiver":
         from dy4tpu_torch.pipeline import receiver
         return receiver
+    if name == "ShardedReceiver":
+        from dy4tpu_torch.parallel import ShardedReceiver
+        return ShardedReceiver
+    if name == "make_mesh":
+        from dy4tpu_torch.parallel import make_mesh
+        return make_mesh
     raise AttributeError(f"module 'dy4tpu_torch' has no attribute {name!r}")

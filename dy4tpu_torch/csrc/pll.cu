@@ -17,9 +17,21 @@
 // expansion (the Pallas kernel's expand=K option) is not on the path: the
 // caller rebuilds those phases with vectorized torch ops.
 //
+// B8 pll_phase_scan_coded_kernel replaces the same Pallas kernel in
+// mode="coded" (pll_pallas.py :: phase_scan_coded): the exact time-sharded
+// receiver's replay of B2's recurrence from int8 sign codes (POS 0, NEG 1,
+// ZERO 2, INVALID 3).  The step is B2's line for line; the target comes
+// from the code, ZERO zeroes the error, and an INVALID code keeps the
+// whole carry (integ, pe, ang) while its pre-update phase is still
+// emitted.  The carry after exactly split_at samples is stored as a
+// second carry output (the input carry when split_at is 0, the end carry
+// when it is n), so the next chunk's replay can resume there.  On valid
+// codes its phases and carries equal B2's on the samples the codes came
+// from, bit for bit; the exact sharded receiver rests on that.
+//
 // What bounds it on the card: latency.  The recurrence is serial in time
 // (13 dependent float ops per step on the loop-carried chain pe -> pe, in
-// both kernels, besides the compares and selects) and parallel only over
+// all three kernels, besides the compares and selects) and parallel only over
 // streams, and the mode-0 serving batch has C=512 channels x 2 lanes =
 // 1024 streams, a small fraction of the threads the card can hold.
 // The design keeps the carry in registers, gives each stream its own
@@ -126,6 +138,64 @@ __global__ void pll_span_scan_kernel(
   ang1[s] = ang;
 }
 
+__global__ void pll_phase_scan_coded_kernel(
+    const signed char* __restrict__ codes, const float* __restrict__ kp,
+    const float* __restrict__ ki, const float* __restrict__ dtheta,
+    const float* __restrict__ integ0, const float* __restrict__ pe0,
+    const float* __restrict__ ang0, float* __restrict__ phi,
+    float* __restrict__ integ_mid, float* __restrict__ pe_mid,
+    float* __restrict__ ang_mid, float* __restrict__ integ1,
+    float* __restrict__ pe1, float* __restrict__ ang1, long long n_streams,
+    long long n, long long split_at, float pi, float two_pi,
+    float inv_two_pi, float wrap) {
+  const long long s =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= n_streams) return;
+  const float kps = kp[s];
+  const float kis = ki[s];
+  const float dth = dtheta[s];
+  float integ = integ0[s];
+  float pe = pe0[s];
+  float ang = ang0[s];
+  const signed char* cs = codes + s * n;
+  float* out = phi + s * n;
+  for (long long t = 0; t < n; ++t) {
+    if (t == split_at) {  // the carry after exactly split_at samples
+      integ_mid[s] = integ;
+      pe_mid[s] = pe;
+      ang_mid[s] = ang;
+    }
+    const int code = cs[t];
+    const float tk = code == 1 ? pi : 0.0f;  // NEG: target pi
+    const float ph = __fadd_rn(ang, pe);
+    const float v = __fadd_rn(__fsub_rn(tk, ph), pi);
+    float err = __fsub_rn(
+        __fsub_rn(v, __fmul_rn(two_pi, floorf(__fmul_rn(v, inv_two_pi)))),
+        pi);
+    if (code == 2) err = 0.0f;  // ZERO: the zero-input guard
+    const float i2 = __fadd_rn(integ, __fmul_rn(kis, err));
+    float p = __fadd_rn(__fadd_rn(pe, __fmul_rn(kps, err)), i2);
+    p = __fsub_rn(p, p >= wrap ? wrap : 0.0f);
+    const float p2 = __fadd_rn(p, p < 0.0f ? wrap : 0.0f);
+    const float a = __fadd_rn(ang, dth);
+    const float a2 = __fsub_rn(a, a >= wrap ? wrap : 0.0f);
+    if (code != 3) {  // INVALID freezes the carry
+      integ = i2;
+      pe = p2;
+      ang = a2;
+    }
+    out[t] = ph;  // emitted for every code, INVALID included
+  }
+  if (split_at >= n) {
+    integ_mid[s] = integ;
+    pe_mid[s] = pe;
+    ang_mid[s] = ang;
+  }
+  integ1[s] = integ;
+  pe1[s] = pe;
+  ang1[s] = ang;
+}
+
 }  // namespace
 
 // x, phi: [n_streams, n]; kp, ki, dtheta and the carries: [n_streams].
@@ -164,5 +234,28 @@ extern "C" int dy4_pll_span_scan(
                          static_cast<cudaStream_t>(stream)>>>(
       targets, kp, ki, dtheta, integ0, pe0, ang0, phi0, i0, integ1, pe1,
       ang1, n_streams, m, k, pi, two_pi, inv_two_pi, wrap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B8.  codes (int8), phi: [n_streams, n]; kp, ki, dtheta and the carries
+// (input, after split_at samples, at the end): [n_streams];
+// 0 <= split_at <= n.  Returns cudaGetLastError() after the launch
+// (0 = launched).
+extern "C" int dy4_pll_phase_scan_coded(
+    const signed char* codes, const float* kp, const float* ki,
+    const float* dtheta, const float* integ0, const float* pe0,
+    const float* ang0, float* phi, float* integ_mid, float* pe_mid,
+    float* ang_mid, float* integ1, float* pe1, float* ang1,
+    long long n_streams, long long n, long long split_at, float pi,
+    float two_pi, float inv_two_pi, float wrap, void* stream) {
+  if (n_streams <= 0) return 0;
+  const int threads = 32;
+  const unsigned blocks =
+      static_cast<unsigned>((n_streams + threads - 1) / threads);
+  pll_phase_scan_coded_kernel<<<blocks, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      codes, kp, ki, dtheta, integ0, pe0, ang0, phi, integ_mid, pe_mid,
+      ang_mid, integ1, pe1, ang1, n_streams, n, split_at, pi, two_pi,
+      inv_two_pi, wrap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,12 @@ one loop-filter update per K samples, driven by a span-averaged detector
 target (``_span_targets``), with the within-span phases rebuilt
 vectorized afterwards (``_span_expand``), so the serial chain is N/K steps
 long.  ``span`` is an argument: the library reads no environment variable.
+
+``encode_sign`` and ``phase_scan_coded`` are the coded replay of the exact
+time-sharded receiver (``parallel/sharded.py``): the input enters the
+recurrence only through its sign, so an int8 code stream stands in for the
+float32 samples, and the replay from codes is bit-identical to ``pll``'s
+scan over the samples they encode.
 """
 
 from __future__ import annotations
@@ -187,6 +193,49 @@ def _span_expand(phi0: Tensor, i0: Tensor, targets: Tensor, kp: Tensor,
     tri = j * (j + 1.0) * 0.5
     out = phi0[..., None] + j * lin[..., None] + tri * quad[..., None]
     return out.reshape(*phi0.shape[:-1], phi0.shape[-1] * span)
+
+
+# sign codes of the PLL input (dy4tpu's, value for value): the input enters
+# the recurrence only through its sign and the zero guard, so an int8 code
+# stream is a lossless stand-in for the float32 samples
+CODE_POS = 0
+CODE_NEG = 1
+CODE_ZERO = 2
+CODE_INVALID = 3   # pre-stream padding: freezes the carry entirely
+
+
+def encode_sign(x: Tensor) -> Tensor:
+    """float32 PLL input -> int8 sign codes (POS/NEG/ZERO)."""
+    return torch.where(x == 0.0, CODE_ZERO,
+                       torch.where(x < 0.0, CODE_NEG, CODE_POS)).to(
+                           torch.int8)
+
+
+def phase_scan_coded(codes: Tensor, carry: tuple[Tensor, Tensor, Tensor], *,
+                     freq, fs: float, norm_bandwidth, split_at: int
+                     ) -> tuple[Tensor, tuple[Tensor, Tensor, Tensor],
+                                tuple[Tensor, Tensor, Tensor]]:
+    """Run the PLL phase recurrence over an int8 sign-code stream.
+
+    ``codes``: [..., M] int8; ``carry``: (integrator, phase_est, angle),
+    each [...]; ``freq``/``norm_bandwidth`` as for ``pll``.
+    ``CODE_INVALID`` samples leave the carry untouched, though their
+    (pre-update) phase is still emitted.  Returns ``(phis [..., M],
+    carry_at_split, carry_end)``, ``carry_at_split`` the carry after
+    exactly ``split_at`` samples (0 <= split_at <= M): the state the next
+    chunk's replay resumes from in the exact time-sharded receiver.
+
+    B8 (``pll_cuda.phase_scan_coded``) for a CUDA tensor, its plain loop
+    for a CPU one.  For valid codes the phases and carries equal those of
+    ``pll``'s scan over the samples the codes encode, bit for bit.
+    """
+    from dy4tpu_torch.ops import pll_cuda  # its plain twin imports us
+
+    dev = codes.device
+    kp, ki, dtheta = (torch.as_tensor(v, device=dev)
+                      for v in _loop_consts(freq, fs, norm_bandwidth))
+    return pll_cuda.phase_scan_coded(codes, kp, ki, dtheta, tuple(carry),
+                                     split_at=split_at)
 
 
 def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,

@@ -4,13 +4,17 @@ torch versions.
 ``phase_scan`` (B2) replaces ``dy4tpu/ops/pll_pallas.py :: phase_scan``
 in sign mode: the per-sample recurrence.  ``phase_scan_target`` (B9)
 replaces the same Pallas kernel in target mode with ``emit_integ``: the
-span PLL's one update per span, driven by span detector targets.  Both
-recurrences are serial in time and parallel only over streams (C channels
-x 2 lanes at mode 0), so they are latency-bound: each kernel gives each
-stream one thread with the carry in registers (see the note in
-``csrc/pll.cu``).  Kernel and plain version emit the same bits: the
-kernels are built without FMA contraction and perform ``pll._make_step``'s
-and ``pll._make_span_step``'s operations in the same order.
+span PLL's one update per span, driven by span detector targets.
+``phase_scan_coded`` (B8) replaces ``pll_pallas.py :: phase_scan_coded``
+(the kernel in coded mode): the per-sample recurrence replayed from int8
+sign codes, INVALID codes freezing the carry, with a carry snapshot after
+``split_at`` samples.  The recurrences are serial in time and parallel
+only over streams (C channels x 2 lanes at mode 0), so they are
+latency-bound: each kernel gives each stream one thread with the carry in
+registers (see the note in ``csrc/pll.cu``).  Kernel and plain version
+emit the same bits: the kernels are built without FMA contraction and
+perform ``pll._make_step``'s and ``pll._make_span_step``'s operations in
+the same order.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ _ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
          + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 _TARGET_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2
                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_CODED_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3
+               + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 
 
 def phase_scan_plain(pll_in: Tensor, kp: Tensor, ki: Tensor,
@@ -142,3 +148,72 @@ def phase_scan_target(targets: Tensor, kp: Tensor, ki: Tensor,
 
 
 phase_scan_target.launches = 0
+
+
+def phase_scan_coded_plain(codes: Tensor, kp: Tensor, ki: Tensor,
+                           dtheta: Tensor,
+                           carry: tuple[Tensor, Tensor, Tensor], *,
+                           split_at: int
+                           ) -> tuple[Tensor, tuple[Tensor, Tensor, Tensor],
+                                      tuple[Tensor, Tensor, Tensor]]:
+    """``codes`` [..., M] int8 sign codes (``pll.CODE_*``) -> ``(phis
+    [..., M], carry after split_at samples, carry at the end)``, with
+    0 <= split_at <= M.  ``kp``/``ki``/``dtheta`` and the carry fields
+    broadcast to the batch dims.  A Python loop over the M samples of
+    ``pll._make_step``; an INVALID code keeps the whole carry
+    (``torch.where(valid, new, old)``) but its phase is still emitted."""
+    step = _pll._make_step(kp, ki, dtheta)
+    c_t = codes.movedim(-1, 0)                     # [M, ...] time-major
+    target = torch.where(c_t == _pll.CODE_NEG, _pll.PI, 0.0)
+    is_zero = c_t == _pll.CODE_ZERO
+    valid = c_t != _pll.CODE_INVALID
+    phis = torch.empty(c_t.shape, dtype=torch.float32, device=codes.device)
+    mid = carry
+    for t in range(c_t.shape[0]):
+        if t == split_at:
+            mid = carry
+        new, phis[t] = step(carry, target[t], is_zero[t])
+        carry = tuple(torch.where(valid[t], a, b) for a, b in zip(new, carry))
+    if split_at == c_t.shape[0]:
+        mid = carry
+    return phis.movedim(0, -1), mid, carry
+
+
+def phase_scan_coded(codes: Tensor, kp: Tensor, ki: Tensor, dtheta: Tensor,
+                     carry: tuple[Tensor, Tensor, Tensor], *, split_at: int
+                     ) -> tuple[Tensor, tuple[Tensor, Tensor, Tensor],
+                                tuple[Tensor, Tensor, Tensor]]:
+    """The B8 kernel for a CUDA tensor, ``phase_scan_coded_plain`` for a
+    CPU one; same contract.  ``codes`` must be a contiguous int8 tensor."""
+    batch = codes.shape[:-1]
+    m = codes.shape[-1]
+    if not 0 <= split_at <= m:
+        raise ValueError(f"split_at {split_at} outside [0, {m}]")
+    if codes.device.type == "cpu":
+        return phase_scan_coded_plain(codes, kp, ki, dtheta, carry,
+                                      split_at=split_at)
+    dev = codes.device
+    kernels.require(codes, "codes", codes.shape, torch.int8, dev)
+    flat = lambda a: (torch.broadcast_to(a, batch)  # noqa: E731
+                      .reshape(-1).to(dev, torch.float32).contiguous())
+    kp_s, ki_s, dth_s = flat(kp), flat(ki), flat(dtheta)
+    c_in = [flat(c) for c in carry]
+    s = kp_s.numel()
+    phi = torch.empty(codes.shape, dtype=torch.float32, device=dev)
+    c_mid, c_out = ([torch.empty(s, dtype=torch.float32, device=dev)
+                     for _ in range(3)] for _ in range(2))
+    fn = kernels.entry("pll", "dy4_pll_phase_scan_coded", _CODED_ARGS)
+    with torch.cuda.device(dev):
+        status = fn(codes.data_ptr(), kp_s.data_ptr(), ki_s.data_ptr(),
+                    dth_s.data_ptr(), *(c.data_ptr() for c in c_in),
+                    phi.data_ptr(), *(c.data_ptr() for c in c_mid),
+                    *(c.data_ptr() for c in c_out), s, m, split_at,
+                    _pll.PI, _pll.TWO_PI, _pll.INV_TWO_PI, _pll.WRAP,
+                    kernels.stream_of(codes))
+    kernels.check_launch(status, "pll phase_scan_coded")
+    phase_scan_coded.launches += 1
+    return (phi, tuple(c.reshape(batch) for c in c_mid),
+            tuple(c.reshape(batch) for c in c_out))
+
+
+phase_scan_coded.launches = 0

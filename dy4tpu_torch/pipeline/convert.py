@@ -1,5 +1,5 @@
-"""Carry receiver and wideband params and state between ``dy4tpu`` and
-the port.
+"""Carry receiver and wideband params and state, and the sharded
+receiver's carries, between ``dy4tpu`` and the port.
 
 The two packages' NamedTuples have the same fields, so a tree maps by
 field path ("rf.iq_tail", "audio.pll.phase_est", "chan.tail_i",
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from dy4tpu_torch.ops import afc, channelizer, iqcorr, pll
+from dy4tpu_torch.parallel import sharded
 from dy4tpu_torch.pipeline import receiver as rx
 from dy4tpu_torch.pipeline import wideband as wb
 
@@ -22,9 +23,13 @@ _SUBTREES = {
                        "rds": rx.RDSState, "iqcorr": iqcorr.IQCorrState},
     rx.AudioState: {"pll": pll.PLLState},
     rx.RDSState: {"pll": pll.PLLState, "cdr": rx.CDRState},
+    rx.FrontState: {"rf": rx.RFState},
     wb.WidebandState: {"chan": channelizer.ChannelizerState,
                        "rx": rx.ReceiverState, "afc": afc.AFCState,
                        "iqcorr": iqcorr.IQCorrState},
+    sharded.ExactCarry: {"front": rx.FrontState, "back": rx.BackState,
+                         "cdr": rx.CDRState},
+    sharded.ShardedCarry: {"state": rx.ReceiverState},
 }
 
 
@@ -99,3 +104,19 @@ def wideband_state_from_numpy(tree, device="cuda") -> wb.WidebandState:
     [*bands, C], and the AFC and iqcorr states where present (the iqcorr
     block count stays int32)."""
     return _build(wb.WidebandState, _paths(tree), "", device)
+
+
+def exact_carry_from_numpy(tree, device="cuda") -> sharded.ExactCarry:
+    """``dy4tpu``'s ``ExactCarry`` (or a dict by field path) -> the
+    port's, on ``device``, so that a stream can move between the packages
+    between two ``step`` calls.  The shapes are kept: dy4tpu's global
+    carry is what the port's rank holds on a 1x1 mesh (the u8 tail, the
+    int8 codes, the int32 CDR offset and the bool flags keep their
+    dtypes)."""
+    return _build(sharded.ExactCarry, _paths(tree), "", device)
+
+
+def sharded_carry_from_numpy(tree, device="cuda") -> sharded.ShardedCarry:
+    """``dy4tpu``'s legacy ``ShardedCarry`` (or a dict by field path) ->
+    the port's, on ``device``, as ``exact_carry_from_numpy``."""
+    return _build(sharded.ShardedCarry, _paths(tree), "", device)

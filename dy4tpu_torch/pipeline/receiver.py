@@ -208,10 +208,14 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
     decimated I/Q before the demod; ``corr_moments`` (which needs
     ``corr``, as in dy4tpu) also returns the moments of that I/Q before
     the correction.
+
+    ``iq_u8`` [..., n]: a whole block, or any n that decimates into whole
+    IF samples (the sharded receiver's sub-block warm-up).
     """
-    if iq_u8.shape[-1] != cfg.block_size:
+    if iq_u8.shape[-1] % (2 * cfg.rf_decim):
         raise ValueError(f"block of {iq_u8.shape[-1]} bytes; mode "
-                         f"{cfg.mode} takes {cfg.block_size}")
+                         f"{cfg.mode} takes a multiple of "
+                         f"{2 * cfg.rf_decim} ({cfg.block_size} a block)")
     if corr is not None and frontend not in _IMPLS:
         raise ValueError(f"IQ correction unsupported with frontend="
                          f"{frontend!r}; use one of {_IMPLS}")

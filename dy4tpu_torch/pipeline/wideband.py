@@ -167,3 +167,40 @@ def run_wideband_blocks(params, chan: ChannelizerParams,
         for fields in zip(*(o.rx for o in outs))))
     return state, WidebandOutputs(
         rx=rx_out, rssi=torch.stack([o.rssi for o in outs]))
+
+
+def wideband_dp(params, chan: ChannelizerParams, cfg: ModeConfig, mesh,
+                **kw):
+    """Data parallelism of the wideband pipeline over the mesh's channel
+    axis, as dy4tpu's ``wideband_dp``: the leading band axis is cut over
+    ``ch`` (each band's filter-bank tail and per-station receiver states
+    are local to its rank), so it uses no collectives and equals the
+    single-process ``run_wideband_blocks`` bit for bit.  Ranks that share
+    a ch index and differ in time hold and run the same bands.
+
+    Returns ``(place, run)``: ``place(tree, axis=0)`` cuts this rank's
+    slice of the band axis ``axis`` out of a [bands, ...] tree (a state,
+    axis 0, or the [steps, bands, 2*C*if_per_block] input blocks, axis 1)
+    and puts it on the mesh's device; ``run(state, wb_blocks)`` is
+    ``run_wideband_blocks`` over this rank's bands with ``kw``.
+    """
+    from dy4tpu_torch.parallel.mesh import CH_AXIS
+
+    n_ch, c_idx = mesh.shape[CH_AXIS], mesh.ch_index
+
+    def place(tree, axis: int = 0):
+        def cut(x):
+            bands = x.shape[axis]
+            if bands % n_ch:
+                raise ValueError(f"{bands} bands not divisible by the ch "
+                                 f"axis {n_ch}")
+            per = bands // n_ch
+            return x.narrow(axis, c_idx * per, per).to(
+                mesh.device).contiguous()
+        return _map(cut, tree)
+
+    def run(state: WidebandState, wb_blocks: Tensor):
+        return run_wideband_blocks(params, chan, state, wb_blocks, cfg,
+                                   **kw)
+
+    return place, run

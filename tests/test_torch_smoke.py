@@ -33,7 +33,8 @@ WRAPPERS = (frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
             frontend_cuda.fused_frontend_if,
             channelizer_cuda.channelize_branches,
             pll_cuda.phase_scan_target,
-            frontend_cuda.fused_frontend_full.corr)
+            frontend_cuda.fused_frontend_full.corr,
+            pll_cuda.phase_scan_coded)
 
 
 def _env():
@@ -47,6 +48,7 @@ def test_port_never_imports_jax():
             "import dy4tpu_torch\n"
             "assert 'torch' not in sys.modules, 'import dy4tpu_torch is heavy'\n"
             "from dy4tpu_torch.pipeline import convert, receiver, wideband\n"
+            "from dy4tpu_torch.parallel import mesh, multihost, sharded\n"
             "from dy4tpu_torch.ops import (afc, backend_cuda, channelizer,"
             " channelizer_cuda, demod, fir, firdes, frontend_cuda, iqcorr,"
             " mix, pll, pll_cuda, resample_cuda, trig)\n"
@@ -127,6 +129,9 @@ def test_wrappers_refuse_non_cuda_devices(which):
             m(c, cfg.block_size, dt=torch.uint8), m(101), m(3, 101), m(101),
             m(c, 2, 100), m(c), m(c), m(c, 100), m(c, 50), m(c, 100),
             m(c, 50), cfg.rf_decim, corr=m(c, 4)),
+        lambda: pll_cuda.phase_scan_coded(
+            m(c, 2, n, dt=torch.int8), m(2), m(2), m(2),
+            (m(c, 2), m(c, 2), m(c, 2)), split_at=n),
     ]
     before = WRAPPERS[which].launches
     with pytest.raises(ValueError, match="CUDA"):
