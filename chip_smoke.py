@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's receiver on the card through its ten hand-written CUDA
-kernels, in all four modes, through the IF entry, with the opt-in span PLL
-and IQ tracker, through the wideband channelizer front door, through the
-receiver's command line, and through the exact time-sharded receiver:
+Drives the port's receiver on the card through its eleven hand-written
+CUDA kernels, in all four modes, through the IF entry, with the opt-in span
+PLL and IQ tracker, through the wideband channelizer front door, through
+the receiver's command line, through the exact time-sharded receiver, and
+through the PSD path and the capture tools:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -63,7 +64,21 @@ receiver's command line, and through the exact time-sharded receiver:
    card, B8 launched once per step and B1, B3, B4 seven times (the warm-up
    and six blocks), B2 and B9 never; channel 0 decoded; and the sharded
    step against plain ``run_blocks`` as ``bench.py``'s ``_time_sharded``
-   times them (medians of 5).
+   times them (medians of 5);
+7. phase 6, the PSD path and the tools at mode 0: B10 (the FFT) against its
+   plain version (the four-step) and against ``torch.fft.fft``, within 1e-5
+   of the largest magnitude, at every N of 4..2048 that its TPU twin takes,
+   real and complex, on 1531 rows, and at the PSD path's 76,800 x 512
+   (the RF I of 512 channels); ``estimate_psd`` over the RF I, RDS
+   baseband and mono of 512 channels (B10 once per call; against the
+   four-step on the card and ``torch.fft.fft`` on the CPU; channel 0's mono
+   peaks on its two tones; white noise within 1e-3 dB); psdview's
+   ``_block_psds`` over 8 blocks of a capture from the port's synth (B10
+   three times a block, B1-B4 once); and as subprocesses the port's synth
+   (48 blocks, clean with PI/PS and with the three tuner and channel
+   faults), the receiver's CLI decoding PI/PS from the clean capture, and
+   ratechange 2400 -> 1440 on the card against ``--device cpu`` (within 1
+   LSB).  B10 must launch on no earlier path.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -113,6 +128,23 @@ CLI_BLOCKS, CLI_SPLIT = 200, 100     # phase 4: blocks, checkpoint point
 SH_C, SH_S, SH_STEPS = 128, 6, 4
 SH_PREFIX_EVERY = 4                  # B8 check: every 4th row from row 1
 #                                      starts with an INVALID prefix
+# phase 6: B10 at every N its TPU twin takes, on a row count no tile of
+# the kernel divides; the PSD path on mode 0's block PSD_BLOCK (after the
+# PLLs' lock-in) of C channels; psdview over PSD_VIEW_BLOCKS blocks; the
+# capture tools over TOOL_BLOCKS (synth, the CLI) and RC_BLOCKS (ratechange)
+FFT_NS = (4, 8, 16, 64, 128, 256, 512, 1024, 2048)
+FFT_ROWS = 1531                      # a prime
+FFT_TOL = 1e-5       # max |kernel - plain| / max |plain| (test_fft_psd.py)
+PSD_NFFT, PSD_BLOCK, PSD_VIEW_BLOCKS = 512, 4, 8
+# PSD, linear power relative to the row's peak.  The four-step on the card
+# carries about 7e-7 of the largest magnitude; averaged in dB over 150
+# segments, the few segments in which a strong bin fades to that floor
+# move its mean by a few 1e-5 of the row's peak.  1e-3 is 4.3e-3 dB at
+# the peak, and a wrong bin, scale or window departs by O(1).
+PSD_LIN_TOL = 1e-3
+PSD_NOISE_DB = 1e-3  # PSD of white noise, dB (test_fft_psd.py's bar)
+PSD_NOISE_ROWS = 4
+TOOL_BLOCKS, RC_BLOCKS = 48, 24
 HBM_BYTES_S = 3.35e12                # H100 SXM device memory, bytes/s
 FP32_FLOP_S = 67e12                  # H100 SXM float32 outside tensor cores
 FP32_LATENCY = 4                     # cycles from one dependent float op
@@ -234,6 +266,7 @@ class _Row:
     chain_steps: int = 0
     library: Optional[Callable] = None
     extra: dict = dataclasses.field(default_factory=dict)
+    phase: str = "phase 2"
 
     def finish(self, smi: str, mode: int) -> dict:
         if not self.err <= self.tol:
@@ -260,7 +293,7 @@ class _Row:
                     f"estimate: {self.chain_steps} steps x {PLL_CHAIN_OPS} "
                     f"dependent float ops x {FP32_LATENCY} cycles at "
                     f"{_max_sm_clock_hz() / 1e6:.0f} MHz)")
-        _say(f"phase 2: {self.kernel} {self.geometry}: max |kernel - "
+        _say(f"{self.phase}: {self.kernel} {self.geometry}: max |kernel - "
              f"plain| {self.err:.3g} (tolerance {self.tol:g}); kernel "
              f"{ms:.4f} ms, plain {plain_ms:.4f} ms"
              + ("" if library_ms is None else f", library {library_ms:.4f} "
@@ -704,6 +737,21 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     return [r.finish(smi, cfg.mode) for r in rows]
 
 
+def _zero(wrappers) -> None:
+    """Set every wrapper's launch count to 0, the card idle."""
+    import torch
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+
+
+def _launches_off(wrappers, want: dict) -> dict:
+    """{name: (got, expected)} of every wrapper whose launches since
+    ``_zero`` differ from ``want`` (0 for those not named)."""
+    return {w.__name__: (w.launches, want.get(w, 0)) for w in wrappers
+            if w.launches != want.get(w, 0)}
+
+
 def _path(cfg, entry: str = "rf", span: bool = False, corr: bool = False):
     """The kernel wrappers a mode's main path launches: ``entry`` "rf"
     (``receiver_step``), "if" (``receiver_step_if``) or "wideband"
@@ -736,9 +784,7 @@ def _run_path(label, cfg, run, all_wrappers, entry="rf",
     ``n_blocks`` blocks and no other kernel launched.  Returns ``(run's
     result, {wrapper: launches})``."""
     import torch
-    for w in all_wrappers:
-        w.launches = 0
-    torch.cuda.synchronize()
+    _zero(all_wrappers)
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -1541,7 +1587,7 @@ def _check_b8(cfg, params, blocks, halo_if, dev) -> "_Row":
                                           split_at=split),
         plain_ms=start.elapsed_time(stop), where=f"C={SH_C}",
         nbytes=_nbytes(codes, kp, ki, dth, carry, k_flat),
-        flops=B2_STEP_OPS * x.numel(), chain_steps=m)
+        flops=B2_STEP_OPS * x.numel(), chain_steps=m, phase="phase 5")
 
 
 def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
@@ -1585,9 +1631,7 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
             outs.append(out)
         return outs
 
-    for w in all_wrappers:
-        w.launches = 0
-    torch.cuda.synchronize()
+    _zero(all_wrappers)
     t1 = time.perf_counter()
     outs = run()
     torch.cuda.synchronize()
@@ -1598,8 +1642,7 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
             backend_cuda.fused_audio_backend: SH_STEPS * per_step,
             resample_cuda.fused_rds_backend: SH_STEPS * per_step,
             pll_cuda.phase_scan_coded: SH_STEPS}
-    off = {w.__name__: (n, want.get(w, 0)) for w, n in counts.items()
-           if n != want.get(w, 0)}
+    off = _launches_off(all_wrappers, want)
     if off:
         raise AssertionError(f"phase 5: launches (got, expected): {off}")
     _say("phase 5: launches over " + f"{SH_STEPS} steps: " + ", ".join(
@@ -1700,6 +1743,304 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
     return [result]
 
 
+def _check_fft(blocks, dev) -> list:
+    """Phase 6's kernel checks: B10 at every N of FFT_NS on FFT_ROWS
+    distinct rows, real and complex (the real input timed), and at the PSD
+    path's geometry: the Hann-windowed RF I of mode-0 block PSD_BLOCK over
+    C channels, C x 150 segments of N = 512, real.  Each within FFT_TOL of
+    the plain version's largest magnitude, against the plain version and
+    against ``torch.fft.fft`` (cuFFT, the yardstick).  Returns the rows."""
+    import math
+
+    import torch
+    from dy4tpu_torch.ops import fft as fft_ops
+    from dy4tpu_torch.ops import fft_cuda
+
+    def check(name, x):
+        k = fft_cuda.fft(x)
+        p = fft_cuda.fft_four_step(x)
+        lib = torch.fft.fft(x)
+        torch.cuda.synchronize()
+        scale = float(p.abs().max())
+        err = float((k - p).abs().max())
+        err_lib = float((k - lib).abs().max())
+        _say(f"phase 6: B10 {name}: max |kernel - plain| / max |plain| "
+             f"{err / scale:.3g}, against torch.fft.fft {err_lib / scale:.3g} "
+             f"(tolerance {FFT_TOL:g})")
+        if not (err <= FFT_TOL * scale and err_lib <= FFT_TOL * scale):
+            raise AssertionError(f"B10 {name}: departs beyond {FFT_TOL:g} of "
+                                 f"the largest magnitude {scale:.4g}")
+        return err, scale, k
+
+    def row(geometry, x, err, scale, k, where, rel):
+        n = x.shape[-1]
+        return _Row(
+            "B10 fft", geometry, "dy4tpu_torch/csrc/fft.cu",
+            "dy4tpu/ops/fft_pallas.py:103", fft_cuda.fft, err,
+            FFT_TOL * scale, lambda: fft_cuda.fft(x),
+            lambda: fft_cuda.fft_four_step(x), where=where,
+            nbytes=_nbytes(x, k), flops=5 * n * math.log2(n) * (x.numel() // n),
+            library=lambda: torch.fft.fft(x), phase="phase 6",
+            extra=dict(rel_err=rel))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    rows = []
+    for n in FFT_NS:
+        x = torch.randn(FFT_ROWS, n, generator=gen, device=dev)
+        xc = torch.complex(torch.randn(FFT_ROWS, n, generator=gen,
+                                       device=dev),
+                           torch.randn(FFT_ROWS, n, generator=gen,
+                                       device=dev))
+        _distinct_rows("B10", x, xc)
+        err_c, scale_c, _ = check(f"N={n} complex [{FFT_ROWS}, {n}]", xc)
+        err, scale, k = check(f"N={n} real [{FFT_ROWS}, {n}]", x)
+        rows.append(row(f"N={n}", x, err, scale, k,
+                        f"{FFT_ROWS} rows, real",
+                        max(err / scale, err_c / scale_c)))
+        del xc
+    x = (blocks[PSD_BLOCK].to(torch.float32) - 128.0) / 128.0
+    segs = x[:, 0::2].reshape(x.shape[0], -1, PSD_NFFT) * torch.from_numpy(
+        fft_ops.hann_sq(PSD_NFFT)).to(dev)
+    segs = segs.reshape(-1, PSD_NFFT)
+    _distinct_rows("B10", segs)
+    err, scale, k = check(f"N={PSD_NFFT} [{segs.shape[0]}, {PSD_NFFT}] (the "
+                          f"RF I PSD of {x.shape[0]} channels)", segs)
+    rows.append(row(f"N={PSD_NFFT} x {segs.shape[0]} rows", segs, err, scale,
+                    k, f"C={x.shape[0]} x {segs.shape[0] // x.shape[0]} "
+                    f"segments, real", err / scale))
+    return rows
+
+
+def _psd_close(label, got, ref, tol_lin=PSD_LIN_TOL, tol_db=None) -> float:
+    """Hold one PSD in dB to another.  With ``tol_db``, every bin within
+    that many dB.  Otherwise linear power, 10^(dB/10), within ``tol_lin``
+    of the row's peak: the dB of a deep Hann sidelobe turns a tiny
+    absolute error into a large dB one, which the linear comparison
+    weighs by the bin's power.  Returns the departure."""
+    import torch
+    got, ref = got.double().cpu(), ref.double().cpu()
+    if tol_db is not None:
+        both_inf = torch.isinf(got) & torch.isinf(ref) & (got == ref)
+        err = float(torch.where(both_inf, 0.0, (got - ref).abs()).max())
+        tol = tol_db
+    else:
+        g, r = 10.0 ** (got / 10), 10.0 ** (ref / 10)
+        err = float(((g - r).abs() / r.amax(-1, keepdim=True)).max())
+        tol = tol_lin
+    _say(f"phase 6: {label}: {err:.3g} (tolerance {tol:g}"
+         f"{' dB' if tol_db is not None else ' of the row peak'})")
+    if not err <= tol:
+        raise AssertionError(f"{label}: departs by {err:.3g} > {tol:g}")
+    return err
+
+
+def _psd_sane(psd) -> bool:
+    """No NaN or +inf, and a finite peak in every row.  A bin may be -inf:
+    where a float32 FFT rounds a bin some 180 dB under the row's peak to
+    exactly 0 (dy4tpu's jnp.fft.fft does too), 10 log10 gives -inf."""
+    import numpy as np
+    psd = np.asarray(psd, np.float64)
+    return bool(not np.isnan(psd).any() and not (psd == np.inf).any()
+                and np.isfinite(psd.max(-1)).all())
+
+
+def _tone_peaks(freq, psd_row, tones=(800.0, 2400.0)) -> list[float]:
+    """The frequencies of the two strongest peaks of one PSD row (bins
+    within 3 of the first masked before the second); raises unless each
+    of ``tones`` lies within one bin of one of them."""
+    import numpy as np
+    p = np.asarray(psd_row, np.float64).copy()
+    first = int(np.argmax(p))
+    p[max(0, first - 3):first + 4] = -np.inf
+    found = [float(freq[first]), float(freq[int(np.argmax(p))])]
+    bin_hz = freq[1] - freq[0]
+    for t in tones:
+        if min(abs(f - t) for f in found) > bin_hz:
+            raise AssertionError(f"PSD peaks {found} Hz: no peak within one "
+                                 f"bin ({bin_hz:g} Hz) of {t:g} Hz")
+    return found
+
+
+def _run_psd(dev, smi, all_wrappers) -> list[dict]:
+    """Phase 6: B10 and the PSD path, then psdview's computation and the
+    capture tools on the card.  Returns B10's JSON entries, each with
+    B10's launches over psdview's run."""
+    import argparse
+
+    import numpy as np
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import (backend_cuda, fft as fft_ops, fft_cuda,
+                                  frontend_cuda, pll_cuda, resample_cuda)
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tools import psdview
+    from dy4tpu_torch.tx import fm
+
+    cfg = get_mode(0)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1), cfg, dev)
+    rows = _check_fft(blocks, dev)
+    results = [r.finish(smi, cfg.mode) for r in rows]
+    del rows
+
+    # ---- the PSD path over the receiver's outputs, C channels ----
+    params = rx.make_params(cfg, device=dev)
+    _, outs = rx.run_blocks(params, rx.init_state(cfg, (C,), device=dev),
+                            blocks[:PSD_BLOCK + 1], cfg)
+    x = (blocks[PSD_BLOCK].to(torch.float32) - 128.0) / 128.0
+    del blocks
+    signals = {"RF I": (x[:, 0::2], cfg.rf_fs),
+               "rds_bb_i": (outs.rds_bb_i[PSD_BLOCK], cfg.rds_fs),
+               "mono": (outs.mono[PSD_BLOCK], cfg.audio_fs)}
+    psds = {}
+    for name, (sig, fs) in signals.items():
+        label = f"PSD of {name} {list(sig.shape)}"
+        _zero(all_wrappers)
+        freq, psd = fft_ops.estimate_psd(sig, nfft=PSD_NFFT, fs=fs)
+        off = _launches_off(all_wrappers, {fft_cuda.fft: 1})
+        if off:
+            raise AssertionError(f"{label}: launches (got, expected): {off}")
+        if not (psd.shape == (C, PSD_NFFT // 2) and psd.device == sig.device
+                and _psd_sane(psd.cpu().numpy())):
+            raise AssertionError(f"{label}: {tuple(psd.shape)} on "
+                                 f"{psd.device}, or NaN / +inf / a row "
+                                 f"without a finite peak")
+        n_inf = int(torch.isinf(psd).sum())
+        if n_inf:
+            _say(f"phase 6: {label}: {n_inf} of {psd.numel()} bins at -inf "
+                 f"(a bin rounded to 0 by the float32 FFT)")
+        _, four = fft_ops.estimate_psd(sig, nfft=PSD_NFFT, fs=fs,
+                                       impl="four_step")
+        _psd_close(f"{label}: B10 against four_step on the card", psd, four)
+        _, cpu = fft_ops.estimate_psd(sig[0].cpu(), nfft=PSD_NFFT, fs=fs)
+        _psd_close(f"{label}: channel 0 against torch.fft.fft on the CPU",
+                   psd[0], cpu)
+        psds[name] = (freq, psd[0].cpu().numpy())
+    peaks = _tone_peaks(*psds["mono"])
+    _say(f"phase 6: channel 0's mono PSD peaks at {peaks} Hz (tones 800 and "
+         f"2400 Hz, bins of {psds['mono'][0][1]:g} Hz)")
+    noise = torch.randn(PSD_NOISE_ROWS, 4096, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    _, pk = fft_ops.estimate_psd(noise, nfft=PSD_NFFT, fs=48e3)
+    _, p4 = fft_ops.estimate_psd(noise, nfft=PSD_NFFT, fs=48e3,
+                                 impl="four_step")
+    _, pc = fft_ops.estimate_psd(noise.cpu(), nfft=PSD_NFFT, fs=48e3)
+    label = f"PSD of white noise [{PSD_NOISE_ROWS}, 4096]: B10 against"
+    _psd_close(f"{label} four_step on the card", pk, p4, tol_db=PSD_NOISE_DB)
+    _psd_close(f"{label} torch.fft.fft on the CPU", pk, pc,
+               tol_db=PSD_NOISE_DB)
+    del outs, signals, x
+
+    # ---- the capture tools as a user runs them, psdview's computation --
+    def tools(*commands):
+        """Run ``python -m <command>`` for each command at once; raise
+        unless every one exits 0.  No process outlives the call."""
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", *c], cwd=REPO,
+                                  stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in commands]
+        try:
+            for c, proc in zip(commands, procs):
+                _, err = proc.communicate(timeout=300)
+                if proc.returncode != 0:
+                    raise AssertionError(f"phase 6: python -m {' '.join(c)} "
+                                         f"exited {proc.returncode}:\n"
+                                         f"{err[-3000:]}")
+                _say(f"phase 6: python -m {' '.join(c)} "
+                     f"({time.perf_counter() - t0:.1f} s)")
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        clean, fault = tmp / "clean.raw", tmp / "fault.raw"
+        synth = "dy4tpu_torch.tools.synth"
+        tools((synth, str(clean), "--mode", "0", "--blocks",
+               str(TOOL_BLOCKS), "--pi", "0x54A7", "--ps", "DY4TPU"),
+              (synth, str(fault), "--mode", "0", "--blocks",
+               str(TOOL_BLOCKS), "--dc", "0.1", "-0.05", "--iq-imbalance",
+               "0.75", "20", "--multipath", "24:0.4:120,60:0.2"))
+        iq, iq_fault = (np.fromfile(f, np.uint8) for f in (clean, fault))
+        if not (len(iq) == len(iq_fault) == TOOL_BLOCKS * cfg.block_size
+                and not np.array_equal(iq, iq_fault)):
+            raise AssertionError(f"phase 6: synth wrote {len(iq)} and "
+                                 f"{len(iq_fault)} bytes (or equal ones)")
+
+        # psdview's computation (its drawing needs matplotlib, which this
+        # script does not require): the main path of this phase
+        args = argparse.Namespace(infile=str(clean), blocks=PSD_VIEW_BLOCKS,
+                                  nfft=PSD_NFFT, device="cuda")
+        _zero(all_wrappers)
+        t0 = time.perf_counter()
+        frames, n = psdview._block_psds(args, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        b10 = fft_cuda.fft.launches
+        nb = PSD_VIEW_BLOCKS
+        off = _launches_off(all_wrappers, {
+            fft_cuda.fft: 3 * nb, frontend_cuda.fused_frontend_full: nb,
+            pll_cuda.phase_scan: nb, backend_cuda.fused_audio_backend: nb,
+            resample_cuda.fused_rds_backend: nb})
+        if off or n != nb or len(frames) != nb:
+            raise AssertionError(f"phase 6: psdview over {n} blocks: "
+                                 f"launches (got, expected) {off}")
+        for panel in frames[-1]:
+            if not (panel[1].shape == (PSD_NFFT // 2,)
+                    and _psd_sane(panel[1])):
+                raise AssertionError("phase 6: psdview: a panel of the "
+                                     "wrong shape, or NaN / +inf / no "
+                                     "finite peak")
+        view_peaks = _tone_peaks(frames[-1][2][0] * 1e3, frames[-1][2][1])
+        _say(f"phase 6: psdview._block_psds over {nb} blocks of the synth "
+             f"capture: B10 {b10} launches (3 a block), B1, B2, B3, B4 "
+             f"{nb} each, nothing else; block {nb - 1}'s mono peaks at "
+             f"{view_peaks} Hz ({secs:.2f} s)")
+        for r in results:
+            r["launches"] = b10
+
+        # the receiver's CLI on the clean capture; ratechange on its first
+        # RC_BLOCKS blocks on the card and on the CPU, all three at once
+        iq[:RC_BLOCKS * cfg.block_size].tofile(tmp / "rc_in.raw")
+        rc = "dy4tpu_torch.tools.ratechange"
+        tools(("dy4tpu_torch", "0", "r", "--input", str(clean), "--output",
+               str(tmp / "a.pcm"), "--rds-json", str(tmp / "events.jsonl")),
+              *((rc, str(tmp / "rc_in.raw"), str(tmp / f"rc_{d}.raw"),
+                 "--to", "1440", "--device", d) for d in ("cuda", "cpu")))
+        events = [json.loads(line) for line in
+                  (tmp / "events.jsonl").read_text().splitlines()]
+        last = events[-1] if events else {}
+        if not (last.get("pi") == "54A7"
+                and last.get("ps", "").strip() == "DY4TPU"):
+            raise AssertionError(f"phase 6: the CLI's RDS events on the "
+                                 f"synth capture do not carry PI/PS: {last}")
+        gpu, cpu = (np.fromfile(tmp / f"rc_{d}.raw", np.uint8)
+                    for d in ("cuda", "cpu"))
+        n_iq = RC_BLOCKS * cfg.iq_per_block
+        want = 2 * (n_iq // 5 * 3)
+        lsb = (int(np.abs(gpu.astype(np.int16) - cpu).max())
+               if len(gpu) == len(cpu) else -1)
+        if not (len(gpu) == len(cpu) == want and 0 <= lsb <= 1):
+            raise AssertionError(f"phase 6: ratechange 2400 -> 1440 wrote "
+                                 f"{len(gpu)} bytes on the card, {len(cpu)} "
+                                 f"on the CPU (want {want}), max |diff| "
+                                 f"{lsb}")
+        _say(f"phase 6: synth ({TOOL_BLOCKS} blocks, and with --dc "
+             f"--iq-imbalance --multipath) decoded by the CLI: PI "
+             f"{last['pi']}, PS {last['ps']!r} ({len(events)} events); "
+             f"ratechange 2400 -> 1440 over {RC_BLOCKS} blocks: {len(gpu)} "
+             f"bytes, card and CPU within {lsb} LSB "
+             f"({int((gpu != cpu).sum())} bytes differ)")
+    _say(f"phase 6: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 6 "
+         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return results
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1708,7 +2049,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's kernels run only on a CUDA device")
-    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,
+    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda, fft_cuda,
                                   frontend_cuda, pll_cuda, resample_cuda)
     from dy4tpu_torch.runtime import kernels
 
@@ -1738,7 +2079,7 @@ def main() -> None:
                     backend_cuda.fused_audio_backend,
                     resample_cuda.fused_audio_backend_rational,
                     resample_cuda.fused_rds_backend,
-                    channelizer_cuda.channelize_branches]
+                    channelizer_cuda.channelize_branches, fft_cuda.fft]
     # ---- 2 + 3, mode by mode, then the wideband front door ----
     results: list[dict] = []
     for mode in (0, 1, 2, 3):
@@ -1749,6 +2090,8 @@ def main() -> None:
     _run_cli(smi)
     torch.cuda.empty_cache()
     results += _run_sharded(dev, smi, all_wrappers)
+    torch.cuda.empty_cache()
+    results += _run_psd(dev, smi, all_wrappers)
 
     for r in results:
         del r["wrapper"]

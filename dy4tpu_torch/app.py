@@ -166,11 +166,9 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     import torch
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch finds no CUDA device on this "
-                         "machine (pass --device cpu for the plain "
-                         "versions on the CPU)")
+    from dy4tpu_torch.runtime import kernels
+
+    dev = kernels.cli_device(args.device)
     on_card = dev.type == "cuda"
     if on_card:
         # float32 throughout (dy4tpu's precision=HIGHEST): no TF32

@@ -38,7 +38,9 @@ class AFCState(NamedTuple):
 
 
 def init_afc_state(batch: tuple[int, ...] = (), dtype=torch.float32,
-                   device="cpu") -> AFCState:
+                   device="cuda") -> AFCState:
+    """Zero loop state on ``device`` (the card unless the caller asks for
+    the CPU)."""
     z = lambda: torch.zeros(batch, dtype=dtype, device=device)  # noqa: E731
     return AFCState(freq=z(), phase=z())
 

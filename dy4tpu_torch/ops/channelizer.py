@@ -65,9 +65,10 @@ class ChannelizerState(NamedTuple):
 
 def make_channelizer(channels: int, f_if: float, *,
                      taps_per_branch: int = 12, fc: float | None = None,
-                     device="cpu") -> ChannelizerParams:
+                     device="cuda") -> ChannelizerParams:
     """Design a C-channel critically-sampled bank for ``fs_w = C*f_if``
-    (host-side numpy, as dy4tpu does) and put it on ``device``.
+    (host-side numpy, as dy4tpu does) and put it on ``device`` (the card
+    unless the caller asks for the CPU).
 
     ``fc``: prototype cutoff (default ``0.42 * f_if``)."""
     c, t = channels, taps_per_branch

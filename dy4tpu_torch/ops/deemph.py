@@ -60,9 +60,10 @@ def deemphasis_block(x: Tensor, y_prev: Tensor, a: float
 
 
 def init_deemph_state(batch: tuple[int, ...] = (), *, stereo: bool,
-                      dtype=torch.float32, device="cpu"):
+                      dtype=torch.float32, device="cuda"):
     """Carried state: previous output sample per audio stream,
-    ``(mono,)`` or ``(left, right)``."""
+    ``(mono,)`` or ``(left, right)``, on ``device`` (the card unless the
+    caller asks for the CPU)."""
     n = 2 if stereo else 1
     return tuple(torch.zeros(batch, dtype=dtype, device=device)
                  for _ in range(n))

@@ -28,6 +28,14 @@ def state_len(num_taps: int, up: int = 1) -> int:
     return (num_taps - 1) // up
 
 
+def init_state(num_taps: int, up: int = 1, batch: tuple[int, ...] = (),
+               dtype=torch.float32, device="cuda") -> Tensor:
+    """Zero carried state [*batch, S] on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    return torch.zeros((*batch, state_len(num_taps, up)), dtype=dtype,
+                       device=device)
+
+
 def _no_tf32(x: Tensor) -> None:
     """Keep plain float32 work in float32 on the card.  A float32 conv1d
     goes through cuDNN in TF32 by default, and TF32 keeps only about three

@@ -57,7 +57,9 @@ class IQCorrCoeffs(NamedTuple):
 
 
 def init_iqcorr_state(batch: tuple[int, ...] = (), dtype=torch.float32,
-                      device="cpu") -> IQCorrState:
+                      device="cuda") -> IQCorrState:
+    """Zero tracker state on ``device`` (the card unless the caller asks
+    for the CPU)."""
     return IQCorrState(
         m=torch.zeros((*batch, len(_POWERS)), dtype=dtype, device=device),
         count=torch.zeros(batch, dtype=torch.int32, device=device))

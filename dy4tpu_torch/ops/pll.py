@@ -71,7 +71,9 @@ class PLLState(NamedTuple):
 
 
 def init_state(batch: tuple[int, ...] = (), dtype=torch.float32,
-               device="cpu") -> PLLState:
+               device="cuda") -> PLLState:
+    """Initial loop state on ``device`` (the card unless the caller asks
+    for the CPU)."""
     z = torch.zeros(batch, dtype=dtype, device=device)
     o = torch.ones(batch, dtype=dtype, device=device)
     return PLLState(feedback_i=o, feedback_q=z, integrator=z, phase_est=z,

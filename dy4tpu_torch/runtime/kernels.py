@@ -36,6 +36,7 @@ KERNELS: dict[str, tuple[str, ...]] = {
     "rds_backend": (),
     "audio_rational": (),
     "channelizer": (),
+    "fft": (),
 }
 
 # dynamic shared memory one thread block may take on Hopper (227 KB)
@@ -167,6 +168,18 @@ def check_smem(name: str, symbol: str, what: str, *geometry: int) -> None:
                          f"({need / 1024:.1f} KB) of shared memory at "
                          f"this geometry; the card allows {SMEM_MAX} "
                          f"(227 KB)")
+
+
+def cli_device(spec: str) -> torch.device:
+    """The device a command line's ``--device`` names.  Exits with an
+    error when that is a CUDA device and torch finds none: a tool asked
+    for the card never carries on on the CPU."""
+    dev = torch.device(spec)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch finds no CUDA device on this "
+                         "machine (pass --device cpu for the plain "
+                         "versions on the CPU)")
+    return dev
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -84,12 +84,9 @@ def main(argv=None) -> int:
     from dy4tpu_torch.utils import io as dio
     from dy4tpu_torch.ops import afc as afc_ops
     from dy4tpu_torch.pipeline import receiver, wideband
+    from dy4tpu_torch.runtime import kernels
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch finds no CUDA device on this "
-                         "machine (pass --device cpu for the plain "
-                         "versions on the CPU)")
+    dev = kernels.cli_device(args.device)
     cfg = get_mode(args.mode)
     c = args.channels
     step_u8 = 2 * c * cfg.if_per_block

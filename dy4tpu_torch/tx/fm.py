@@ -3,9 +3,9 @@
 
 The port carries this copy because ``dy4tpu.tx.fm`` imports
 ``dy4tpu.ops``, whose ``__init__`` imports JAX.  It keeps the single-
-station path (``synthesize`` with noise and the tuner-fault injection)
-and the wideband multi-station synthesiser (``synthesize_wideband``);
-multipath stays in dy4tpu.
+station path (``synthesize`` with noise, static multipath and the
+tuner-fault injection) and the wideband multi-station synthesiser
+(``synthesize_wideband``).
 
 Multiplex (FM broadcast standard):
 
@@ -95,8 +95,8 @@ def synthesize(cfg: ModeConfig, n_blocks: int, *,
                a_stereo: float = 0.45, a_rds: float = 0.06,
                kf: float = 75e3, noise: float = 0.0,
                seed: int = 0, dc_i: float = 0.0, dc_q: float = 0.0,
-               iq_gain: float = 1.0, iq_phase_deg: float = 0.0
-               ) -> np.ndarray:
+               iq_gain: float = 1.0, iq_phase_deg: float = 0.0,
+               multipath=None) -> np.ndarray:
     """Generate ``n_blocks`` blocks of interleaved u8 IQ for a mode.
 
     ``left``/``right``: audio at cfg.audio_fs (zero-padded/truncated to
@@ -107,6 +107,10 @@ def synthesize(cfg: ModeConfig, n_blocks: int, *,
     impairment model of ``ops/iqcorr.py`` (LO-leakage DC offsets in
     signal units, Q-branch gain and quadrature-phase error) after the
     channel noise: both ride the same analog front end.
+
+    ``multipath``: static echo profile ``[(delay_samples, gain), ...]``
+    (complex gains; RF-rate delays) applied to the complex RF stream
+    before noise and tuner faults: ``y[n] = x[n] + sum_k g_k x[n-d_k]``.
     """
     m = multiplex(cfg, n_blocks, left=left, right=right,
                   rds_bits=rds_bits, a_mono=a_mono, a_pilot=a_pilot,
@@ -118,6 +122,14 @@ def synthesize(cfg: ModeConfig, n_blocks: int, *,
     m_rf = np.pad(m_rf[:n_rf], (0, max(0, n_rf - len(m_rf))))
     phase = 2 * np.pi * kf / cfg.rf_fs * np.cumsum(m_rf)
     x = np.exp(1j * phase)
+    if multipath:
+        y = x.copy()
+        for d, g in multipath:
+            d = int(d)
+            if not 0 < d < n_rf:
+                raise ValueError(f"multipath delay {d} outside (0, {n_rf})")
+            y[d:] += complex(g) * x[:-d]
+        x = y
     i, q = x.real, x.imag
     if noise > 0:
         rng = np.random.default_rng(seed)

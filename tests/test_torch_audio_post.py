@@ -70,9 +70,9 @@ def test_deemphasis_block_continuity():
 
 
 def test_init_deemph_state():
-    st = deemph.init_deemph_state((2,), stereo=True)
+    st = deemph.init_deemph_state((2,), stereo=True, device="cpu")
     assert len(st) == 2 and all(s.shape == (2,) for s in st)
-    assert len(deemph.init_deemph_state((1,), stereo=False)) == 1
+    assert len(deemph.init_deemph_state((1,), stereo=False, device="cpu")) == 1
 
 
 def test_stereo_blend_matches_dy4tpu():

@@ -38,7 +38,7 @@ ATOL = 5e-6
 def _setup(c, t, seed=None):
     """Both packages' params, a mid-stream state and a u8 block."""
     jp = jchz.make_channelizer(c, cfg.if_fs, taps_per_branch=t)
-    tp = chz.make_channelizer(c, cfg.if_fs, taps_per_branch=t)
+    tp = chz.make_channelizer(c, cfg.if_fs, taps_per_branch=t, device="cpu")
     k = c * t
     rng = np.random.default_rng(c + t if seed is None else seed)
     x_u8 = rng.integers(0, 256, (BANDS, 2 * c * M)).astype(np.uint8)
@@ -74,7 +74,7 @@ def _coeffs(n):
 @pytest.mark.parametrize("c,t", GEOMS, ids=IDS)
 def test_make_channelizer_equals_dy4tpu(c, t):
     jp = jchz.make_channelizer(c, cfg.if_fs, taps_per_branch=t)
-    tp = chz.make_channelizer(c, cfg.if_fs, taps_per_branch=t)
+    tp = chz.make_channelizer(c, cfg.if_fs, taps_per_branch=t, device="cpu")
     assert tp.channels == c and tp.taps_per_branch == t
     for name, a, b in zip(tp._fields, jp, tp):
         assert b.dtype == torch.float32, name
@@ -201,7 +201,7 @@ def test_dc_response_and_rssi_match_dy4tpu():
 @pytest.mark.parametrize("bands", [None, 1, 3], ids=["none", "one", "batch3"])
 def test_dft_mats_corrected_matches_dy4tpu(bands):
     jp = jchz.make_channelizer(8, cfg.if_fs)
-    tp = chz.make_channelizer(8, cfg.if_fs)
+    tp = chz.make_channelizer(8, cfg.if_fs, device="cpu")
     jco = tco = None
     if bands is not None:
         jco, tco = _coeffs(3)
@@ -271,7 +271,7 @@ def test_channelizer_vs_direct_sum():
     """The defining sum y_c[m] = sum_k h[k] x[mC-k] e^{-j 2pi c (mC-k)/C},
     evaluated directly in float64 (as tests/test_channelizer.py does)."""
     c, t, m_out = 8, 4, 12
-    params = chz.make_channelizer(c, 240e3, taps_per_branch=t)
+    params = chz.make_channelizer(c, 240e3, taps_per_branch=t, device="cpu")
     k = c * t
     rng = np.random.default_rng(0)
     x = rng.standard_normal(c * m_out) + 1j * rng.standard_normal(c * m_out)

@@ -57,7 +57,7 @@ def test_estimator_inverts_model():
     """The port's estimate + coeffs recover the model parameters with
     test_iqcorr.py's bars, and equal dy4tpu's on the same blocks."""
     io, qo = _impaired_fm_iq(1 << 16)
-    st = iqcorr.init_iqcorr_state()
+    st = iqcorr.init_iqcorr_state(device="cpu")
     jst = jiq.init_iqcorr_state()
     for blk in np.split(np.arange(1 << 16), 16):
         st = iqcorr.estimate(torch.from_numpy(io[blk]),
@@ -108,10 +108,10 @@ def test_coeffs_and_apply_match_dy4tpu():
 def test_coeffs_identity_guards():
     """Fresh state and too-weak streams yield the identity, so ``apply``
     is always safe (test_iqcorr.py's guard test on the port)."""
-    for st in (iqcorr.init_iqcorr_state((3,)),
+    for st in (iqcorr.init_iqcorr_state((3,), device="cpu"),
                iqcorr.estimate(torch.zeros(3, 64) + 1e-5,
                                torch.zeros(3, 64),
-                               iqcorr.init_iqcorr_state((3,)))):
+                               iqcorr.init_iqcorr_state((3,), device="cpu"))):
         c = iqcorr.coeffs(st)
         np.testing.assert_array_equal(c.dc_i.numpy(), 0.0)
         np.testing.assert_array_equal(c.rho.numpy(), 0.0)

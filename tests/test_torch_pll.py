@@ -106,7 +106,7 @@ def test_two_chained_blocks_equal_one_long_block():
 def test_auto_on_cpu_is_the_plain_scan():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(_tones(rng, 2, 512))
-    st = pll.init_state((2, 2))
+    st = pll.init_state((2, 2), device="cpu")
     a = pll.pll(x, st, impl="auto", **LANES)
     p = pll.pll(x, st, impl="plain", **LANES)
     for u, v in zip(jax.tree.leaves(a[:2]) + list(a[2]),

@@ -154,8 +154,9 @@ def test_receiver_step_pcm_matches_dy4tpu_quantizer(runs):
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
 def test_tx_synthesis_equals_dy4tpu(mode):
-    """The clean broadcast, and the same through test_iqcorr.py's tuner
-    fault (DC offsets, gain and quadrature error after the noise)."""
+    """The clean broadcast, the same through test_iqcorr.py's tuner fault
+    (DC offsets, gain and quadrature error after the noise), and through
+    a static multipath echo profile before the noise and the fault."""
     c = get_mode(mode)
     kw = _broadcast(2, c)
     np.testing.assert_array_equal(fm.synthesize(c, 2, **kw),
@@ -163,6 +164,12 @@ def test_tx_synthesis_equals_dy4tpu(mode):
     kw.update(dc_i=0.12, dc_q=-0.08, iq_gain=0.7, iq_phase_deg=25.0)
     np.testing.assert_array_equal(fm.synthesize(c, 2, **kw),
                                   jfm.synthesize(c, 2, **kw))
+    kw.update(multipath=[(24, 0.5 * np.exp(1j * np.deg2rad(120.0))),
+                         (60, 0.32 * np.exp(-1j * np.deg2rad(52.0)))])
+    np.testing.assert_array_equal(fm.synthesize(c, 2, **kw),
+                                  jfm.synthesize(c, 2, **kw))
+    with pytest.raises(ValueError, match="multipath delay"):
+        fm.synthesize(c, 1, multipath=[(0, 0.5)])
 
 
 def test_16_block_decode_recovers_pi():
@@ -192,7 +199,7 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="frontend"):
         rx.receiver_step(params, rx.init_state(cfg, device=DEV), blk, cfg,
                          frontend="fused")
-    corr = iqcorr.coeffs(iqcorr.init_iqcorr_state())
+    corr = iqcorr.coeffs(iqcorr.init_iqcorr_state(device="cpu"))
     fs = rx.front_state_of(rx.init_state(cfg, device=DEV))
     for frontend in ("fused-rf", "fused-phase"):
         with pytest.raises(ValueError, match="IQ correction unsupported"):

@@ -155,8 +155,8 @@ def test_kernel_path_without_rds_reaches_the_kernel():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     with pytest.raises(ValueError, match="CUDA"):
-        pll.pll(torch.zeros(2, 64), pll.init_state((2,)), freq=19e3,
-                fs=cfg.if_fs, impl="kernel")
+        pll.pll(torch.zeros(2, 64), pll.init_state((2,), device="cpu"),
+                freq=19e3, fs=cfg.if_fs, impl="kernel")
 
 
 @pytest.mark.parametrize("name", sorted(kernels.KERNELS))

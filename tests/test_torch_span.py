@@ -147,8 +147,8 @@ def test_span_locks_pilot():
     rng = np.random.default_rng(11)
     x = (np.cos(2 * np.pi * 19e3 * t + 1.1)
          + 0.05 * rng.normal(size=n)).astype(np.float32)
-    nco, _, _ = pll.pll(torch.from_numpy(x), pll.init_state(), freq=19e3,
-                        fs=fs, nco_scale=2.0, span=SPAN)
+    nco, _, _ = pll.pll(torch.from_numpy(x), pll.init_state(device="cpu"),
+                        freq=19e3, fs=fs, nco_scale=2.0, span=SPAN)
     want = np.cos(2 * np.pi * 38e3 * t + 2.2)[-4096:]
     assert np.mean(np.abs(nco.numpy()[-4096:] - want)) < 0.08
 
@@ -157,20 +157,21 @@ def test_span_invalid_length_and_cpu_dispatch():
     """A block that does not divide into spans raises; on the CPU the
     span scan takes B9's plain version and counts no launch; the kernel
     is refused for a CPU tensor."""
-    st = pll.init_state()
+    st = pll.init_state(device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
         pll.pll(torch.zeros(100), st, freq=19e3, fs=240e3, span=SPAN)
     with pytest.raises(ValueError, match="span must be"):
         pll.pll(torch.zeros(96), st, freq=19e3, fs=240e3, span=0)
     before = pll_cuda.phase_scan_target.launches
     x = torch.from_numpy(_tones(np.random.default_rng(2), 2, 512))
-    a = pll.pll(x, pll.init_state((2, 2)), span=SPAN, **LANES)
-    p = pll.pll(x, pll.init_state((2, 2)), span=SPAN, impl="plain", **LANES)
+    a = pll.pll(x, pll.init_state((2, 2), device="cpu"), span=SPAN, **LANES)
+    p = pll.pll(x, pll.init_state((2, 2), device="cpu"), span=SPAN,
+                impl="plain", **LANES)
     assert torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])
     assert pll_cuda.phase_scan_target.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        pll.pll(x, pll.init_state((2, 2)), span=SPAN, impl="kernel",
-                **LANES)
+        pll.pll(x, pll.init_state((2, 2), device="cpu"), span=SPAN,
+                impl="kernel", **LANES)
 
 
 @pytest.fixture(scope="module")

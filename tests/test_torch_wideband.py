@@ -235,7 +235,7 @@ def test_afc_rotate_matches_dy4tpu():
                                        err_msg=f"{name} scale {scale}")
         assert float(ours[2].abs().max()) <= np.pi + 1e-6
     # a zero state is the identity
-    z = afc.init_afc_state((3, 4))
+    z = afc.init_afc_state((3, 4), device="cpu")
     y_i, y_q, ph = afc.rotate(torch.from_numpy(i), torch.from_numpy(q), z)
     assert torch.equal(y_i, torch.from_numpy(i)) and not ph.any()
 
@@ -263,7 +263,7 @@ def test_afc_loop_converges_on_a_complex_exponential():
     """The loop drives its estimate to a pure offset of 0.3 rad/sample
     (as tests/test_afc.py)."""
     n, w = 1024, 0.3
-    st = afc.init_afc_state()
+    st = afc.init_afc_state(device="cpu")
     for b in range(12):
         x = np.exp(1j * w * np.arange(b * n, (b + 1) * n))
         y_i, y_q, phase_next = afc.rotate(
@@ -290,7 +290,8 @@ def test_iqcorr_moments_and_fold_match_dy4tpu():
     assert ours.shape == (3, 14)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-7)
-    js, ts = jiq.init_iqcorr_state((3,)), iqcorr.init_iqcorr_state((3,))
+    js = jiq.init_iqcorr_state((3,))
+    ts = iqcorr.init_iqcorr_state((3,), device="cpu")
     for _ in range(3):
         js = jiq.fold(js, ref)
         ts = iqcorr.fold(ts, torch.from_numpy(np.array(ref)))
@@ -323,7 +324,7 @@ def test_iqcorr_coeffs_gaussian_matches_dy4tpu():
                                        err_msg=name)
     g, phi = FAULT["gain"], np.deg2rad(FAULT["phase_deg"])
     got = iqcorr.coeffs_gaussian(iqcorr.fold(
-        iqcorr.init_iqcorr_state((4,)),
+        iqcorr.init_iqcorr_state((4,), device="cpu"),
         iqcorr.moments(torch.from_numpy(fi.astype(np.float32)),
                        torch.from_numpy(fq.astype(np.float32)))))
     assert abs(float(got.rho[0]) - g * np.sin(phi)) < 0.03
