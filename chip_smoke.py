@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's receiver on the card through its eleven hand-written
+Drives the port's receiver on the card through its sixteen hand-written
 CUDA kernels, in all four modes, through the IF entry, with the opt-in span
 PLL and IQ tracker, through the wideband channelizer front door, through
-the receiver's command line, through the exact time-sharded receiver, and
-through the PSD path and the capture tools:
+the receiver's command line, through the exact time-sharded receiver,
+through the PSD path and the capture tools, and through dy4tpu's A/B
+front-end routes and the kernels no receiver route runs:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -78,7 +79,22 @@ through the PSD path and the capture tools:
    (48 blocks, clean with PI/PS and with the three tuner and channel
    faults), the receiver's CLI decoding PI/PS from the clean capture, and
    ratechange 2400 -> 1440 on the card against ``--device cpu`` (within 1
-   LSB).  B10 must launch on no earlier path.
+   LSB).  B10 must launch on no earlier path;
+8. phase 7, at modes 0 and 1, C=512: B11, B12 and B13 (the RF stage to fm
+   from the u8 rows, its phase planes, its 32-bit words) against their
+   plain versions and B12, B13 against B11 on block 2 (fm within 1e-3 where
+   the decimated power is above 1e-3, iq_tail exact, prev_i/prev_q within
+   1e-5), and B9-expand against its plain version and B9 + the torch
+   expansion, bitwise; ``run_blocks`` over 24 blocks with
+   ``frontend="fused-rf"`` and ``"fused-phase"`` (B11 or B12 exactly once
+   a block, B1 never; channel 0 decoded; four channels held to the B1
+   route; median of 5 rates) and with ``pll_span=8, pll_span_emit=
+   "kernel"`` (B9-expand once a block, B9 never; decoded; every output
+   bitwise equal to the torch expansion's run); at mode 0, B13 and B14
+   (``fir.block_fir_decim(impl="kernel")`` on the RF legs) through their
+   own calls over the 24 blocks, state carried, each once a block and
+   nothing else; then B14 against its plain conv1d (also the library
+   call) at six geometries, y within 2e-4 x max(1, max|y|), state exact.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -145,6 +161,19 @@ PSD_LIN_TOL = 1e-3
 PSD_NOISE_DB = 1e-3  # PSD of white noise, dB (test_fft_psd.py's bar)
 PSD_NOISE_ROWS = 4
 TOOL_BLOCKS, RC_BLOCKS = 48, 24
+# phase 7: the A/B front ends B11-B13 and B9-expand at AB_MODES, checked on
+# block AB_BLOCK after the loops lock in: fm within AB_TOL where the
+# decimated power is above AB_POWER (test_frontend_pallas.py's bar: the
+# demod's 1/power amplifies float32 rounding near the origin), prev_i/
+# prev_q within AB_PREV_TOL; B14 within FIR_TOL x max(1, max|y|)
+# (test_fir_pallas.py) at FIR_GEOMS (batch, N, K, D): mode 0's RF legs at
+# C=512, benchmarks/micro_fir.py's 128 rows, test_fir_pallas.py's four
+AB_MODES, AB_BLOCK = (0, 1), 2
+AB_POWER, AB_TOL, AB_PREV_TOL = 1e-3, 1e-3, 1e-5
+FIR_TOL = 2e-4
+FIR_GEOMS = (((2 * C,), 76800, 101, 10), ((128,), 76800, 101, 10),
+             ((2, 2), 76800, 101, 10), ((3,), 640, 101, 5),
+             ((), 1280, 7, 2), ((5,), 256, 33, 4))
 HBM_BYTES_S = 3.35e12                # H100 SXM device memory, bytes/s
 FP32_FLOP_S = 67e12                  # H100 SXM float32 outside tensor cores
 FP32_LATENCY = 4                     # cycles from one dependent float op
@@ -475,6 +504,60 @@ def _check_corr_cold(cfg, params, blk, corr, dev) -> float:
     return worst
 
 
+def _pll_case(cfg, st, pilot, carrier, dev):
+    """The PLL scans' inputs at one mode from the front half's ``pilot``
+    (and with RDS ``carrier``) and the receiver state ``st``: ``(x, lanes,
+    state, consts, (kp, ki, dth) on the card, carry)``.  With RDS the
+    pilot and carrier loops are stacked on a lane axis, as the receiver
+    does; the carry's NCO angle, which runs free of the data, is drawn
+    from a seed so that no two rows are equal."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.ops import pll
+
+    draw = np.random.default_rng(0)
+    if cfg.supports_rds:
+        x = torch.stack([pilot, carrier], dim=-2).contiguous()
+        lanes = dict(
+            freq=np.array([cfg.pll_freq, cfg.rds_pll_freq], np.float32),
+            nco_scale=np.array([cfg.pll_nco_scale, cfg.rds_pll_nco_scale],
+                               np.float32),
+            norm_bandwidth=np.array([cfg.pll_bandwidth,
+                                     cfg.rds_pll_bandwidth], np.float32))
+        state = pll.PLLState(*(torch.stack([a, b], dim=-1) for a, b in
+                               zip(st.audio.pll, st.rds.pll)))
+        angle_shape = (C, 2)
+    else:
+        x = pilot
+        lanes = dict(freq=cfg.pll_freq, nco_scale=cfg.pll_nco_scale,
+                     norm_bandwidth=cfg.pll_bandwidth)
+        state = st.audio.pll
+        angle_shape = (C,)
+    consts = pll._loop_consts(lanes["freq"], cfg.if_fs,
+                              lanes["norm_bandwidth"])
+    kp, ki, dth = (torch.as_tensor(v, device=dev) for v in consts)
+    angle = torch.from_numpy(draw.uniform(0.0, 4 * np.pi, angle_shape)
+                             .astype(np.float32)).to(dev)
+    carry = (state.integrator.contiguous(), state.phase_est.contiguous(),
+             angle)
+    return x, lanes, state, consts, (kp, ki, dth), carry
+
+
+def _span_case(x, consts, dth, dev):
+    """The span PLL's scan inputs from the PLL input ``x``: the span
+    constants on the card and the span targets, with a dead (NaN) span in
+    every row."""
+    import torch
+    from dy4tpu_torch.ops import pll
+
+    _, *eff = pll._span_consts(*consts, SPAN)
+    targets = pll._span_targets(x, dth, SPAN).contiguous()
+    m = targets.shape[-1]
+    rows_c = torch.arange(C, device=dev)
+    targets[rows_c, ..., rows_c % m] = float("nan")
+    return tuple(torch.as_tensor(v, device=dev) for v in eff), targets
+
+
 def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     """Phase 2 at one mode: every kernel of the mode's path against its
     plain version on block 1, mid-stream, at C=512.  Returns the JSON
@@ -576,32 +659,8 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
             nbytes=_nbytes(iargs if rds else iargs[:5] + iargs[6:8], k_out),
             flops=_front_flops(cfg, C, rds, rf=False)))
 
-    # the NCO angle runs free of the data, equal on every row: draw it
-    draw = np.random.default_rng(0)
-    if rds:
-        x = torch.stack([pilot, carrier], dim=-2).contiguous()
-        lanes = dict(
-            freq=np.array([cfg.pll_freq, cfg.rds_pll_freq], np.float32),
-            nco_scale=np.array([cfg.pll_nco_scale, cfg.rds_pll_nco_scale],
-                               np.float32),
-            norm_bandwidth=np.array([cfg.pll_bandwidth,
-                                     cfg.rds_pll_bandwidth], np.float32))
-        state = pll.PLLState(*(torch.stack([a, b], dim=-1) for a, b in
-                               zip(st.audio.pll, st.rds.pll)))
-        angle_shape = (C, 2)
-    else:
-        x = pilot
-        lanes = dict(freq=cfg.pll_freq, nco_scale=cfg.pll_nco_scale,
-                     norm_bandwidth=cfg.pll_bandwidth)
-        state = st.audio.pll
-        angle_shape = (C,)
-    consts = pll._loop_consts(lanes["freq"], cfg.if_fs,
-                              lanes["norm_bandwidth"])
-    kp, ki, dth = (torch.as_tensor(v, device=dev) for v in consts)
-    angle = torch.from_numpy(draw.uniform(0.0, 4 * np.pi, angle_shape)
-                             .astype(np.float32)).to(dev)
-    carry = (state.integrator.contiguous(), state.phase_est.contiguous(),
-             angle)
+    x, lanes, state, consts, (kp, ki, dth), carry = _pll_case(
+        cfg, st, pilot, carrier, dev)
     _distinct_rows("B2", x, *carry)
     k_phi, k_c = pll_cuda.phase_scan(x, kp, ki, dth, carry)
     torch.cuda.synchronize()
@@ -632,12 +691,8 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     if cfg.mode in OPT_MODES:
         # B9: the span PLL's scan over the broadcast's span targets, with
         # the span constants and a dead (NaN) span in every row
-        _, *eff = pll._span_consts(*consts, SPAN)
-        kp_s, ki_s, dth_s = (torch.as_tensor(v, device=dev) for v in eff)
-        targets = pll._span_targets(x, dth, SPAN).contiguous()
+        (kp_s, ki_s, dth_s), targets = _span_case(x, consts, dth, dev)
         m = targets.shape[-1]
-        rows_c = torch.arange(C, device=dev)
-        targets[rows_c, ..., rows_c % m] = float("nan")
         _distinct_rows("B9", torch.nan_to_num(targets, nan=9.0), *carry)
         k_res = pll_cuda.phase_scan_target(targets, kp_s, ki_s, dth_s, carry,
                                            span=SPAN)
@@ -752,23 +807,29 @@ def _launches_off(wrappers, want: dict) -> dict:
             if w.launches != want.get(w, 0)}
 
 
-def _path(cfg, entry: str = "rf", span: bool = False, corr: bool = False):
+def _path(cfg, entry: str = "rf", span: bool = False, corr: bool = False,
+          front: str = "auto", span_emit: str = "torch"):
     """The kernel wrappers a mode's main path launches: ``entry`` "rf"
     (``receiver_step``), "if" (``receiver_step_if``) or "wideband"
     (``wideband_step``: the channelizer, then the IF entry); ``span``
-    (the span PLL: B9 for B2) and ``corr`` (the IQ tracker: B1's corr
-    variant for B1) are the opt-in features of the RF entry."""
+    (the span PLL: B9 for B2, B9-expand with ``span_emit="kernel"``),
+    ``corr`` (the IQ tracker: B1's corr variant for B1) and ``front``
+    (an A/B front end: B11 for "fused-rf", B12 for "fused-phase") are the
+    options of the RF entry."""
     from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,
                                   frontend_cuda, pll_cuda, resample_cuda)
     if entry == "rf":
-        front = (frontend_cuda.fused_frontend_full.corr if corr
-                 else frontend_cuda.fused_frontend_full)
+        front = {"auto": (frontend_cuda.fused_frontend_full.corr if corr
+                          else frontend_cuda.fused_frontend_full),
+                 "fused-rf": frontend_cuda.fused_frontend_raw,
+                 "fused-phase": frontend_cuda.fused_frontend}[front]
     else:
         front = frontend_cuda.fused_frontend_if
     audio = (backend_cuda.fused_audio_backend if cfg.audio_up == 1
              else resample_cuda.fused_audio_backend_rational)
-    pll_kernel = (pll_cuda.phase_scan_target if span
-                  else pll_cuda.phase_scan)
+    pll_kernel = (pll_cuda.phase_scan if not span
+                  else pll_cuda.phase_scan_target.expand
+                  if span_emit == "kernel" else pll_cuda.phase_scan_target)
     path = [front, pll_kernel, audio]
     if cfg.supports_rds:
         path.append(resample_cuda.fused_rds_backend)
@@ -778,7 +839,7 @@ def _path(cfg, entry: str = "rf", span: bool = False, corr: bool = False):
 
 
 def _run_path(label, cfg, run, all_wrappers, entry="rf",
-              n_blocks=N_BLOCKS, **features):
+              n_blocks=N_BLOCKS, phase="phase 3", **features):
     """Zero every launch count, ``run()``, and check that each kernel of
     the path (``_path(cfg, entry, **features)``) launched on every one of
     ``n_blocks`` blocks and no other kernel launched.  Returns ``(run's
@@ -798,13 +859,13 @@ def _run_path(label, cfg, run, all_wrappers, entry="rf",
         if w not in path and n:
             raise AssertionError(f"{label}: kernel {w.__name__} is not on "
                                  f"this path but launched {n} times")
-    _say(f"phase 3: {label}: launches " + ", ".join(
+    _say(f"{phase}: {label}: launches " + ", ".join(
         f"{w.__name__} {n}" for w, n in counts.items() if w in path)
         + f" ({secs:.2f} s, first run)")
     return out, counts
 
 
-def _check_outputs(label, cfg, outs) -> dict:
+def _check_outputs(label, cfg, outs, phase="phase 3") -> dict:
     """Shapes, finiteness, and the decode bars on channel 0.  Returns
     ``fm.check_reception``'s measures."""
     import torch
@@ -829,7 +890,7 @@ def _check_outputs(label, cfg, outs) -> dict:
         cfg, outs.left[:, 0].cpu().numpy(), outs.right[:, 0].cpu().numpy(),
         outs.rds_symbols[:, 0].cpu().numpy() if rds else None,
         outs.rds_resync[:, 0].cpu().numpy() if rds else None)
-    _say(f"phase 3: {label}: channel 0 decoded: separation L "
+    _say(f"{phase}: {label}: channel 0 decoded: separation L "
          f"{got['sep_l_db']:.1f} dB, R {got['sep_r_db']:.1f} dB"
          + (f", PI {got['pi']}, PS {got['ps']!r} ({got['groups']} groups)"
             if rds else ""))
@@ -837,7 +898,7 @@ def _check_outputs(label, cfg, outs) -> dict:
 
 
 def _compare_chain(label, cfg, outs, ref, n_blocks,
-                   rows=f"channels {CHAIN_ROWS}") -> None:
+                   rows=f"channels {CHAIN_ROWS}", phase="phase 3") -> None:
     """Hold ``outs`` (the rows named by ``rows``, first ``n_blocks``) to
     ``ref`` within the chain tolerances."""
     fields = ["mono", "left", "right"]
@@ -851,7 +912,7 @@ def _compare_chain(label, cfg, outs, ref, n_blocks,
         sym_agree = float((outs.rds_symbols[:n_blocks]
                            == ref.rds_symbols[:n_blocks]).double().mean())
         msg += f"; RDS symbols agree {sym_agree:.4f}"
-    _say(f"phase 3: {label}, {rows}, blocks 0-{n_blocks - 1}: max |err| "
+    _say(f"{phase}: {label}, {rows}, blocks 0-{n_blocks - 1}: max |err| "
          f"{msg}")
     if max(errs.values()) > CHAIN_TOL or sym_agree < SYM_AGREE:
         raise AssertionError(f"{label}: departs beyond the chain "
@@ -2041,6 +2102,357 @@ def _run_psd(dev, smi, all_wrappers) -> list[dict]:
     return results
 
 
+def _check_ab_kernels(cfg, params, blocks, st, dev) -> list:
+    """Phase 7's kernel checks at one mode, on block AB_BLOCK from the
+    state ``st`` after the blocks before it (the loops locked in): B11,
+    B12 and B13 each against its plain version, and B12 and B13 against
+    B11; fm where the decimated power is above AB_POWER within AB_TOL,
+    iq_tail exact, prev_i/prev_q within AB_PREV_TOL.  Returns the rows."""
+    import torch
+    from dy4tpu_torch.ops import frontend_cuda as fc
+
+    blk = blocks[AB_BLOCK]
+    args = (blk, params.rf_coeff, st.rf.iq_tail.contiguous(),
+            st.rf.prev_i.contiguous(), st.rf.prev_q.contiguous(),
+            cfg.rf_decim)
+    _distinct_rows("B11", blk, *args[2:5])
+    i_ds, q_ds, _ = fc.rf_lpf_plain(*args[:3], cfg.rf_decim)
+    live = i_ds * i_ds + q_ds * q_ds > AB_POWER
+    rows, b11 = [], None
+    for name, wrap, plain, replaces in (
+            ("B11 frontend_raw", fc.fused_frontend_raw,
+             fc.fused_frontend_raw_plain, "dy4tpu/ops/frontend_pallas.py:429"),
+            ("B12 frontend_phase", fc.fused_frontend,
+             fc.fused_frontend_plain, "dy4tpu/ops/frontend_pallas.py:983"),
+            ("B13 frontend_raw_pm", fc.fused_frontend_raw_pm,
+             fc.fused_frontend_raw_pm_plain,
+             "dy4tpu/ops/frontend_pallas.py:340")):
+        label = f"{name.split()[0]} mode{cfg.mode}"
+        k_out = wrap(*args)
+        p_out = plain(*args)
+        torch.cuda.synchronize()
+        prev = _max_err(k_out[2:], p_out[2:])
+        if not (torch.equal(k_out[1], p_out[1]) and prev <= AB_PREV_TOL):
+            raise AssertionError(f"{label}: iq_tail differs from the plain "
+                                 f"version, or prev_i/prev_q by {prev:.3g}")
+        diff = (k_out[0] - p_out[0]).abs()
+        err = float(diff[live].max())
+        extra = dict(fm_max_abs_err_everywhere=float(diff.max()),
+                     prev_max_abs_err=prev)
+        note = ""
+        if b11 is None:
+            b11 = k_out
+        else:
+            vs = float((k_out[0] - b11[0]).abs()[live].max())
+            if not (vs <= AB_TOL and torch.equal(k_out[1], b11[1])
+                    and _max_err(k_out[2:], b11[2:]) <= AB_PREV_TOL):
+                raise AssertionError(f"{label}: departs from B11 by {vs:.3g}")
+            extra["vs_b11_max_abs_err"] = vs
+            note = f"; against B11 {vs:.3g}"
+        _say(f"phase 7: {label}: fm within {err:.3g} of the plain version "
+             f"where the decimated power is above {AB_POWER:g} "
+             f"({float(live.double().mean()):.1%} of samples; everywhere "
+             f"{float(diff.max()):.3g}), iq_tail exact, prev_i/prev_q "
+             f"{prev:.3g}{note}")
+        rows.append(_Row(
+            name, f"mode{cfg.mode} decim {cfg.rf_decim}",
+            "dy4tpu_torch/csrc/frontend_rf.cu", replaces, wrap, err, AB_TOL,
+            lambda w=wrap: w(*args), lambda p=plain: p(*args),
+            nbytes=_nbytes(args[:5], k_out),
+            flops=C * cfg.if_per_block * (4 * cfg.num_taps + 9),
+            phase="phase 7", extra=extra))
+    return rows
+
+
+def _check_expand(cfg, params, blocks, st, dev) -> "_Row":
+    """B9-expand against B9 + ``pll._span_expand`` on the card and against
+    its plain version (B9's plain scan + the same expansion), bitwise, on
+    the span targets of block AB_BLOCK's pilot (and carrier) from the
+    state ``st``, with a dead span in every row.  Returns the row."""
+    import torch
+    from dy4tpu_torch.ops import pll, pll_cuda
+    from dy4tpu_torch.pipeline import receiver as rx
+
+    _, fo = rx.front_step(params, rx.front_state_of(st), blocks[AB_BLOCK],
+                          cfg, rds_enabled=cfg.supports_rds)
+    x, _, _, consts, (kp, ki, dth), carry = _pll_case(cfg, st, fo.pilot,
+                                                      fo.carrier, dev)
+    (kp_s, ki_s, dth_s), targets = _span_case(x, consts, dth, dev)
+    m = targets.shape[-1]
+    _distinct_rows("B9-expand", torch.nan_to_num(targets, nan=9.0), *carry)
+    per_sample = (kp, ki, dth)
+    scan = functools.partial(pll_cuda.phase_scan_target, targets, kp_s, ki_s,
+                             dth_s, carry, span=SPAN)
+    k_phis, k_carry = scan(expand=per_sample)
+    phi0, i0, b9_carry = scan()
+    via_b9 = pll._span_expand(phi0, i0, targets, kp, ki, dth, SPAN)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_phis, p_carry = pll_cuda.phase_scan_target_plain(
+        targets, kp_s, ki_s, dth_s, carry, span=SPAN, expand=per_sample)
+    stop.record()
+    torch.cuda.synchronize()
+    k_flat, p_flat = (k_phis, *k_carry), (p_phis, *p_carry)
+    label = f"B9-expand mode{cfg.mode} {list(targets.shape)} span {SPAN}"
+    if not (all(torch.equal(a, b) for a, b in zip(k_flat, p_flat))
+            and all(torch.equal(a, b) for a, b in
+                    zip(k_flat, (via_b9, *b9_carry)))):
+        raise AssertionError(f"{label}: not bitwise equal to its plain "
+                             f"version and to B9 + _span_expand: max "
+                             f"|dphi| {_max_err(k_flat, p_flat)}")
+    b9_torch_ms = _time_ms(lambda: pll._span_expand(
+        *scan()[:2], targets, kp, ki, dth, SPAN), 20)
+    _say(f"phase 7: {label}: phases [{', '.join(map(str, k_phis.shape))}] "
+         f"and the carry bitwise equal to the plain version and to B9 + "
+         f"_span_expand on the card (B9 + the torch expansion "
+         f"{b9_torch_ms:.4f} ms)")
+    # per span step: B9's 18 operations, lin and quad (4), and per phase
+    # two multiplies and two adds
+    return _Row(
+        "B9x pll_span_expand", f"mode{cfg.mode} {list(targets.shape)} span "
+        f"{SPAN}", "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:131",
+        pll_cuda.phase_scan_target.expand, _max_err(k_flat, p_flat), 0.0,
+        lambda: scan(expand=per_sample), plain_ms=start.elapsed_time(stop),
+        nbytes=_nbytes(targets, kp_s, ki_s, dth_s, per_sample, carry, k_flat),
+        flops=(B9_STEP_OPS + 4 + 4 * SPAN) * targets.numel(), chain_steps=m,
+        phase="phase 7", extra=dict(b9_torch_expand_ms=b9_torch_ms))
+
+
+def _run_ab_chains(cfg, params, blocks, dev, smi, all_wrappers) -> dict:
+    """Phase 7's main paths at one mode: ``run_blocks`` over N_BLOCKS x C
+    with ``frontend="fused-rf"`` and ``"fused-phase"`` (B11 or B12 on
+    every block, B1 on none), each decoded on channel 0 and held to the B1
+    route on CHAIN_ROWS, its rate the median of RATE_REPS; then the span
+    chain with ``pll_span_emit="kernel"`` (B9-expand on every block, B9 on
+    none), decoded and bitwise equal to the span chain of B9 + the torch
+    expansion.  Returns {wrapper: launches}."""
+    import torch
+    from dy4tpu_torch.ops import frontend_cuda, pll_cuda
+    from dy4tpu_torch.pipeline import receiver as rx
+
+    state = rx.init_state(cfg, (C,), device=dev)
+    sel = torch.tensor(CHAIN_ROWS, device=dev)
+    _, ref = rx.run_blocks(params, state, blocks, cfg)
+    ref = _select(ref, sel)
+    wrappers = {"fused-rf": frontend_cuda.fused_frontend_raw,
+                "fused-phase": frontend_cuda.fused_frontend}
+    launches = {}
+    for front, wrap in wrappers.items():
+        label = f"mode {cfg.mode} frontend={front!r}"
+        run = functools.partial(rx.run_blocks, params, state, blocks, cfg,
+                                frontend=front)
+        (_, outs), counts = _run_path(label, cfg, run, all_wrappers,
+                                      phase="phase 7", front=front)
+        if counts[wrap] != N_BLOCKS:
+            raise AssertionError(f"{label}: {wrap.__name__} launched "
+                                 f"{counts[wrap]} times over {N_BLOCKS} "
+                                 f"blocks")
+        _check_outputs(label, cfg, outs, phase="phase 7")
+        _compare_chain(f"{label} vs the B1 route (kernels)", cfg,
+                       _select(outs, sel), ref, N_BLOCKS, phase="phase 7")
+        del outs
+        _say(f"phase 7: {label}: chain, median of {RATE_REPS}: "
+             f"{_median_rate(cfg, run):.1f} MS/s complex IQ ({N_BLOCKS} "
+             f"blocks x {C} channels, after warm-up) on {smi}")
+        launches[wrap] = counts[wrap]
+
+    expand = pll_cuda.phase_scan_target.expand
+    label = (f"mode {cfg.mode} span PLL (pll_span={SPAN}, "
+             f"pll_span_emit='kernel')")
+    run = functools.partial(rx.run_blocks, params, state, blocks, cfg,
+                            pll_span=SPAN, pll_span_emit="kernel")
+    (_, outs), counts = _run_path(label, cfg, run, all_wrappers,
+                                  phase="phase 7", span=True,
+                                  span_emit="kernel")
+    if counts[expand] != N_BLOCKS:
+        raise AssertionError(f"{label}: B9-expand launched {counts[expand]} "
+                             f"times over {N_BLOCKS} blocks")
+    _check_outputs(label, cfg, outs, phase="phase 7")
+    torch_run = functools.partial(rx.run_blocks, params, state, blocks, cfg,
+                                  pll_span=SPAN)
+    _, same = torch_run()
+    for f, a, b in zip(rx.StepOutputs._fields, outs, same):
+        if not (a is None and b is None or torch.equal(a, b)):
+            raise AssertionError(f"{label}: {f} differs from the span chain "
+                                 f"with the torch expansion")
+    del outs, same
+    rates = {name: _median_rate(cfg, r) for name, r in
+             (("kernel", run), ("torch", torch_run))}
+    _say(f"phase 7: {label}: every output over {N_BLOCKS} blocks x {C} "
+         f"channels bitwise equal to pll_span_emit='torch'; chain, median "
+         f"of {RATE_REPS}: {rates['kernel']:.1f} MS/s against "
+         f"{rates['torch']:.1f} with the torch expansion on {smi}")
+    launches[expand] = counts[expand]
+    return launches
+
+
+def _check_fir(dev) -> list:
+    """B14 against its plain version (``fir.block_fir_decim``'s conv1d,
+    also the library call) at FIR_GEOMS, unit-normal inputs from a seed:
+    y within FIR_TOL x max(1, max|y|), the new state exact.  Returns the
+    rows."""
+    import torch
+    from dy4tpu_torch.ops import fir, fir_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    rows = []
+    for batch, n, k, d in FIR_GEOMS:
+        x = torch.randn(*batch, n, generator=gen, device=dev)
+        h = torch.randn(k, generator=gen, device=dev)
+        state = torch.randn(*batch, k - 1, generator=gen, device=dev)
+        if batch:
+            _distinct_rows("B14", x.reshape(-1, n), state.reshape(-1, k - 1))
+        kern = functools.partial(fir.block_fir_decim, x, h, state, d,
+                                 impl="kernel")
+        plain = functools.partial(fir.block_fir_decim, x, h, state, d,
+                                  impl="plain")
+        k_y, k_s = kern()
+        p_y, p_s = plain()
+        torch.cuda.synchronize()
+        scale = max(1.0, float(p_y.abs().max()))
+        geometry = f"{list(x.shape)} K={k} D={d}"
+        if not torch.equal(k_s, p_s):
+            raise AssertionError(f"B14 {geometry}: the state differs from "
+                                 f"the plain version")
+        err = _max_err([k_y], [p_y])
+        _say(f"phase 7: B14 {geometry}: max |kernel - plain| {err:.3g} "
+             f"(tolerance {FIR_TOL:g} x {scale:.3g}), state exact")
+        rows.append(_Row(
+            "B14 fir_decim", geometry, "dy4tpu_torch/csrc/fir.cu",
+            "dy4tpu/ops/fir_pallas.py:86", fir_cuda.block_fir_decim, err,
+            FIR_TOL * scale, kern, plain, where="unit normals",
+            nbytes=_nbytes(x, h, state, k_y, k_s),
+            flops=2 * k * k_y.numel(), library=plain, phase="phase 7"))
+    return rows
+
+
+def _run_direct(cfg, params, blocks, all_wrappers) -> dict:
+    """The two kernels no receiver route runs, through their own ops calls
+    at the receiver's geometry, over N_BLOCKS blocks of C channels, state
+    carried: B13 (``fused_frontend_raw_pm``) on the u8 blocks and B14
+    (``fir.block_fir_decim(impl="kernel")``) on the blocks' normalized RF
+    legs [C, 2, n].  Each launches once a block and nothing else does.  On
+    CHAIN_ROWS, B14's output is held to the plain RF LPF's over the whole
+    stream and B13's fm to B11's where that LPF's power is above
+    AB_POWER.  Returns {wrapper: launches}."""
+    import torch
+    from dy4tpu_torch.ops import fir, fir_cuda, frontend_cuda as fc
+
+    h, d, s = params.rf_coeff, cfg.rf_decim, cfg.num_taps - 1
+    dev = blocks.device
+    sel = torch.tensor(CHAIN_ROWS, device=dev)
+    zero = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+
+    def legs(blk):
+        x = (blk.to(torch.float32) - 128.0) / 128.0
+        return x.reshape(blk.shape[0], -1, 2).movedim(-1, -2).contiguous()
+
+    def stream(step, state):
+        outs = []
+        for blk in blocks:
+            out, state = step(blk, state)
+            outs.append(out[sel])
+        return torch.stack(outs), state
+
+    def front(wrap):
+        def step(blk, st):
+            fm, *st = wrap(blk, h, *st, d)
+            return fm, st
+        return step
+
+    def b14(blk, st):
+        return fir.block_fir_decim(legs(blk), h, st, d, impl="kernel")
+
+    # the plain RF LPF of CHAIN_ROWS over the whole stream: [blocks, rows,
+    # 2, n/d]
+    rows = len(CHAIN_ROWS)
+    ref_iq, _ = fir.block_fir_decim(
+        torch.cat([legs(b[sel]) for b in blocks], -1), h, zero(rows, 2, s), d,
+        impl="plain")
+    ref_iq = ref_iq.reshape(rows, 2, N_BLOCKS, -1).permute(2, 0, 1, 3)
+    live = (ref_iq * ref_iq).sum(2) > AB_POWER
+    rf0 = (zero(C, 2, s), zero(C), zero(C))
+    launches = {}
+    for name, wrap, step, state in (
+            ("B13 fused_frontend_raw_pm", fc.fused_frontend_raw_pm,
+             front(fc.fused_frontend_raw_pm), rf0),
+            ("B14 fir.block_fir_decim(impl='kernel')",
+             fir_cuda.block_fir_decim, b14, zero(C, 2, s))):
+        _zero(all_wrappers)
+        t0 = time.perf_counter()
+        out, end = stream(step, state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        off = _launches_off(all_wrappers, {wrap: N_BLOCKS})
+        if off:
+            raise AssertionError(f"phase 7: {name}: launches (got, "
+                                 f"expected) {off}")
+        launches[wrap] = wrap.launches
+        if wrap is fir_cuda.block_fir_decim:
+            scale = max(1.0, float(ref_iq.abs().max()))
+            err = float((out - ref_iq).abs().max())
+            ok, tol = err <= FIR_TOL * scale, FIR_TOL * scale
+            what = "the RF legs against the plain RF LPF's"
+        else:
+            ref, ref_end = stream(front(fc.fused_frontend_raw), rf0)
+            err = float((out - ref).abs()[live].max())
+            ok = err <= AB_TOL and torch.equal(end[0], ref_end[0])
+            tol = AB_TOL
+            what = (f"fm against B11's where the power is above "
+                    f"{AB_POWER:g}, the last iq_tail exact")
+        _say(f"phase 7: {name} over {N_BLOCKS} blocks x {C} channels, "
+             f"state carried: {wrap.__name__} {wrap.launches} launches, "
+             f"nothing else ({secs:.2f} s, first run); channels "
+             f"{CHAIN_ROWS}: {what} within {err:.3g} (tolerance {tol:.3g})")
+        if not ok:
+            raise AssertionError(f"phase 7: {name}: departs by {err:.3g}")
+    return launches
+
+
+def _run_ab(dev, smi, all_wrappers) -> list[dict]:
+    """Phase 7: the A/B front-end routes and the kernels no other phase
+    runs (B11, B12, B13, B14, B9-expand) at modes 0 and 1, C=512.  Returns
+    their JSON entries, each with its launches on its main path."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import fir_cuda
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tx import fm
+
+    t_phase = time.perf_counter()
+    results, direct = [], {}
+    for mode in AB_MODES:
+        cfg = get_mode(mode)
+        torch.cuda.reset_peak_memory_stats()
+        params = rx.make_params(cfg, device=dev)
+        blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1), cfg,
+                           dev)
+        st, _ = rx.run_blocks(params, rx.init_state(cfg, (C,), device=dev),
+                              blocks[:AB_BLOCK], cfg)
+        rows = _check_ab_kernels(cfg, params, blocks, st, dev)
+        rows.append(_check_expand(cfg, params, blocks, st, dev))
+        entries = [r.finish(smi, mode) for r in rows]
+        counts = _run_ab_chains(cfg, params, blocks, dev, smi, all_wrappers)
+        if not direct:       # B13 and B14 at the first mode's geometry
+            direct = _run_direct(cfg, params, blocks, all_wrappers)
+        counts.update(direct)
+        for r in entries:
+            r["launches"] = counts[r["wrapper"]]
+        results += entries
+        del blocks, st
+        torch.cuda.empty_cache()
+    for r in _check_fir(dev):
+        results.append(r.finish(smi, AB_MODES[0]))
+        results[-1]["launches"] = direct[fir_cuda.block_fir_decim]
+    _say(f"phase 7: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 7 "
+         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return results
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2050,7 +2462,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's kernels run only on a CUDA device")
     from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda, fft_cuda,
-                                  frontend_cuda, pll_cuda, resample_cuda)
+                                  fir_cuda, frontend_cuda, pll_cuda,
+                                  resample_cuda)
     from dy4tpu_torch.runtime import kernels
 
     # float32 throughout (dy4tpu's precision=HIGHEST): no TF32 anywhere
@@ -2079,7 +2492,12 @@ def main() -> None:
                     backend_cuda.fused_audio_backend,
                     resample_cuda.fused_audio_backend_rational,
                     resample_cuda.fused_rds_backend,
-                    channelizer_cuda.channelize_branches, fft_cuda.fft]
+                    channelizer_cuda.channelize_branches, fft_cuda.fft,
+                    frontend_cuda.fused_frontend_raw,
+                    frontend_cuda.fused_frontend,
+                    frontend_cuda.fused_frontend_raw_pm,
+                    fir_cuda.block_fir_decim,
+                    pll_cuda.phase_scan_target.expand]
     # ---- 2 + 3, mode by mode, then the wideband front door ----
     results: list[dict] = []
     for mode in (0, 1, 2, 3):
@@ -2092,6 +2510,8 @@ def main() -> None:
     results += _run_sharded(dev, smi, all_wrappers)
     torch.cuda.empty_cache()
     results += _run_psd(dev, smi, all_wrappers)
+    torch.cuda.empty_cache()
+    results += _run_ab(dev, smi, all_wrappers)
 
     for r in results:
         del r["wrapper"]

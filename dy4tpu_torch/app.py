@@ -51,7 +51,10 @@ def build_argparser() -> argparse.ArgumentParser:
                "DY4TPU_PLL_SPAN=K opts into the decimated-feedback span "
                "PLL (one loop update per K samples; the block's IF length "
                "must divide by K); DY4TPU_CDR=envelope selects whole-block "
-               "RDS timing (as --cdr envelope; recommended for mode 2).  "
+               "RDS timing (as --cdr envelope; recommended for mode 2); "
+               "DY4TPU_SPAN_EMIT=kernel has the span PLL's scan emit the "
+               "within-span phases itself (B9-expand; 'torch', the "
+               "default, rebuilds them after the scan).  "
                "dy4tpu's A/B knobs DY4TPU_FRONTEND, DY4TPU_BACKEND and "
                "DY4TPU_NCO_TRIG are not honoured: on a CUDA device every "
                "stage runs its hand-written kernel, on --device cpu its "
@@ -123,9 +126,10 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _env_settings(cli_cdr: Optional[str]) -> tuple[int, str]:
-    """(pll_span, cdr_timing) from the flags and the environment, as
-    dy4tpu's CLI resolves them; the library reads no environment."""
+def _env_settings(cli_cdr: Optional[str]) -> tuple[int, str, str]:
+    """(pll_span, pll_span_emit, cdr_timing) from the flags and the
+    environment, as dy4tpu's CLI resolves them; the library reads no
+    environment."""
     raw = os.environ.get("DY4TPU_PLL_SPAN", "1")
     try:
         span = int(raw)
@@ -133,10 +137,16 @@ def _env_settings(cli_cdr: Optional[str]) -> tuple[int, str]:
         raise SystemExit(f"DY4TPU_PLL_SPAN={raw!r}: expected an integer")
     if span < 1:
         raise SystemExit(f"DY4TPU_PLL_SPAN={span}: expected >= 1")
+    # dy4tpu's name for the default is "xla"
+    raw = os.environ.get("DY4TPU_SPAN_EMIT", "torch")
+    emit = {"xla": "torch"}.get(raw, raw)
+    if emit not in ("torch", "kernel"):
+        raise SystemExit(f"DY4TPU_SPAN_EMIT={raw!r}: expected torch (or "
+                         f"xla) or kernel")
     cdr = cli_cdr or os.environ.get("DY4TPU_CDR", "peak")
     if cdr not in ("peak", "envelope"):
         raise SystemExit(f"DY4TPU_CDR={cdr!r}: expected peak or envelope")
-    return span, cdr
+    return span, emit, cdr
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -150,7 +160,7 @@ def main(argv: Optional[list[str]] = None) -> int:
               f"(constraints pdf p.1: SPS defined for modes 0 and 2)",
               file=sys.stderr)
         return 2
-    pll_span, cdr = _env_settings(args.cdr)
+    pll_span, span_emit, cdr = _env_settings(args.cdr)
     if cfg.if_per_block % pll_span:
         raise SystemExit(f"DY4TPU_PLL_SPAN={pll_span} does not divide mode "
                          f"{args.mode}'s {cfg.if_per_block} IF samples per "
@@ -300,7 +310,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         for blk in blocks:
             state, out = receiver.receiver_step(
                 params, state, blk, cfg, with_rds=want_rds, cdr_timing=cdr,
-                pll_span=pll_span)
+                pll_span=pll_span, pll_span_emit=span_emit)
             if args.stereo_blend and stereo:
                 bl, br = mixops.stereo_blend(out.left, out.right,
                                              out.pilot_snr_db)

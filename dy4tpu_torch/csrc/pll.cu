@@ -13,9 +13,19 @@
 // is N/K steps long; the same design and numerics as B2 apply to it (the
 // integrator update comes after the phase update there, in
 // _make_span_step's order, and the span constants kp_eff, ki_eff, dth_eff
-// and k come from the caller as float32 values).  The within-span
-// expansion (the Pallas kernel's expand=K option) is not on the path: the
-// caller rebuilds those phases with vectorized torch ops.
+// and k come from the caller as float32 values).  By default the caller
+// rebuilds the within-span phases from phi0 and i0 with vectorized torch
+// ops (pll.py :: _span_expand).
+//
+// B9-expand pll_span_expand_kernel replaces the Pallas kernel's
+// expand=K option (pll_pallas.py:131-143): instead of phi0 and i0 it
+// writes the K within-span phases of every span step, op for op
+// _span_expand (pll.py:183-197) on the step's own phi0, error and pre-update
+// integrator, with the per-sample kp, ki and dtheta (the recurrence keeps
+// the span constants, so the entry takes both sets).  Thread s writes K
+// consecutive floats of its own row per step, so a warp's stores land on
+// 32 rows: the kernel writes K times the bytes B9 does, off the carry
+// chain.
 //
 // B8 pll_phase_scan_coded_kernel replaces the same Pallas kernel in
 // mode="coded" (pll_pallas.py :: phase_scan_coded): the exact time-sharded
@@ -138,6 +148,65 @@ __global__ void pll_span_scan_kernel(
   ang1[s] = ang;
 }
 
+// B9-expand: pll_span_scan_kernel's loop, line for line, with the
+// expansion in place of the phi0 / i0 stores.
+__global__ void pll_span_expand_kernel(
+    const float* __restrict__ targets, const float* __restrict__ kp,
+    const float* __restrict__ ki, const float* __restrict__ dtheta,
+    const float* __restrict__ integ0, const float* __restrict__ pe0,
+    const float* __restrict__ ang0, const float* __restrict__ kp1,
+    const float* __restrict__ ki1, const float* __restrict__ dtheta1,
+    float* __restrict__ phis, float* __restrict__ integ1,
+    float* __restrict__ pe1, float* __restrict__ ang1, long long n_streams,
+    long long m, int span, float k, float pi, float two_pi,
+    float inv_two_pi, float wrap) {
+  const long long s =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= n_streams) return;
+  const float kps = kp[s];
+  const float kis = ki[s];
+  const float dth = dtheta[s];
+  const float kp1s = kp1[s];
+  const float ki1s = ki1[s];
+  const float dth1 = dtheta1[s];
+  float integ = integ0[s];
+  float pe = pe0[s];
+  float ang = ang0[s];
+  const float* ts = targets + s * m;
+  float* out = phis + s * m * span;
+  for (long long t = 0; t < m; ++t) {
+    const float tk = ts[t];
+    const float ph = __fadd_rn(ang, pe);
+    const float v = __fadd_rn(__fsub_rn(tk, ph), pi);
+    float err = __fsub_rn(
+        __fsub_rn(v, __fmul_rn(two_pi, floorf(__fmul_rn(v, inv_two_pi)))),
+        pi);
+    if (tk != tk) err = 0.0f;  // NaN target: a dead span
+    // out_j = phi0 + j*(dtheta + kp*err + I0) + j(j+1)/2 * ki*err, with
+    // the per-sample constants and the pre-update integrator
+    const float lin =
+        __fadd_rn(__fadd_rn(dth1, __fmul_rn(kp1s, err)), integ);
+    const float quad = __fmul_rn(ki1s, err);
+    float* o = out + t * span;
+    for (int j = 0; j < span; ++j) {
+      const float jf = static_cast<float>(j);
+      const float tri = static_cast<float>(j * (j + 1) / 2);
+      o[j] = __fadd_rn(__fadd_rn(ph, __fmul_rn(jf, lin)),
+                       __fmul_rn(tri, quad));
+    }
+    float p = __fadd_rn(__fadd_rn(pe, __fmul_rn(kps, err)),
+                        __fmul_rn(k, integ));
+    integ = __fadd_rn(integ, __fmul_rn(kis, err));
+    p = __fsub_rn(p, p >= wrap ? wrap : 0.0f);
+    pe = __fadd_rn(p, p < 0.0f ? wrap : 0.0f);
+    const float a = __fadd_rn(ang, dth);
+    ang = __fsub_rn(a, a >= wrap ? wrap : 0.0f);
+  }
+  integ1[s] = integ;
+  pe1[s] = pe;
+  ang1[s] = ang;
+}
+
 __global__ void pll_phase_scan_coded_kernel(
     const signed char* __restrict__ codes, const float* __restrict__ kp,
     const float* __restrict__ ki, const float* __restrict__ dtheta,
@@ -234,6 +303,29 @@ extern "C" int dy4_pll_span_scan(
                          static_cast<cudaStream_t>(stream)>>>(
       targets, kp, ki, dtheta, integ0, pe0, ang0, phi0, i0, integ1, pe1,
       ang1, n_streams, m, k, pi, two_pi, inv_two_pi, wrap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9-expand.  targets: [n_streams, m]; phis: [n_streams, m * span]; kp,
+// ki, dtheta (the span's effective constants), kp1, ki1, dtheta1 (the
+// per-sample ones) and the carries: [n_streams]; k = span as float.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int dy4_pll_span_expand(
+    const float* targets, const float* kp, const float* ki,
+    const float* dtheta, const float* integ0, const float* pe0,
+    const float* ang0, const float* kp1, const float* ki1,
+    const float* dtheta1, float* phis, float* integ1, float* pe1,
+    float* ang1, long long n_streams, long long m, int span, float k,
+    float pi, float two_pi, float inv_two_pi, float wrap, void* stream) {
+  if (n_streams <= 0) return 0;
+  const int threads = 32;
+  const unsigned blocks =
+      static_cast<unsigned>((n_streams + threads - 1) / threads);
+  pll_span_expand_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      targets, kp, ki, dtheta, integ0, pe0, ang0, kp1, ki1, dtheta1, phis,
+      integ1, pe1, ang1, n_streams, m, span, k, pi, two_pi, inv_two_pi,
+      wrap);
   return static_cast<int>(cudaGetLastError());
 }
 

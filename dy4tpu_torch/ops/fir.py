@@ -12,7 +12,8 @@ and the carried ``state`` is the last ``S`` *input* samples:
 
 All ops accept arbitrary leading batch dimensions on ``x``/``state``.
 These are the plain versions the CUDA kernels are held against; the
-kernels themselves live in the ``*_cuda`` modules.
+kernels themselves live in the ``*_cuda`` modules (``block_fir_decim(...,
+impl="kernel")`` reaches B14 in ``fir_cuda``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+_IMPLS = ("auto", "plain", "kernel")
 
 
 def state_len(num_taps: int, up: int = 1) -> int:
@@ -102,10 +105,23 @@ def block_fir(x: Tensor, h: Tensor, state: Tensor) -> tuple[Tensor, Tensor]:
     return block_fir_resample(x, h, state)
 
 
-def block_fir_decim(x: Tensor, h: Tensor, state: Tensor,
-                    decim: int) -> tuple[Tensor, Tensor]:
+def block_fir_decim(x: Tensor, h: Tensor, state: Tensor, decim: int, *,
+                    impl: str = "auto") -> tuple[Tensor, Tensor]:
     """Decimating stateful FIR computing only kept outputs,
-    src/filter.cpp:123-140."""
+    src/filter.cpp:123-140.
+
+    ``impl``: "auto" and "plain" run the plain conv1d on any device
+    (dy4tpu's ``auto`` never picks its kernel either); "kernel" runs B14
+    (``fir_cuda.block_fir_decim``), which takes CUDA tensors only: a CPU
+    tensor raises."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl={impl!r}: expected one of {_IMPLS}")
+    if impl == "kernel":
+        if not x.is_cuda:
+            raise ValueError(f"impl='kernel' needs a CUDA tensor, got "
+                             f"{x.device}")
+        from dy4tpu_torch.ops import fir_cuda  # it imports this module
+        return fir_cuda.block_fir_decim(x, h, state, decim)
     return block_fir_resample(x, h, state, down=decim)
 
 

@@ -1,5 +1,5 @@
-"""The LTI front half of the receiver: two CUDA kernels
-(``csrc/frontend.cu``) and their plain torch versions.
+"""The front half of the receiver: five CUDA kernels (``csrc/frontend.cu``,
+``csrc/frontend_rf.cu``) and their plain torch versions.
 
 ``fused_frontend_full`` (B1) replaces ``dy4tpu/ops/frontend_pallas.py ::
 fused_frontend_full``: raw u8 IQ -> normalize -> RF LPF decimating on both
@@ -16,11 +16,37 @@ conic-fit moments of the decimated I/Q before the correction
 the same stages from the demod on, for float32 IF I/Q rows (the IF entry,
 ``receiver_step_if``); the RF ``iq_tail`` is not its business.
 
-Both kernels keep all intermediate streams of a row in shared memory, so
+B1 and B6 keep all intermediate streams of a row in shared memory, so
 only the block's input and the IF-rate outputs touch device memory (see
 the note in ``csrc/frontend.cu``).  They match the plain versions to
 float32 tolerance; B1's new ``iq_tail`` and B6's new ``prev_i``/``prev_q``
 are exact.
+
+The RF stage alone, dy4tpu's A/B front ends (``front_step(frontend=
+"fused-rf" | "fused-phase")``, which leave the band stages to
+``band_stages_plain``), is one kernel body behind three loaders (see the
+note in ``csrc/frontend_rf.cu``), with the contract ``(iq_u8, h, iq_tail,
+prev_i, prev_q, decim) -> (fm, iq_tail', prev_i', prev_q')``:
+
+  * ``fused_frontend_raw`` (B11) replaces ``frontend_pallas.py ::
+    fused_frontend_raw``: it reads the interleaved u8 row;
+  * ``fused_frontend`` (B12) replaces ``frontend_pallas.py ::
+    fused_frontend``: the wrapper pre-splits the u8 block into its 2D
+    interleave/decimation phase planes in torch, as dy4tpu does outside
+    Pallas, and the kernel reads the planes; it needs ``(K-1) % D == 0``;
+  * ``fused_frontend_raw_pm`` (B13) replaces ``frontend_pallas.py ::
+    fused_frontend_raw_pm``: the kernel reads the row as 32-bit words
+    (``iq_u8.view(torch.int32)``, free) and takes each word's four bytes
+    apart.  dy4tpu does not wire it into ``front_step``; neither does the
+    port.
+
+dy4tpu's banded tap-parity matrices, its ``split`` window/dot interleave,
+``mm_dtype``, ``bc_rows``, ``vmem_limit_bytes`` and its 128-lane geometry
+gate are TPU (MXU and VMEM) devices: neither these wrappers nor their plain
+versions take them, and every geometry runs.  Everything is float32
+(dy4tpu's ``HIGHEST``).  fm matches the plain versions to float32
+tolerance where the decimated power is not near zero, ``iq_tail`` is
+exact.
 """
 
 from __future__ import annotations
@@ -28,6 +54,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from dy4tpu_torch.ops import demod, fir, iqcorr, mix
 from dy4tpu_torch.runtime import kernels
@@ -40,6 +67,10 @@ _CORR_ARGS = ([ctypes.c_void_p] * 25 + [ctypes.c_longlong] * 2
               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _IF_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_RF_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# the u8 block's way into the RF kernel (csrc/frontend_rf.cu's Source)
+_BYTES, _PLANES, _WORDS = 0, 1, 2
 
 
 def rf_lpf_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor, decim: int):
@@ -209,17 +240,8 @@ def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
     return outs
 
 
-class _Variant:
-    """The launch count of one template variant of a kernel wrapper, read
-    as a wrapper's own ``launches`` is."""
-
-    def __init__(self, name: str):
-        self.__name__ = name
-        self.launches = 0
-
-
 fused_frontend_full.launches = 0
-fused_frontend_full.corr = _Variant("fused_frontend_full[corr]")
+fused_frontend_full.corr = kernels.Variant("fused_frontend_full[corr]")
 
 
 def fused_frontend_if_plain(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
@@ -284,3 +306,166 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
 
 
 fused_frontend_if.launches = 0
+
+
+def fused_frontend_raw_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+    """Plain torch version of B11 (any leading batch dims, any device):
+    ``rf_lpf_plain`` then ``demod.fm_demod_diff``.  Returns ``(fm,
+    iq_tail, prev_i, prev_q)``."""
+    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h, iq_tail, decim)
+    fm, prev_i, prev_q = demod.fm_demod_diff(i_ds, q_ds, prev_i, prev_q)
+    return fm, iq_tail, prev_i, prev_q
+
+
+def phase_planes(iq_u8: Tensor, decim: int) -> Tensor:
+    """u8 [C, bs] -> the interleave/decimation phase planes x20 [2D, C,
+    bs/2/D] u8: plane ``2r + leg`` holds decimation phase r of leg ``leg``
+    (``frontend_pallas.py:1009-1010``)."""
+    c, bs = iq_u8.shape
+    return iq_u8.reshape(c, bs // (2 * decim), 2 * decim).permute(2, 0, 1)
+
+
+def fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+    """Plain torch version of B12 (``iq_u8`` [C, bs], any device): the
+    phase planes, each phase of each leg extended by its tail phase
+    (``iq_tail.reshape(C, 2, S/D, D)``), then the decimating LPF as one
+    correlation that sums over the D phases, tap ``q*D + r`` of phase r
+    being ``h[S - q*D - r]``; then the demod.  Needs ``(K-1) % D == 0``.
+    Returns ``(fm, iq_tail, prev_i, prev_q)``."""
+    c, bs = iq_u8.shape
+    k = h.shape[0]
+    s = k - 1
+    _require_phase_aligned(k, decim)
+    x = (phase_planes(iq_u8, decim).to(torch.float32) - 128.0) / 128.0
+    planes = x.reshape(decim, 2, c, -1).permute(2, 1, 0, 3)  # [C, 2, D, M]
+    tail_ph = iq_tail.reshape(c, 2, s // decim, decim).movedim(-1, -2)
+    ext = torch.cat([tail_ph, planes], dim=-1)      # [C, 2, D, S/D + M]
+    q = torch.arange(s // decim + 1, device=h.device)
+    r = torch.arange(decim, device=h.device)
+    a = q[None, :] * decim + r[:, None]             # [D, Q]: a = qD + r
+    taps = torch.where(a <= s, h[(s - a).clamp(min=0)], 0.0)
+    fir._no_tf32(x)
+    y = F.conv1d(ext.reshape(c * 2, decim, -1), taps[None])
+    y = y.reshape(c, 2, -1)
+    fm, prev_i, prev_q = demod.fm_demod_diff(y[:, 0], y[:, 1], prev_i,
+                                             prev_q)
+    new_tail = ((iq_u8[:, bs - 2 * s:].to(torch.float32) - 128.0) / 128.0
+                ).reshape(c, s, 2).movedim(-1, -2)
+    return fm, new_tail, prev_i, prev_q
+
+
+def fused_frontend_raw_pm_plain(iq_u8, h, iq_tail, prev_i, prev_q,
+                                decim: int):
+    """Plain torch version of B13 (``iq_u8`` [C, bs], ``bs % 4 == 0``, any
+    device): the row as int32 words, each word's four bytes taken apart
+    (little-endian: bytes 0 and 2 are I, 1 and 3 are Q), then B11's plain
+    version.  Returns ``(fm, iq_tail, prev_i, prev_q)``."""
+    words = _words(iq_u8)
+    parts = [(words >> (8 * b)) & 0xFF for b in range(4)]
+    raw = torch.stack(parts, dim=-1).reshape(iq_u8.shape).to(torch.uint8)
+    return fused_frontend_raw_plain(raw, h, iq_tail, prev_i, prev_q, decim)
+
+
+def _require_phase_aligned(k: int, decim: int) -> None:
+    if (k - 1) % decim:
+        raise ValueError(f"the phase-split front end needs phase-aligned "
+                         f"taps ((taps-1) % decim == 0; taps={k}, "
+                         f"decim={decim})")
+
+
+def _words(iq_u8: Tensor) -> Tensor:
+    """``iq_u8`` [C, bs] as int32 words [C, bs/4] (a view)."""
+    if iq_u8.shape[-1] % 4 or not iq_u8.is_contiguous():
+        raise ValueError(f"the word front end needs contiguous rows of a "
+                         f"multiple of 4 bytes, got {tuple(iq_u8.shape)}")
+    return iq_u8.view(torch.int32)
+
+
+def _launch_rf(source: int, src: Tensor, iq_u8: Tensor, h, iq_tail, prev_i,
+               prev_q, decim: int, what: str):
+    """Check the inputs and launch the RF kernel on ``src`` (``iq_u8``
+    itself, its phase planes or its words).  Returns ``(fm, iq_tail,
+    prev_i, prev_q)``."""
+    c, bs = iq_u8.shape
+    k = h.shape[0]
+    if bs % (2 * decim) or bs // 2 < k - 1:
+        raise ValueError(f"{what}: block of {bs} bytes does not decimate by "
+                         f"{decim}, or holds fewer than the {k - 1} samples "
+                         f"of the RF tail")
+    dev = iq_u8.device
+    kernels.require(iq_u8, "iq_u8", (c, bs), torch.uint8, dev)
+    for t, name, shape in ((h, "h", (k,)), (iq_tail, "iq_tail", (c, 2, k - 1)),
+                           (prev_i, "prev_i", (c,)), (prev_q, "prev_q", (c,))):
+        kernels.require(t, name, shape, device=dev)
+    kernels.check_smem("frontend_rf", "dy4_frontend_rf_smem", what, decim, k)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=dev)
+    outs = (new(c, bs // 2 // decim), new(c, 2, k - 1), new(c), new(c))
+    fn = kernels.entry("frontend_rf", "dy4_frontend_rf", _RF_ARGS)
+    with torch.cuda.device(dev):
+        status = fn(source, src.data_ptr(), h.data_ptr(), iq_tail.data_ptr(),
+                    prev_i.data_ptr(), prev_q.data_ptr(),
+                    *(o.data_ptr() for o in outs), c, bs, decim, k,
+                    kernels.stream_of(iq_u8))
+    kernels.check_launch(status, what)
+    return outs
+
+
+def fused_frontend_raw(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+    """B11, the RF stage from the interleaved u8 rows: the kernel for CUDA
+    tensors, ``fused_frontend_raw_plain`` for CPU ones.
+
+    ``iq_u8`` [C, bs] uint8; ``h`` [K]; ``iq_tail`` [C, 2, K-1];
+    ``prev_i``/``prev_q`` [C]; all float32 and contiguous.  Returns ``(fm
+    [C, bs/2/decim], iq_tail, prev_i, prev_q)``."""
+    if iq_u8.device.type == "cpu":
+        return fused_frontend_raw_plain(iq_u8, h, iq_tail, prev_i, prev_q,
+                                        decim)
+    outs = _launch_rf(_BYTES, iq_u8, iq_u8, h, iq_tail, prev_i, prev_q,
+                      decim, "fused_frontend_raw")
+    fused_frontend_raw.launches += 1
+    return outs
+
+
+fused_frontend_raw.launches = 0
+
+
+def fused_frontend(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+    """B12, the RF stage from the u8 phase planes: the kernel for CUDA
+    tensors, ``fused_frontend_plain`` for CPU ones; the contract of
+    ``fused_frontend_raw``, with ``(K-1) % decim == 0``.  The planes
+    (``phase_planes``) are made in torch before the launch, an extra
+    read and write of the block."""
+    if iq_u8.device.type == "cpu":
+        return fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim)
+    _require_phase_aligned(h.shape[0], decim)
+    kernels.require(iq_u8, "iq_u8", iq_u8.shape, torch.uint8, iq_u8.device)
+    if iq_u8.dim() != 2 or iq_u8.shape[1] % (2 * decim):
+        raise ValueError(f"fused_frontend: block {tuple(iq_u8.shape)} does "
+                         f"not decimate by {decim}")
+    planes = phase_planes(iq_u8, decim).contiguous()
+    outs = _launch_rf(_PLANES, planes, iq_u8, h, iq_tail, prev_i, prev_q,
+                      decim, "fused_frontend")
+    fused_frontend.launches += 1
+    return outs
+
+
+fused_frontend.launches = 0
+
+
+def fused_frontend_raw_pm(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+    """B13, the RF stage from the rows as 32-bit words: the kernel for
+    CUDA tensors, ``fused_frontend_raw_pm_plain`` for CPU ones; the
+    contract of ``fused_frontend_raw``, with ``bs % 4 == 0``.  On no
+    receiver route (as in dy4tpu): called directly."""
+    if iq_u8.device.type == "cpu":
+        return fused_frontend_raw_pm_plain(iq_u8, h, iq_tail, prev_i, prev_q,
+                                           decim)
+    kernels.require(iq_u8, "iq_u8", iq_u8.shape, torch.uint8, iq_u8.device)
+    outs = _launch_rf(_WORDS, _words(iq_u8), iq_u8, h, iq_tail, prev_i,
+                      prev_q, decim, "fused_frontend_raw_pm")
+    fused_frontend_raw_pm.launches += 1
+    return outs
+
+
+fused_frontend_raw_pm.launches = 0

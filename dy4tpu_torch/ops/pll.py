@@ -26,7 +26,10 @@ opt-in throughput mode that is not bit-exact against the per-sample loop:
 one loop-filter update per K samples, driven by a span-averaged detector
 target (``_span_targets``), with the within-span phases rebuilt
 vectorized afterwards (``_span_expand``), so the serial chain is N/K steps
-long.  ``span`` is an argument: the library reads no environment variable.
+long.  ``pll(span_emit="kernel")`` has the scan emit those phases itself
+(B9-expand, dy4tpu's ``DY4TPU_SPAN_EMIT=kernel``), bit for bit the same.
+``span`` and ``span_emit`` are arguments: the library reads no environment
+variable.
 
 ``encode_sign`` and ``phase_scan_coded`` are the coded replay of the exact
 time-sharded receiver (``parallel/sharded.py``): the input enters the
@@ -242,7 +245,7 @@ def phase_scan_coded(codes: Tensor, carry: tuple[Tensor, Tensor, Tensor], *,
 
 def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
         nco_scale=1.0, norm_bandwidth=0.01,
-        impl: str = "auto", span: int = 1
+        impl: str = "auto", span: int = 1, span_emit: str = "torch"
         ) -> tuple[Tensor, Tensor, PLLState]:
     """Run the PLL over a block.
 
@@ -254,6 +257,10 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
 
     ``span``: 1 (default) runs the exact per-sample loop (B2); K > 1 the
     span PLL (module docstring; B9), which needs ``N % K == 0``.
+    ``span_emit`` (span > 1): "torch" (default) rebuilds the within-span
+    phases with ``_span_expand`` after B9; "kernel" has B9-expand emit
+    them (its plain version for ``impl="plain"`` or a CPU tensor, as
+    ``impl`` picks for the scan).
     """
     from dy4tpu_torch.ops import pll_cuda  # its plain twin imports us
 
@@ -266,6 +273,9 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
         raise ValueError(f"unknown pll impl {impl!r}")
     if impl == "kernel" and not pll_in.is_cuda:
         raise ValueError(f"impl='kernel' needs a CUDA tensor, got {dev}")
+    if span_emit not in ("torch", "kernel"):
+        raise ValueError(f"span_emit must be 'torch' or 'kernel', got "
+                         f"{span_emit!r}")
     plain = impl == "plain"
     if span > 1:
         n = pll_in.shape[-1]
@@ -277,9 +287,14 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
         targets = _span_targets(pll_in, dtheta, span).contiguous()
         scan = (pll_cuda.phase_scan_target_plain if plain
                 else pll_cuda.phase_scan_target)
-        phi0, i0, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
-                                          carry0, span=span)
-        phis = _span_expand(phi0, i0, targets, kp, ki, dtheta, span)
+        if span_emit == "kernel":
+            phis, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
+                                          carry0, span=span,
+                                          expand=(kp, ki, dtheta))
+        else:
+            phi0, i0, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
+                                              carry0, span=span)
+            phis = _span_expand(phi0, i0, targets, kp, ki, dtheta, span)
     elif span == 1:
         scan = pll_cuda.phase_scan_plain if plain else pll_cuda.phase_scan
         phis, (integ, pe, ang) = scan(pll_in, kp, ki, dtheta, carry0)

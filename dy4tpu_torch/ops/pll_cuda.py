@@ -5,6 +5,10 @@ torch versions.
 in sign mode: the per-sample recurrence.  ``phase_scan_target`` (B9)
 replaces the same Pallas kernel in target mode with ``emit_integ``: the
 span PLL's one update per span, driven by span detector targets.
+With ``expand=`` (the per-sample constants) ``phase_scan_target`` launches
+B9-expand, the Pallas kernel's ``expand=K`` option: the same scan, emitting
+the K within-span phases of every span (``pll._span_expand``'s operations
+in its order) in place of ``phi0`` and ``i0``.
 ``phase_scan_coded`` (B8) replaces ``pll_pallas.py :: phase_scan_coded``
 (the kernel in coded mode): the per-sample recurrence replayed from int8
 sign codes, INVALID codes freezing the carry, with a carry snapshot after
@@ -32,6 +36,8 @@ _ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
          + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 _TARGET_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2
                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_EXPAND_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 2
+                + [ctypes.c_int] + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 _CODED_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 3
                + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 
@@ -90,15 +96,17 @@ phase_scan.launches = 0
 def phase_scan_target_plain(targets: Tensor, kp: Tensor, ki: Tensor,
                             dtheta: Tensor,
                             carry: tuple[Tensor, Tensor, Tensor], *,
-                            span: int
-                            ) -> tuple[Tensor, Tensor,
-                                       tuple[Tensor, Tensor, Tensor]]:
+                            span: int, expand=None):
     """``targets`` [..., M] span detector targets (NaN: a dead span) ->
     ``(phi0, i0, carry at the end)``: the pre-update phase and the
     pre-update integrator of every span.  ``kp``/``ki``/``dtheta`` are
     the span's effective constants (``pll._span_consts``), broadcasting
     to the batch dims like the carry fields.  A Python loop over the M
-    spans."""
+    spans.
+
+    ``expand``: the per-sample ``(kp, ki, dtheta)``; then the result is
+    ``(phis [..., M*span], carry at the end)``, ``pll._span_expand`` of
+    the scan's output (B9-expand's plain version)."""
     step = _pll._make_span_step(kp, ki, dtheta, float(span))
     t_t = targets.movedim(-1, 0)                   # [M, ...] time-major
     dead = t_t != t_t                              # NaN: error 0
@@ -107,20 +115,24 @@ def phase_scan_target_plain(targets: Tensor, kp: Tensor, ki: Tensor,
     for t in range(t_t.shape[0]):
         i0[t] = carry[0]
         carry, phi0[t] = step(carry, t_t[t], dead[t])
-    return phi0.movedim(0, -1), i0.movedim(0, -1), carry
+    phi0, i0 = phi0.movedim(0, -1), i0.movedim(0, -1)
+    if expand is None:
+        return phi0, i0, carry
+    return _pll._span_expand(phi0, i0, targets, *expand, span), carry
 
 
 def phase_scan_target(targets: Tensor, kp: Tensor, ki: Tensor,
                       dtheta: Tensor, carry: tuple[Tensor, Tensor, Tensor],
-                      *, span: int
-                      ) -> tuple[Tensor, Tensor,
-                                 tuple[Tensor, Tensor, Tensor]]:
-    """The B9 kernel for a CUDA tensor, ``phase_scan_target_plain`` for a
-    CPU one; same contract.  ``targets`` must be a contiguous float32
-    tensor."""
+                      *, span: int, expand=None):
+    """The B9 kernel (B9-expand with ``expand``) for a CUDA tensor,
+    ``phase_scan_target_plain`` for a CPU one; same contract.  ``targets``
+    must be a contiguous float32 tensor.
+
+    Launches are counted per variant: ``phase_scan_target.launches`` for
+    B9, ``phase_scan_target.expand.launches`` for B9-expand."""
     if targets.device.type == "cpu":
         return phase_scan_target_plain(targets, kp, ki, dtheta, carry,
-                                       span=span)
+                                       span=span, expand=expand)
     batch = targets.shape[:-1]
     m = targets.shape[-1]
     dev = targets.device
@@ -130,24 +142,39 @@ def phase_scan_target(targets: Tensor, kp: Tensor, ki: Tensor,
     kp_s, ki_s, dth_s = flat(kp), flat(ki), flat(dtheta)
     c_in = [flat(c) for c in carry]
     s = kp_s.numel()
-    phi0 = torch.empty_like(targets)
-    i0 = torch.empty_like(targets)
     c_out = [torch.empty(s, dtype=torch.float32, device=dev)
              for _ in range(3)]
+    consts = (_pll.PI, _pll.TWO_PI, _pll.INV_TWO_PI, _pll.WRAP)
+    if expand is not None:
+        per_sample = [flat(a) for a in expand]
+        phis = torch.empty((*batch, m * span), dtype=torch.float32,
+                           device=dev)
+        fn = kernels.entry("pll", "dy4_pll_span_expand", _EXPAND_ARGS)
+        with torch.cuda.device(dev):
+            status = fn(targets.data_ptr(), kp_s.data_ptr(), ki_s.data_ptr(),
+                        dth_s.data_ptr(), *(c.data_ptr() for c in c_in),
+                        *(a.data_ptr() for a in per_sample), phis.data_ptr(),
+                        *(c.data_ptr() for c in c_out), s, m, span,
+                        float(span), *consts, kernels.stream_of(targets))
+        kernels.check_launch(status, "pll phase_scan_target[expand]")
+        phase_scan_target.expand.launches += 1
+        return phis, tuple(c.reshape(batch) for c in c_out)
+    phi0 = torch.empty_like(targets)
+    i0 = torch.empty_like(targets)
     fn = kernels.entry("pll", "dy4_pll_span_scan", _TARGET_ARGS)
     with torch.cuda.device(dev):
         status = fn(targets.data_ptr(), kp_s.data_ptr(), ki_s.data_ptr(),
                     dth_s.data_ptr(), *(c.data_ptr() for c in c_in),
                     phi0.data_ptr(), i0.data_ptr(),
                     *(c.data_ptr() for c in c_out), s, m, float(span),
-                    _pll.PI, _pll.TWO_PI, _pll.INV_TWO_PI, _pll.WRAP,
-                    kernels.stream_of(targets))
+                    *consts, kernels.stream_of(targets))
     kernels.check_launch(status, "pll phase_scan_target")
     phase_scan_target.launches += 1
     return phi0, i0, tuple(c.reshape(batch) for c in c_out)
 
 
 phase_scan_target.launches = 0
+phase_scan_target.expand = kernels.Variant("phase_scan_target[expand]")
 
 
 def phase_scan_coded_plain(codes: Tensor, kp: Tensor, ki: Tensor,

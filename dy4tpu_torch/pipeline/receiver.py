@@ -20,7 +20,13 @@ recovery.  Each stage selects its implementation:
   * ``"auto"`` (default): the hand-written CUDA kernel for a CUDA tensor,
     the plain torch version for a CPU tensor;
   * ``"plain"``: the plain torch version on any device (tests and the
-    chip smoke's comparisons).
+    chip smoke's comparisons);
+  * ``front_step`` alone also takes dy4tpu's A/B front ends,
+    ``"fused-rf"`` (B11, ``frontend_cuda.fused_frontend_raw``) and
+    ``"fused-phase"`` (B12, ``frontend_cuda.fused_frontend``): the RF stage
+    to fm as a kernel on a CUDA tensor (its plain version on a CPU one),
+    then the band stages in plain torch (``frontend_cuda.band_stages_
+    plain``), as dy4tpu leaves them to XLA on these routes.
 
 No environment variable picks the path, and a CUDA tensor never falls
 back to the plain version silently.  Everything is float32 (dy4tpu's
@@ -30,7 +36,8 @@ Opt-in features, as dy4tpu's: the narrowband IQ tracker
 (``init_state(with_iqcorr=True)``: each block is corrected with the
 coefficients of the blocks before it, inside B1's corr epilogue, and the
 block's pre-correction moments are folded in), the span PLL
-(``pll_span=K``), the Kaiser audio filter (``make_params(audio_filter=
+(``pll_span=K``, with ``pll_span_emit="kernel"`` for B9-expand), the
+Kaiser audio filter (``make_params(audio_filter=
 "kaiser")``) and the envelope CDR (``cdr_timing="envelope"``).  The entry
 points put params and state on the card unless the caller asks for the
 CPU (``device="cpu"``, as the tests do).
@@ -148,6 +155,8 @@ class BackOut(NamedTuple):
 
 
 _IMPLS = ("auto", "plain")
+_AB_FRONTENDS = ("fused-rf", "fused-phase")   # dy4tpu's A/B front ends
+_FRONTENDS = _IMPLS + _AB_FRONTENDS
 
 
 def _rds_on(cfg: ModeConfig, with_rds) -> bool:
@@ -190,6 +199,14 @@ def _flattener(batch: torch.Size):
     return flat, unflat
 
 
+def fused_phase_frontend_ok(cfg: ModeConfig) -> bool:
+    """Whether ``front_step(frontend="fused-phase")`` takes this mode: its
+    taps must phase-align to the decimation, ``(num_taps-1) % rf_decim ==
+    0``.  dy4tpu's 128-lane gate (``fused_frontend_ok``) is a TPU layout
+    rule; the port's kernels run every geometry."""
+    return (cfg.num_taps - 1) % cfg.rf_decim == 0
+
+
 def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
                cfg: ModeConfig, *, rds_enabled: bool = True,
                frontend: str = "auto",
@@ -202,12 +219,16 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
 
     ``frontend``: "auto" (``frontend_cuda.fused_frontend_full``, its
     corr variant with ``corr``: the kernel on a CUDA tensor, the plain
-    version on a CPU one) or "plain" (its plain version on any device).
+    version on a CPU one), "plain" (its plain version on any device), or
+    dy4tpu's A/B routes "fused-rf" (B11) and "fused-phase" (B12, which
+    needs ``fused_phase_frontend_ok(cfg)``): the RF stage to fm, then
+    ``frontend_cuda.band_stages_plain``.
 
     ``corr``: batch-shaped IQ correction coefficients applied to the
     decimated I/Q before the demod; ``corr_moments`` (which needs
     ``corr``, as in dy4tpu) also returns the moments of that I/Q before
-    the correction.
+    the correction.  The A/B routes stop at fm and take no correction,
+    as dy4tpu's.
 
     ``iq_u8`` [..., n]: a whole block, or any n that decimates into whole
     IF samples (the sharded receiver's sub-block warm-up).
@@ -216,13 +237,20 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
         raise ValueError(f"block of {iq_u8.shape[-1]} bytes; mode "
                          f"{cfg.mode} takes a multiple of "
                          f"{2 * cfg.rf_decim} ({cfg.block_size} a block)")
-    if corr is not None and frontend not in _IMPLS:
+    if corr is not None and frontend in _AB_FRONTENDS:
         raise ValueError(f"IQ correction unsupported with frontend="
                          f"{frontend!r}; use one of {_IMPLS}")
     if corr_moments and corr is None:
         raise ValueError("corr_moments=True requires corr (the front end "
                          "emits the moments with its correction epilogue)")
-    flat, unflat, plain = _route(frontend, iq_u8.shape[:-1])
+    if frontend == "fused-phase" and not fused_phase_frontend_ok(cfg):
+        raise ValueError(f"frontend='fused-phase' needs phase-aligned taps "
+                         f"((taps-1) % decim == 0; taps={cfg.num_taps}, "
+                         f"decim={cfg.rf_decim})")
+    flat, unflat, plain = _route(frontend, iq_u8.shape[:-1], _FRONTENDS)
+    if frontend in _AB_FRONTENDS:
+        return _front_step_ab(params, fstate, flat(iq_u8), cfg, rds_enabled,
+                              frontend, flat, unflat)
     args = (flat(iq_u8), params.rf_coeff, params.bank_coeff,
             params.rds_carrier_coeff, flat(fstate.rf.iq_tail),
             flat(fstate.rf.prev_i), flat(fstate.rf.prev_q),
@@ -237,12 +265,33 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
     return (*ret, unflat(outs[12])) if corr_moments else ret
 
 
-def _route(frontend: str, batch: torch.Size):
+def _front_step_ab(params: ReceiverParams, fstate: FrontState,
+                   iq_u8: Tensor, cfg: ModeConfig, rds_enabled: bool,
+                   frontend: str, flat, unflat):
+    """``front_step`` on an A/B route: B11 or B12 on the flattened
+    ``iq_u8`` [C, bs] (their plain versions on a CPU tensor), then the
+    post-demod band stages in plain torch."""
+    rf = (frontend_cuda.fused_frontend_raw if frontend == "fused-rf"
+          else frontend_cuda.fused_frontend)
+    fm, iq_tail, prev_i, prev_q = rf(
+        iq_u8, params.rf_coeff, flat(fstate.rf.iq_tail),
+        flat(fstate.rf.prev_i), flat(fstate.rf.prev_q), cfg.rf_decim)
+    (fmd, pilot, stereo, carrier, rdsdel, bank_tail, mono_delay,
+     carrier_tail, rds_delay) = frontend_cuda.band_stages_plain(
+        fm, params.bank_coeff, params.rds_carrier_coeff,
+        flat(fstate.bank_tail), flat(fstate.mono_delay),
+        flat(fstate.carrier_tail), flat(fstate.rds_delay), rds=rds_enabled)
+    outs = (fmd, pilot, stereo, carrier, rdsdel, prev_i, prev_q, bank_tail,
+            mono_delay, carrier_tail, rds_delay)
+    return _front_state(outs, unflat(iq_tail), unflat)
+
+
+def _route(frontend: str, batch: torch.Size, allowed=_IMPLS):
     """``(flat, unflat, plain)`` for a front end: the plain versions take
     any leading batch dims as they are, the kernel wrappers a contiguous
     ``[C, ...]`` (``_flattener``)."""
-    if frontend not in _IMPLS:
-        raise ValueError(f"frontend must be one of {_IMPLS}, got "
+    if frontend not in allowed:
+        raise ValueError(f"frontend must be one of {allowed}, got "
                          f"{frontend!r}")
     if frontend == "plain":
         same = lambda a: a  # noqa: E731
@@ -277,7 +326,8 @@ def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
 
     ``frontend``: "auto" (``frontend_cuda.fused_frontend_if``: the kernel
     on a CUDA tensor, the plain version on a CPU one) or "plain" (its
-    plain version on any device).
+    plain version on any device).  The A/B routes are RF stages, which
+    the IF entry does not have: they raise here.
     """
     if i_if.shape[-1] != cfg.if_per_block or q_if.shape != i_if.shape:
         raise ValueError(f"IF blocks of {tuple(i_if.shape)} and "
@@ -465,17 +515,20 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
                   iq_u8: Tensor, cfg: ModeConfig,
                   with_rds: Optional[bool] = None, frontend: str = "auto",
                   backend: str = "auto", pll_impl: str = "auto",
-                  cdr_timing: str = "peak", pll_span: int = 1
+                  cdr_timing: str = "peak", pll_span: int = 1,
+                  pll_span_emit: str = "torch"
                   ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of interleaved u8 IQ samples.
 
-    ``iq_u8``: [..., block_size] uint8 (I even, Q odd).  ``frontend`` /
+    ``iq_u8``: [..., block_size] uint8 (I even, Q odd).  ``frontend``:
+    "auto", "plain", "fused-rf" or "fused-phase" (``front_step``);
     ``backend``: "auto" or "plain" (module docstring); ``pll_impl``:
     "auto", "kernel" or "plain" (``ops/pll.py``); ``cdr_timing``: "peak"
     or "envelope" (``_cdr``; dy4tpu's default when ``DY4TPU_CDR`` is
     unset is "peak"); ``pll_span``: 1 (the exact per-sample PLL) or K > 1
-    (the span PLL; dy4tpu's ``DY4TPU_PLL_SPAN``).  The port reads no
-    environment variable.
+    (the span PLL; dy4tpu's ``DY4TPU_PLL_SPAN``); ``pll_span_emit``:
+    "torch" or "kernel" (B9-expand; dy4tpu's ``DY4TPU_SPAN_EMIT``), see
+    ``pll.pll``.  The port reads no environment variable.
 
     With an ``iqcorr`` tracker in the state, the block is corrected with
     the coefficients of the blocks before it (block 0 is the identity),
@@ -496,14 +549,16 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
         fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
                                 rds_enabled=rds_enabled, frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
-                        backend, pll_impl, cdr_timing, pll_span, new_iqcorr)
+                        backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
+                        pll_span_emit)
 
 
 def receiver_step_if(params: ReceiverParams, state: ReceiverState,
                      i_if: Tensor, q_if: Tensor, cfg: ModeConfig,
                      with_rds: Optional[bool] = None, frontend: str = "auto",
                      backend: str = "auto", pll_impl: str = "auto",
-                     cdr_timing: str = "peak", pll_span: int = 1
+                     cdr_timing: str = "peak", pll_span: int = 1,
+                     pll_span_emit: str = "torch"
                      ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of IF-rate complex baseband (I/Q at
     ``cfg.if_fs``, [..., if_per_block] float32), e.g. one channel of a
@@ -526,7 +581,8 @@ def receiver_step_if(params: ReceiverParams, state: ReceiverState,
                                cfg, rds_enabled=rds_enabled,
                                frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
-                        backend, pll_impl, cdr_timing, pll_span, new_iqcorr)
+                        backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
+                        pll_span_emit)
 
 
 def _check_step(state: ReceiverState, cdr_timing: str) -> None:
@@ -539,7 +595,8 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
                  fstate: FrontState, fo: FrontOut, cfg: ModeConfig,
                  rds_enabled: bool, backend: str, pll_impl: str,
                  cdr_timing: str, pll_span: int = 1,
-                 new_iqcorr: Optional[iqcorr.IQCorrState] = None
+                 new_iqcorr: Optional[iqcorr.IQCorrState] = None,
+                 pll_span_emit: str = "torch"
                  ) -> tuple[ReceiverState, StepOutputs]:
     # ---- stereo + RDS PLLs (project.cpp:118-133; fmMonoBlock.py:683) ----
     if rds_enabled:
@@ -557,7 +614,7 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
                                np.float32),
             norm_bandwidth=np.array([cfg.pll_bandwidth,
                                      cfg.rds_pll_bandwidth], np.float32),
-            impl=pll_impl, span=pll_span)
+            impl=pll_impl, span=pll_span, span_emit=pll_span_emit)
         nco = nco_i2[..., 0, :]
         nco_i = nco_i2[..., 1, :]
         nco_q = nco_q2[..., 1, :]
@@ -568,7 +625,8 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
         nco, _, pll_state = pll.pll(
             fo.pilot.contiguous(), state.audio.pll, freq=cfg.pll_freq,
             fs=cfg.if_fs, nco_scale=cfg.pll_nco_scale,
-            norm_bandwidth=cfg.pll_bandwidth, impl=pll_impl, span=pll_span)
+            norm_bandwidth=cfg.pll_bandwidth, impl=pll_impl, span=pll_span,
+            span_emit=pll_span_emit)
 
     # pilot-lock SNR estimate: E[pilot^2 * nco] = (A^2/4) cos(2 phase_err)
     # while the in-band noise is uncorrelated with the NCO
@@ -630,16 +688,19 @@ def receiver_step_pcm(params: ReceiverParams, state: ReceiverState,
 
 def run_blocks(params: ReceiverParams, state: ReceiverState,
                iq_u8_blocks: Tensor, cfg: ModeConfig, pll_span: int = 1,
+               pll_span_emit: str = "torch",
                **step_kwargs) -> tuple[ReceiverState, StepOutputs]:
     """Run the receiver over a [num_blocks, ..., block_size] stream.
     Returns the final state and every ``StepOutputs`` field stacked on a
     leading block axis (None fields stay None), as dy4tpu's
-    ``lax.scan`` does.  ``pll_span`` and ``step_kwargs`` go to
-    ``receiver_step``."""
+    ``lax.scan`` does.  ``pll_span``, ``pll_span_emit`` and
+    ``step_kwargs`` (``frontend=`` among them) go to ``receiver_step``."""
     outs = []
     for blk in iq_u8_blocks:
         state, out = receiver_step(params, state, blk, cfg,
-                                   pll_span=pll_span, **step_kwargs)
+                                   pll_span=pll_span,
+                                   pll_span_emit=pll_span_emit,
+                                   **step_kwargs)
         outs.append(out)
     return state, StepOutputs(*(
         None if fields[0] is None else torch.stack(fields)

@@ -31,12 +31,14 @@ BUILD = PKG / "_build"
 # into an FMA there (the source also spells the step with __f*_rn).
 KERNELS: dict[str, tuple[str, ...]] = {
     "frontend": (),
+    "frontend_rf": (),
     "pll": ("-fmad=false",),
     "audio_backend": (),
     "rds_backend": (),
     "audio_rational": (),
     "channelizer": (),
     "fft": (),
+    "fir": (),
 }
 
 # dynamic shared memory one thread block may take on Hopper (227 KB)
@@ -180,6 +182,16 @@ def cli_device(spec: str) -> torch.device:
                          "machine (pass --device cpu for the plain "
                          "versions on the CPU)")
     return dev
+
+
+class Variant:
+    """The launch count of one variant of a kernel wrapper (a template
+    variant, or an epilogue chosen by a keyword), read as a wrapper's own
+    ``launches`` is."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 def stream_of(t: torch.Tensor) -> int:

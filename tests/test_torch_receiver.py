@@ -187,10 +187,10 @@ def test_16_block_decode_recovers_pi():
 
 def test_unported_paths_raise():
     """Options the port does not have are refused: an unknown CDR timing,
-    a frontend other than "auto"/"plain" (dy4tpu's TPU A/B variants), an
-    IQ correction with such a frontend (dy4tpu refuses it with its
-    "fused-rf" and "fused-phase" kernels), and moments without a
-    correction."""
+    a frontend it does not have ("fused" is dy4tpu's name for what the
+    port's "auto" runs on the card), an IQ correction on the A/B
+    frontends (dy4tpu refuses it with its "fused-rf" and "fused-phase"
+    kernels too), and moments without a correction."""
     blk = torch.zeros(cfg.block_size, dtype=torch.uint8)
     params = rx.make_params(cfg, device=DEV)
     with pytest.raises(ValueError, match="cdr_timing"):

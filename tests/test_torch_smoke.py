@@ -1,7 +1,7 @@
 """Packaging and dispatch rules of the port (dy4tpu_torch) that hold on a
 machine without a GPU: it never imports JAX, a CPU tensor takes the plain
-versions without counting a launch (in every mode and through the IF
-entry), any other non-CUDA tensor is refused by the kernel wrappers, the
+versions without counting a launch (in every mode, through the IF entry
+and on the A/B front ends), any other non-CUDA tensor is refused by the kernel wrappers, the
 kernels are built for sm_90a (the PLL without FMA contraction), and
 chip_smoke.py fails instead of falling back.
 """
@@ -21,7 +21,8 @@ DEV = "cpu"   # the port's entry points default to the card
 
 from dy4tpu.config import get_mode  # noqa: E402
 from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda,  # noqa: E402
-                              frontend_cuda, pll, pll_cuda, resample_cuda)
+                              fir, fir_cuda, frontend_cuda, pll, pll_cuda,
+                              resample_cuda)
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
 from dy4tpu_torch.runtime import kernels  # noqa: E402
 
@@ -34,7 +35,10 @@ WRAPPERS = (frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
             channelizer_cuda.channelize_branches,
             pll_cuda.phase_scan_target,
             frontend_cuda.fused_frontend_full.corr,
-            pll_cuda.phase_scan_coded)
+            pll_cuda.phase_scan_coded,
+            frontend_cuda.fused_frontend_raw, frontend_cuda.fused_frontend,
+            frontend_cuda.fused_frontend_raw_pm, fir_cuda.block_fir_decim,
+            pll_cuda.phase_scan_target.expand)
 
 
 def _env():
@@ -50,7 +54,8 @@ def test_port_never_imports_jax():
             "from dy4tpu_torch.pipeline import convert, receiver, wideband\n"
             "from dy4tpu_torch.parallel import mesh, multihost, sharded\n"
             "from dy4tpu_torch.ops import (afc, backend_cuda, channelizer,"
-            " channelizer_cuda, demod, fir, firdes, frontend_cuda, iqcorr,"
+            " channelizer_cuda, demod, fir, fir_cuda, firdes, frontend_cuda,"
+            " iqcorr,"
             " mix, pll, pll_cuda, resample_cuda, trig)\n"
             "from dy4tpu_torch.runtime import kernels\n"
             "from dy4tpu_torch.tools import wideband as tool\n"
@@ -65,7 +70,8 @@ def test_port_never_imports_jax():
 
 def test_cpu_receiver_step_launches_no_kernel():
     """Also with the IQ tracker and the span PLL (B1's corr variant and
-    B9 on the card)."""
+    B9 on the card), and on the A/B front ends with B9-expand (B11 or B12
+    and B9-expand on the card)."""
     counts = [w.launches for w in WRAPPERS]
     rng = np.random.default_rng(0)
     blk = torch.from_numpy(rng.integers(0, 256, (2, cfg.block_size),
@@ -74,6 +80,10 @@ def test_cpu_receiver_step_launches_no_kernel():
     rx.receiver_step(params, rx.init_state(cfg, (2,), device=DEV), blk, cfg)
     rx.receiver_step(params, rx.init_state(cfg, (2,), with_iqcorr=True,
                                            device=DEV), blk, cfg, pll_span=8)
+    for frontend in ("fused-rf", "fused-phase"):
+        rx.receiver_step(params, rx.init_state(cfg, (2,), device=DEV), blk,
+                         cfg, frontend=frontend, pll_span=8,
+                         pll_span_emit="kernel")
     assert [w.launches for w in WRAPPERS] == counts
 
 
@@ -132,6 +142,20 @@ def test_wrappers_refuse_non_cuda_devices(which):
         lambda: pll_cuda.phase_scan_coded(
             m(c, 2, n, dt=torch.int8), m(2), m(2), m(2),
             (m(c, 2), m(c, 2), m(c, 2)), split_at=n),
+        lambda: frontend_cuda.fused_frontend_raw(
+            m(c, cfg.block_size, dt=torch.uint8), m(101), m(c, 2, 100),
+            m(c), m(c), cfg.rf_decim),
+        lambda: frontend_cuda.fused_frontend(
+            m(c, cfg.block_size, dt=torch.uint8), m(101), m(c, 2, 100),
+            m(c), m(c), cfg.rf_decim),
+        lambda: frontend_cuda.fused_frontend_raw_pm(
+            m(c, cfg.block_size, dt=torch.uint8), m(101), m(c, 2, 100),
+            m(c), m(c), cfg.rf_decim),
+        lambda: fir_cuda.block_fir_decim(m(c, 2, 10 * n), m(101),
+                                         m(c, 2, 100), 10),
+        lambda: pll_cuda.phase_scan_target(
+            m(c, 2, n // 8), m(2), m(2), m(2), (m(c, 2), m(c, 2), m(c, 2)),
+            span=8, expand=(m(2), m(2), m(2))),
     ]
     before = WRAPPERS[which].launches
     with pytest.raises(ValueError, match="CUDA"):
@@ -157,6 +181,9 @@ def test_kernel_path_without_rds_reaches_the_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         pll.pll(torch.zeros(2, 64), pll.init_state((2,), device="cpu"),
                 freq=19e3, fs=cfg.if_fs, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        fir.block_fir_decim(torch.zeros(2, 640), torch.zeros(101),
+                            torch.zeros(2, 100), 10, impl="kernel")
 
 
 @pytest.mark.parametrize("name", sorted(kernels.KERNELS))

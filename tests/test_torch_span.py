@@ -10,6 +10,13 @@ between torch and XLA; measured about 1e-5); receiver outputs and state
 within 1e-4, decisions exact.  Inside the port the span PLL is exactly
 reproducible: two chained blocks equal one block of twice the length, bit
 for bit (chip_smoke.py holds B9 bitwise to this plain scan on the card).
+
+B9-expand (``span_emit="kernel"``, dy4tpu's ``DY4TPU_SPAN_EMIT=kernel``):
+its plain version equals the default expansion bit for bit, and the
+expansion equals dy4tpu's ``_span_expand`` bit for bit on the same scan
+output; against dy4tpu's Pallas kernel with ``expand`` (interpret) the
+phases are held within a few float32 ulps (the scans differ by XLA's
+contractions, ``test_span_expand_plain_matches_pallas``).
 """
 
 import numpy as np
@@ -23,9 +30,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from dy4tpu.config import get_mode  # noqa: E402
 from dy4tpu.ops import pll as jpll  # noqa: E402
+from dy4tpu.ops import pll_pallas  # noqa: E402
 from dy4tpu.pipeline import receiver as jrx  # noqa: E402
 from dy4tpu.rds import coding  # noqa: E402
 from dy4tpu.tx import fm as jfm  # noqa: E402
+from dy4tpu_torch import app  # noqa: E402
 from dy4tpu_torch.ops import pll, pll_cuda  # noqa: E402
 from dy4tpu_torch.pipeline import convert  # noqa: E402
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
@@ -231,3 +240,147 @@ def test_span_receiver_state_matches_dy4tpu(span_runs):
                                            err_msg=f"{k}[{b}]")
             else:
                 np.testing.assert_array_equal(ours[k], r, err_msg=k)
+
+
+def _span_case(kw, seed):
+    """Noisy tones (a dead span and a zero sample included), a random
+    carry, and both packages' constants for ``kw``."""
+    rng = np.random.default_rng(seed)
+    x = _tones(rng, 3, N)
+    if kw is PILOT:
+        x = x[:, 0]
+    st = _state(rng, x.shape[:-1])
+    return x, st
+
+
+@pytest.mark.parametrize("kw", [LANES, PILOT], ids=["lanes", "pilot"])
+def test_span_expand_plain_matches_pallas(kw):
+    """B9-expand's plain version (``phase_scan_target_plain(expand=...)``)
+    against dy4tpu's ``pll_pallas.phase_scan(mode="target", expand=8)``
+    in interpret mode, on dy4tpu's span targets of the same input.
+
+    The expansion itself is dy4tpu's op for op: on dy4tpu's own scan
+    output (phi0, i0) the port's ``_span_expand`` equals dy4tpu's bit for
+    bit.  The two scans differ by float32 ulps (XLA may contract the
+    step's multiply-adds, as test_torch_pll.py says of the exact loop),
+    and dy4tpu's kernel-emitted phases differ from its own expansion by
+    an ulp (test_pll_span.py); so the phases, up to about 40 rad, are held
+    within 2e-5 (5 ulps there; measured 7.6e-6) and the carries within
+    1e-6 (measured 4.8e-7)."""
+    x, st = _span_case(kw, 21)
+    dt = np.dtype(np.float32)
+    kp, ki, dth = jpll._loop_consts(kw["freq"], kw["fs"],
+                                    kw["norm_bandwidth"], dt)
+    targets = jnp.asarray(jpll._span_targets(jnp.asarray(x), dth, SPAN, dt))
+    carry = tuple(jnp.asarray(st[k])
+                  for k in ("integrator", "phase_est", "angle"))
+    mk = lambda a, b, c: jpll._make_span_step(a, b, c, SPAN, dt)  # noqa: E731
+    ref_phis, ref_carry = pll_pallas.phase_scan(
+        targets, kp, ki, dth, carry, mk, mode="target", expand=SPAN,
+        interpret=True)
+    phi0, i0, _ = pll_pallas.phase_scan(
+        targets, kp, ki, dth, carry, mk, mode="target", emit_integ=True,
+        interpret=True)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    consts = pll._loop_consts(kw["freq"], kw["fs"], kw["norm_bandwidth"])
+    np.testing.assert_array_equal(
+        pll._span_expand(t(phi0), t(i0), t(targets),
+                         *(t(v) for v in consts), SPAN).numpy(),
+        np.asarray(jpll._span_expand(phi0, i0, targets, kp, ki, dth, SPAN,
+                                     dt)))
+    _, *eff = pll._span_consts(*consts, SPAN)
+    phis, ours_carry = pll_cuda.phase_scan_target_plain(
+        t(targets), *(t(v) for v in eff), tuple(t(a) for a in carry),
+        span=SPAN, expand=tuple(t(v) for v in consts))
+    assert phis.shape == x.shape
+    np.testing.assert_allclose(phis.numpy(), np.asarray(ref_phis), atol=2e-5)
+    for a, b in zip(ours_carry, ref_carry):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_span_emit_kernel_matches_dy4tpu(monkeypatch):
+    """``pll(span=8, span_emit="kernel")`` against dy4tpu's ``pll(span=8,
+    impl="pallas")`` under ``DY4TPU_SPAN_EMIT=kernel`` on
+    test_pll_span.py's case (three 19 kHz pilots at 240 kHz): the NCO and
+    the carries within 2e-4, ``test_span_pll_matches_dy4tpu``'s bar (the
+    two packages' span targets differ by float32 ulps of cos, sin and
+    atan2, and their scans by XLA's contractions)."""
+    monkeypatch.setenv("DY4TPU_SPAN_EMIT", "kernel")
+    fs, n = 240e3, 4096
+    t = np.arange(n) / fs
+    x = np.stack([np.cos(2 * np.pi * 19e3 * t + p) for p in
+                  (0.0, 0.5, 1.0)]).astype(np.float32)
+    x += 0.05 * np.random.default_rng(3).normal(size=x.shape).astype(
+        np.float32)
+    kw = dict(freq=19e3, fs=fs, nco_scale=2.0)
+    ji, jq, js = jpll.pll(jnp.asarray(x), jpll.init_state(batch=(3,)),
+                          span=SPAN, impl="pallas", **kw)
+    ni, nq, ns = pll.pll(torch.from_numpy(x), pll.init_state((3,),
+                                                             device="cpu"),
+                         span=SPAN, span_emit="kernel", **kw)
+    np.testing.assert_allclose(ni.numpy(), np.asarray(ji), atol=2e-4)
+    np.testing.assert_allclose(nq.numpy(), np.asarray(jq), atol=2e-4)
+    for f in jpll.PLLState._fields:
+        np.testing.assert_allclose(getattr(ns, f).numpy(),
+                                   np.asarray(getattr(js, f)), atol=2e-4,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("kw", [LANES, PILOT], ids=["lanes", "pilot"])
+def test_span_emit_kernel_equals_torch_emit(kw):
+    """On the CPU ``span_emit="kernel"`` runs B9-expand's plain version,
+    bit for bit the default expansion, and counts no launch."""
+    x, st = _span_case(kw, 22)
+    state = pll.PLLState(**{k: torch.from_numpy(v) for k, v in st.items()})
+    before = pll_cuda.phase_scan_target.expand.launches
+    a = pll.pll(torch.from_numpy(x), state, span=SPAN, **kw)
+    b = pll.pll(torch.from_numpy(x), state, span=SPAN, span_emit="kernel",
+                **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for u, v in zip(a[2], b[2]):
+        assert torch.equal(u, v)
+    assert pll_cuda.phase_scan_target.expand.launches == before
+
+
+def test_span_emit_refusals_and_cli(monkeypatch):
+    """An unknown ``span_emit`` raises; ``span_emit="kernel"`` with
+    ``impl="kernel"`` refuses a CPU tensor; the CLI resolves
+    ``DY4TPU_SPAN_EMIT`` (dy4tpu's "xla" is the default, "torch")."""
+    x = torch.zeros(2, 96)
+    st = pll.init_state((2,), device="cpu")
+    with pytest.raises(ValueError, match="span_emit"):
+        pll.pll(x, st, freq=19e3, fs=240e3, span=SPAN, span_emit="xla")
+    with pytest.raises(ValueError, match="CUDA"):
+        pll.pll(x, st, freq=19e3, fs=240e3, span=SPAN, span_emit="kernel",
+                impl="kernel")
+    monkeypatch.setenv("DY4TPU_PLL_SPAN", "8")
+    for raw, want in (("kernel", "kernel"), ("xla", "torch"),
+                      ("torch", "torch")):
+        monkeypatch.setenv("DY4TPU_SPAN_EMIT", raw)
+        assert app._env_settings(None) == (8, want, "peak")
+    monkeypatch.setenv("DY4TPU_SPAN_EMIT", "bogus")
+    with pytest.raises(SystemExit, match="DY4TPU_SPAN_EMIT"):
+        app._env_settings(None)
+
+
+def test_span_emit_kernel_receiver_equals_torch_emit():
+    """``receiver_step(pll_span=8, pll_span_emit="kernel")`` on the CPU
+    equals the default expansion bit for bit (both PLL calls, with and
+    without RDS)."""
+    iq = torch.from_numpy(jfm.synthesize(
+        cfg, 1, left=jfm.tone(800.0, cfg.audio_fs, cfg.audio_per_block),
+        right=jfm.tone(2400.0, cfg.audio_fs, cfg.audio_per_block),
+        noise=0.02, seed=8).reshape(1, cfg.block_size))
+    for with_rds in (True, False):
+        params = rx.make_params(cfg, with_rds=with_rds, device=DEV)
+        runs = [rx.receiver_step(params, rx.init_state(
+                    cfg, (1,), with_rds=with_rds, device=DEV), iq, cfg,
+                    with_rds=with_rds, pll_span=SPAN, pll_span_emit=emit)
+                for emit in ("torch", "kernel")]
+        (st_a, out_a), (st_b, out_b) = runs
+        for a, b in zip(convert.leaves_by_path(st_a).values(),
+                        convert.leaves_by_path(st_b).values()):
+            np.testing.assert_array_equal(a, b)
+        for f in rx.StepOutputs._fields:
+            a, b = getattr(out_a, f), getattr(out_b, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
