@@ -24,12 +24,17 @@ front-end routes and the kernels no receiver route runs:
    targets of the broadcast with a dead span in every row) and B1 with
    the IQ tracker's corr epilogue (per-row coefficients from a seed; the
    moments within a relative 1e-5), mid-stream and on block 0 from a cold
-   state (there elementwise within 1e-5 plus the demod's conditioning);
+   state (there elementwise within 1e-5 plus the demod's conditioning).
+   At mode 0 B2 is also held bitwise at a ragged [37, 1531] (37 pilot
+   rows, N no multiple of 4 or of its 128-step tile) and at the CLI's
+   [1, 2, 7680];
 3. per mode, runs ``run_blocks`` over 24 blocks x 512 channels, checks
    that every kernel of the mode's path ran on every block (and no other
    kernel ran), decodes channel 0 (stereo separation, and RDS PI/PS in
    modes 0 and 2), compares four channels with an all-plain run over the
-   first blocks, and times the chain.  At modes 0 and 1 it also runs the
+   first blocks, and times the chain (and splits one more warm run's
+   device time by kernel under ``torch.profiler``, here and for the IF
+   entry and the wideband path).  At modes 0 and 1 it also runs the
    IF entry (``receiver_step_if``) over the same 24 blocks as IF I/Q, with
    the same checks, and holds it against the RF entry's kernel run; and
    it runs the chain with ``pll_span=8`` (B9 on every block, B2 on none)
@@ -41,8 +46,9 @@ front-end routes and the kernels no receiver route runs:
    against span 1 (medians of 5);
 4. the wideband front door at mode 0: phase 2 holds the channelizer kernel
    (B7) against its plain version at six bank geometries on 32 distinct
-   band rows, and ``channelize_block_u8``'s kernel route (folded IQ
-   correction) against its plain route (post-bank correction); phase 3
+   band rows, ``channelize_block_u8``'s kernel route (folded IQ
+   correction) against its plain route (post-bank correction), and B2
+   bitwise on the wideband step's own PLL input [512, 2, 7680]; phase 3
    runs ``run_wideband_blocks`` over 32 bands x 16 channels x 32 steps of
    ``bench.py``'s wideband capture (band b starts 74*b bytes in), checks
    that B7, B6, B2, B3 and B4 launched on every step and nothing else did,
@@ -98,13 +104,14 @@ front-end routes and the kernels no receiver route runs:
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
-version's, its launches on the main path, and its bound: the larger of
-the bytes it must move over 3.35 TB/s and its float32 operations over 67
-TFLOP/s; phase 2 also prints an estimate of the serial PLL scans'
-dependency-chain floor), then, as its last line, ``{"ok": true, "device":
-{...}}``.  Any failure raises
-(nonzero exit); without a CUDA device it exits nonzero and prints no
-result.
+version's, the kernel alone (``kernel_device_ms``: its CUDA kernel's
+mean device time a launch under ``torch.profiler`` over 20 more calls,
+without the wrapper's host work), its launches on the main path, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s; phase 2 also prints an estimate of
+the serial PLL scans' dependency-chain floor), then, as its last line,
+``{"ok": true, "device": {...}}``.  Any failure raises (nonzero exit);
+without a CUDA device it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -148,7 +155,7 @@ SH_PREFIX_EVERY = 4                  # B8 check: every 4th row from row 1
 # the kernel divides; the PSD path on mode 0's block PSD_BLOCK (after the
 # PLLs' lock-in) of C channels; psdview over PSD_VIEW_BLOCKS blocks; the
 # capture tools over TOOL_BLOCKS (synth, the CLI) and RC_BLOCKS (ratechange)
-FFT_NS = (4, 8, 16, 64, 128, 256, 512, 1024, 2048)
+FFT_NS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 FFT_ROWS = 1531                      # a prime
 FFT_TOL = 1e-5       # max |kernel - plain| / max |plain| (test_fft_psd.py)
 PSD_NFFT, PSD_BLOCK, PSD_VIEW_BLOCKS = 512, 4, 8
@@ -184,6 +191,8 @@ FP32_LATENCY = 4                     # cycles from one dependent float op
 # compares and selects are not counted, so the chain floor they give is
 # an estimate from below.
 B2_STEP_OPS, B9_STEP_OPS, PLL_CHAIN_OPS = 17, 18, 13
+B2_RAGGED = (37, 1531)  # B2 at mode 0: 32 + 5 rows, N = 11 x 128 + 123, odd
+PROFILE_REPS = 20       # calls under torch.profiler for the kernel alone
 U32 = 2.0 ** -24        # float32 unit roundoff
 MOM_TOL = 1e-5         # tracker moments, relative to E[|i|^p |q|^r]
 # the tracker's readout against the fault (test_iqcorr.py's bars) and the
@@ -269,6 +278,63 @@ def _max_sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
+@functools.lru_cache(maxsize=1)
+def _device_kernels() -> dict:
+    """Each kernel wrapper's ``__global__`` function, as its name stands
+    in ``torch.profiler``'s device events (a part of the demangled name
+    no other kernel's holds)."""
+    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda, fft_cuda,
+                                  fir_cuda, frontend_cuda, pll_cuda,
+                                  resample_cuda)
+    return {
+        frontend_cuda.fused_frontend_full: "frontend_full_kernel",
+        frontend_cuda.fused_frontend_full.corr: "frontend_full_kernel",
+        frontend_cuda.fused_frontend_if: "frontend_if_kernel",
+        pll_cuda.phase_scan: "pll_phase_scan_kernel",
+        pll_cuda.phase_scan_target: "pll_span_scan_kernel",
+        pll_cuda.phase_scan_target.expand: "pll_span_expand_kernel",
+        pll_cuda.phase_scan_coded: "pll_phase_scan_coded_kernel",
+        backend_cuda.fused_audio_backend: "audio_backend_kernel",
+        resample_cuda.fused_audio_backend_rational: "audio_rational_kernel",
+        resample_cuda.fused_rds_backend: "rds_backend_kernel",
+        channelizer_cuda.channelize_branches: "channelizer_kernel",
+        fft_cuda.fft: "fft_stockham_kernel",
+        frontend_cuda.fused_frontend_raw: "rf_demod_kernel",
+        frontend_cuda.fused_frontend: "rf_demod_kernel",
+        frontend_cuda.fused_frontend_raw_pm: "rf_demod_kernel",
+        fir_cuda.block_fir_decim: "fir_decim_kernel",
+    }
+
+
+def _kernel_device_ms(fn, wrapper, reps: int = PROFILE_REPS):
+    """The kernel alone: mean device milliseconds of one launch of
+    ``wrapper``'s CUDA kernel over ``reps`` calls of ``fn`` (one launch
+    each) under ``torch.profiler``, the wrapper's host work and the torch
+    ops around the launch left out.  The mean is over the launches the
+    profiler recorded (it can miss a few of the first).  None where the
+    profiler shows no device time; raises where it shows device time but
+    none of this kernel's, or more launches than calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    name = _device_kernels()[wrapper]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = lambda e: getattr(e, "device_time_total", 0.0)  # noqa: E731
+    if not any(device_us(e) > 0 for e in events):
+        return None
+    mine = [e for e in events if name in e.key]
+    count = sum(e.count for e in mine)
+    if not 0 < count <= reps:
+        raise AssertionError(f"{name}: {count} device events in {reps} "
+                             f"calls under the profiler")
+    return sum(device_us(e) for e in mine) / count / 1e3
+
+
 @dataclasses.dataclass
 class _Row:
     """One kernel checked at one geometry: what the JSON line reports.
@@ -310,6 +376,7 @@ class _Row:
                     else _time_ms(self.plain, 5))
         library_ms = (None if self.library is None
                       else _time_ms(self.library, 20))
+        kernel_ms = _kernel_device_ms(self.kern, self.wrapper)
         by_bytes = self.nbytes / HBM_BYTES_S * 1e3
         by_ops = self.flops / FP32_FLOP_S * 1e3
         bound_ms = max(by_bytes, by_ops)
@@ -324,7 +391,9 @@ class _Row:
                     f"{_max_sm_clock_hz() / 1e6:.0f} MHz)")
         _say(f"{self.phase}: {self.kernel} {self.geometry}: max |kernel - "
              f"plain| {self.err:.3g} (tolerance {self.tol:g}); kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms"
+             f"{ms:.4f} ms (alone "
+             + ("not measured" if kernel_ms is None else f"{kernel_ms:.4f}")
+             + f" ms), plain {plain_ms:.4f} ms"
              + ("" if library_ms is None else f", library {library_ms:.4f} "
                 "ms") + f"; bound {bound_ms:.4f} ms by {bound_by} "
              f"({self.nbytes / 1e6:.1f} MB, {self.flops / 1e9:.2f} GFLOP)"
@@ -332,7 +401,9 @@ class _Row:
         return dict(name=f"{self.kernel.split()[1]}:{self.geometry}",
                     route="cuda", source=self.source,
                     replaces=self.replaces, max_abs_err=self.err,
-                    tolerance=self.tol, ms=ms, plain_ms=plain_ms,
+                    tolerance=self.tol, ms=ms,
+                    kernel_device_ms=("not measured" if kernel_ms is None
+                                      else kernel_ms), plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms, mode=mode, wrapper=self.wrapper,
                     **self.extra)
@@ -558,6 +629,39 @@ def _span_case(x, consts, dth, dev):
     return tuple(torch.as_tensor(v, device=dev) for v in eff), targets
 
 
+def _b2_row(label, x, kp, ki, dth, carry, where=f"C={C}",
+            phase="phase 2") -> "_Row":
+    """B2 against its plain scan on ``x`` [..., N] from ``carry``, bitwise
+    (phases and the end carry); raises otherwise.  Returns the row, the
+    plain scan timed by its comparison call (a Python loop of launches,
+    seconds per call)."""
+    import torch
+    from dy4tpu_torch.ops import pll_cuda
+
+    _distinct_rows("B2", x, *carry)
+    k_phi, k_c = pll_cuda.phase_scan(x, kp, ki, dth, carry)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_phi, p_c = pll_cuda.phase_scan_plain(x, kp, ki, dth, carry)
+    stop.record()
+    torch.cuda.synchronize()
+    if not (torch.equal(k_phi, p_phi)
+            and all(torch.equal(a, b) for a, b in zip(k_c, p_c))):
+        raise AssertionError(f"B2 {label} {list(x.shape)} PLL is not bitwise "
+                             f"equal to its plain version: max |dphi| "
+                             f"{_max_err([k_phi], [p_phi])}")
+    return _Row(
+        "B2 pll", f"{label} {list(x.shape)}", "dy4tpu_torch/csrc/pll.cu",
+        "dy4tpu/ops/pll_pallas.py:278", pll_cuda.phase_scan,
+        _max_err((k_phi, *k_c), (p_phi, *p_c)), 0.0,
+        lambda: pll_cuda.phase_scan(x, kp, ki, dth, carry),
+        plain_ms=start.elapsed_time(stop), where=where,
+        nbytes=_nbytes(x, kp, ki, dth, carry, k_phi, k_c),
+        flops=B2_STEP_OPS * x.numel(), chain_steps=x.shape[-1], phase=phase)
+
+
 def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     """Phase 2 at one mode: every kernel of the mode's path against its
     plain version on block 1, mid-stream, at C=512.  Returns the JSON
@@ -661,32 +765,18 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
 
     x, lanes, state, consts, (kp, ki, dth), carry = _pll_case(
         cfg, st, pilot, carrier, dev)
-    _distinct_rows("B2", x, *carry)
-    k_phi, k_c = pll_cuda.phase_scan(x, kp, ki, dth, carry)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    p_phi, p_c = pll_cuda.phase_scan_plain(x, kp, ki, dth, carry)
-    stop.record()
-    torch.cuda.synchronize()
-    plain_pll_ms = start.elapsed_time(stop)
-    if not (torch.equal(k_phi, p_phi)
-            and all(torch.equal(a, b) for a, b in zip(k_c, p_c))):
-        raise AssertionError(f"B2 {mode} PLL is not bitwise equal to its "
-                             f"plain version: max |dphi| "
-                             f"{_max_err([k_phi], [p_phi])}")
-    # the plain scan is a Python loop of launches (seconds per call): its
-    # time is the comparison call above
-    rows.append(_Row(
-        "B2 pll", f"{mode} {list(x.shape)}", "dy4tpu_torch/csrc/pll.cu",
-        "dy4tpu/ops/pll_pallas.py:278", pll_cuda.phase_scan,
-        _max_err((k_phi, *k_c), (p_phi, *p_c)), 0.0,
-        lambda: pll_cuda.phase_scan(x, kp, ki, dth, carry),
-        plain_ms=plain_pll_ms,
-        nbytes=_nbytes(x, kp, ki, dth, carry, k_phi, k_c),
-        flops=B2_STEP_OPS * x.numel(), chain_steps=x.shape[-1]))
-    del k_phi, p_phi
+    rows.append(_b2_row(mode, x, kp, ki, dth, carry))
+    if cfg.mode == 0:
+        # B2 at a ragged geometry (rows not a multiple of the block's 32,
+        # N not a multiple of 4 or of the 128-step tile) and at the CLI's
+        # one channel
+        rg, rn = B2_RAGGED
+        rows.append(_b2_row(
+            "ragged", x[:rg, 0, :rn].contiguous(), kp[0], ki[0], dth[0],
+            tuple(c[:rg, 0].contiguous() for c in carry), where="pilot rows"))
+        rows.append(_b2_row("CLI", x[:1].contiguous(), kp, ki, dth,
+                            tuple(c[:1].contiguous() for c in carry),
+                            where="C=1"))
 
     if cfg.mode in OPT_MODES:
         # B9: the span PLL's scan over the broadcast's span targets, with
@@ -697,6 +787,8 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
         k_res = pll_cuda.phase_scan_target(targets, kp_s, ki_s, dth_s, carry,
                                            span=SPAN)
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
         start.record()
         p_res = pll_cuda.phase_scan_target_plain(targets, kp_s, ki_s, dth_s,
                                                  carry, span=SPAN)
@@ -925,8 +1017,39 @@ def _select(outs, sel):
     return rx.StepOutputs(*(None if f is None else f[:, sel] for f in outs))
 
 
+def _device_split(label, run, n_blocks, unit="block") -> None:
+    """One more warm ``run()`` under ``torch.profiler``: print the device
+    time a block (``unit``), the sum of the device events' durations, and
+    each hand-written kernel's part of it, the torch ops' the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = lambda e: getattr(e, "device_time_total", 0.0)  # noqa: E731
+    busy = sum(device_us(e) for e in events) / 1e3 / n_blocks
+    if not busy > 0:
+        _say(f"phase 3: {label}: the profiler shows no device time "
+             f"(device split not measured)")
+        return
+    parts = {}
+    for name in sorted(set(_device_kernels().values())):
+        ms = sum(device_us(e) for e in events if name in e.key) / 1e3
+        if ms > 0:
+            parts[name] = ms / n_blocks
+    rest = busy - sum(parts.values())
+    _say(f"phase 3: {label}: device busy {busy:.4f} ms a {unit} under "
+         f"torch.profiler (one warm run of {n_blocks}): "
+         + ", ".join(f"{k} {v:.4f} ({v / busy:.1%})"
+                     for k, v in parts.items())
+         + f", torch ops {rest:.4f} ({rest / busy:.1%})")
+
+
 def _chain_rate(label, cfg, run, t0, smi) -> None:
-    """Time a second, warm ``run()`` and print the chain rate."""
+    """Time a second, warm ``run()`` and print the chain rate, then split
+    a third run's device time by kernel."""
     import torch
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -940,6 +1063,7 @@ def _chain_rate(label, cfg, run, t0, smi) -> None:
          f"channels in {wall:.3f} s, kernels, after warm-up); peak device "
          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
          f"{time.perf_counter() - t0:.1f} s on {smi}")
+    _device_split(label, run, N_BLOCKS)
 
 
 def _median_rate(cfg, run) -> float:
@@ -1288,12 +1412,40 @@ def _wideband_capture(cfg, dev):
     return blocks
 
 
+def _check_b2_wideband(cfg, params, chan, blocks, dev) -> "_Row":
+    """B2 at the wideband step's geometry, on its own PLL input: the
+    pilot and RDS carrier of every channel of every band at step 2 (two
+    ``wideband_step`` calls bring the state mid-stream), through the
+    channelizer and the IF entry's front half, as ``receiver_step_if``
+    gives them to B2.  Bitwise against the plain scan."""
+    from dy4tpu_torch.ops import channelizer as chz
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.pipeline import wideband as wb
+
+    if WB_BANDS * WB_C != C:
+        raise AssertionError("_pll_case draws one NCO angle a channel of C")
+    st = wb.wideband_init(cfg, chan, (WB_BANDS,))
+    for b in range(2):
+        st, _ = wb.wideband_step(params, chan, st, blocks[b], cfg)
+    (y_i, y_q), _ = chz.channelize_block_u8(chan, st.chan, blocks[2])
+    flat = lambda a: a.reshape(-1, *a.shape[2:])  # noqa: E731
+    rx_st = wb._map(flat, st.rx)
+    _, fo = rx.front_step_if(params, rx.front_state_of(rx_st),
+                             flat(y_i).contiguous(), flat(y_q).contiguous(),
+                             cfg)
+    x, _, _, _, (kp, ki, dth), carry = _pll_case(
+        cfg, rx_st, fo.pilot.contiguous(), fo.carrier.contiguous(), dev)
+    return _b2_row("wideband", x, kp, ki, dth, carry,
+                   where=f"{WB_BANDS} bands x {WB_C} channels")
+
+
 def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
     """The wideband front door: phases 2, 3 and 3b.  Returns B7's JSON
-    entries, each with the launches of the phase-3 run."""
+    entries and B2's at the wideband geometry, each with the launches of
+    the phase-3 run."""
     import torch
     from dy4tpu_torch.config import get_mode
-    from dy4tpu_torch.ops import afc, channelizer_cuda
+    from dy4tpu_torch.ops import afc
     from dy4tpu_torch.pipeline import receiver as rx
     from dy4tpu_torch.pipeline import wideband as wb
     from dy4tpu_torch.tx import fm
@@ -1314,6 +1466,8 @@ def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
          f"{time.perf_counter() - t0:.1f} s")
     params = rx.make_params(cfg, device=dev)
     chan = wb.make_wideband(cfg, WB_C, taps_per_branch=WB_T, device=dev)
+    results.append(_check_b2_wideband(cfg, params, chan, blocks, dev).finish(
+        smi, cfg.mode))
 
     def run():
         st = wb.wideband_init(cfg, chan, (WB_BANDS,))
@@ -1324,7 +1478,7 @@ def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
     (_, outs), counts = _run_path(label, cfg, run, all_wrappers,
                                   entry="wideband", n_blocks=WB_STEPS)
     for r in results:
-        r["launches"] = counts[channelizer_cuda.channelize_branches]
+        r["launches"] = counts[r["wrapper"]]
     want = {"mono": cfg.audio_per_block, "left": cfg.audio_per_block,
             "right": cfg.audio_per_block,
             "rds_symbols": cfg.rds_symbols_per_block}
@@ -1383,6 +1537,7 @@ def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
          f"{wall:.3f} s, kernels, after warm-up); peak device memory "
          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
          f"{time.perf_counter() - t0:.1f} s on {smi}")
+    _device_split(label, run, WB_STEPS, unit="step")
 
     # ---- 3b. AFC and the IQ tracker, kernel path vs all-plain ----
     t0 = time.perf_counter()

@@ -39,16 +39,41 @@
 // codes its phases and carries equal B2's on the samples the codes came
 // from, bit for bit; the exact sharded receiver rests on that.
 //
-// What bounds it on the card: latency.  The recurrence is serial in time
+// What bounds them on the card: latency.  The recurrence is serial in time
 // (13 dependent float ops per step on the loop-carried chain pe -> pe, in
-// all three kernels, besides the compares and selects) and parallel only over
-// streams, and the mode-0 serving batch has C=512 channels x 2 lanes =
-// 1024 streams, a small fraction of the threads the card can hold.
-// The design keeps the carry in registers, gives each stream its own
-// thread and each warp its own block (so the 32 warps spread over 32
-// SMs), and reads and writes the batch-major [S, N] rows directly: every
-// thread walks its own row, so each 128-byte line it touches serves 32
-// consecutive steps from L1.
+// all four kernels, besides the compares and selects) and parallel only
+// over streams, and the mode-0 serving batch has C=512 channels x 2 lanes
+// = 1024 streams, a small fraction of the threads the card can hold.  Every
+// kernel keeps the carry in registers, gives each stream its own thread
+// and each 32 streams their own block (so the blocks spread over the SMs,
+// one each).
+//
+// B2's design moves the memory traffic off the chain.  A block holds 32
+// streams and two warps: warp 0 scans, warp 1 moves the data.  Time goes
+// in tiles of kTile = 128 steps.  While warp 0 scans tile k from shared
+// memory, writing each step's phase into a shared output tile, warp 1
+// copies tile k + 1 of the batch-major [S, N] input (its 32 rows x 128
+// samples) into the other of two input buffers with cp.async (16-byte
+// copies when N is a multiple of 4 and the tensors are 16-byte aligned,
+// 4-byte ones otherwise) and stores the phases of tile k - 1 from the
+// other of two output buffers with coalesced stores, lane l on the l-th 16
+// bytes of a row.  One named barrier of the two warps a tile hands the
+// buffers over.  Rows are padded to kStride = 132 floats, so warp 0's
+// 16-byte read of each lane's own row's next four samples, and its write
+// of four phases, are bank-conflict free across each quarter-warp.  The
+// inner loop takes 8 steps a turn, unrolled twice, so the shared-memory
+// reads of later steps issue ahead of the chain.  Four tiles take 67,584
+// bytes of shared memory (the launch raises the block's limit above 48
+// KB).  A tail tile takes N mod 128 steps, a block of fewer than 32 live
+// rows masks the rest (their lanes shadow the last live row's parameters
+// and scan a row nobody stores), and N = 0 only passes the carry through.
+// The scanning warp does not move the data itself: issued in a burst at
+// each tile boundary, 32 rows of copies and stores stall its chain.
+//
+// B8, B9 and B9-expand keep the first port's layout: each thread walks its
+// own row of the [S, N] input and output, so each 128-byte line it touches
+// serves 32 (B8: 128) consecutive steps from L1, and each warp-wide store
+// lands on 32 rows.
 //
 // Numerics: every operation is written with the round-to-nearest
 // intrinsics, in the order of pll.py:104-119, and the file is also built
@@ -59,10 +84,129 @@
 // same bits.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-__global__ void pll_phase_scan_kernel(
+constexpr int kWarp = 32;                 // streams per block
+constexpr int kTile = 128;                // time steps per tile
+constexpr int kStride = kTile + 4;        // padded row, floats (16-B aligned)
+constexpr int kScanSmem = 4 * kWarp * kStride * 4;  // 2 in + 2 out
+
+// One step of pll.py's sign-mode recurrence: the pre-update phase, the
+// carry (integ, pe, ang) updated in place.
+__device__ __forceinline__ float sign_step(float xt, float& integ, float& pe,
+                                           float& ang, float kps, float kis,
+                                           float dth, float pi, float two_pi,
+                                           float inv_two_pi, float wrap) {
+  const float tk = xt < 0.0f ? pi : 0.0f;
+  const float ph = __fadd_rn(ang, pe);
+  // wrap(tk - phi) to [-pi, pi): the atan2 phase detector
+  const float v = __fadd_rn(__fsub_rn(tk, ph), pi);
+  float err = __fsub_rn(
+      __fsub_rn(v, __fmul_rn(two_pi, floorf(__fmul_rn(v, inv_two_pi)))), pi);
+  if (xt == 0.0f) err = 0.0f;  // zero-input guard
+  integ = __fadd_rn(integ, __fmul_rn(kis, err));
+  float p = __fadd_rn(__fadd_rn(pe, __fmul_rn(kps, err)), integ);
+  p = __fsub_rn(p, p >= wrap ? wrap : 0.0f);
+  pe = __fadd_rn(p, p < 0.0f ? wrap : 0.0f);
+  const float a = __fadd_rn(ang, dth);
+  ang = __fsub_rn(a, a >= wrap ? wrap : 0.0f);
+  return ph;  // the pre-update phase: the NCO lags the input by one
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The warp copies samples [t0, t0 + len) of rows s0 .. s0 + rows - 1 of x
+// into tile (row r at r * kStride), asynchronously.
+template <bool kVec>
+__device__ __forceinline__ void copy_tile(float* tile,
+                                          const float* __restrict__ x,
+                                          long long s0, int rows,
+                                          long long n, long long t0, int len,
+                                          int lane) {
+  for (int r = 0; r < rows; ++r) {
+    const float* src = x + (s0 + r) * n + t0;
+    float* dst = tile + r * kStride;
+    if (kVec) {
+      for (int c = 4 * lane; c < len; c += 4 * kWarp)
+        cp_async16(dst + c, src + c);
+    } else {
+      for (int c = lane; c < len; c += kWarp) cp_async4(dst + c, src + c);
+    }
+  }
+}
+
+// The warp stores samples [0, len) of tile rows 0 .. rows - 1 to phi,
+// coalesced; eight rows (two with 4-byte stores) are read from shared
+// memory before any of them is stored.
+template <bool kVec>
+__device__ __forceinline__ void store_tile(float* __restrict__ phi,
+                                           const float* __restrict__ tile,
+                                           long long s0, int rows,
+                                           long long n, long long t0,
+                                           int len, int lane) {
+  static_assert(kTile == 4 * kWarp, "one 16-byte chunk of a row per lane");
+  if (kVec) {
+    const int c = 4 * lane;
+    for (int r0 = 0; r0 < rows; r0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (r0 + i < rows && c < len)
+          v[i] = *reinterpret_cast<const float4*>(tile + (r0 + i) * kStride +
+                                                  c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (r0 + i < rows && c < len)
+          *reinterpret_cast<float4*>(phi + (s0 + r0 + i) * n + t0 + c) = v[i];
+    }
+  } else {
+    for (int r0 = 0; r0 < rows; r0 += 2) {
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r0 + i / 4, c = lane + kWarp * (i % 4);
+        if (r < rows && c < len) v[i] = tile[r * kStride + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r0 + i / 4, c = lane + kWarp * (i % 4);
+        if (r < rows && c < len) phi[(s0 + r) * n + t0 + c] = v[i];
+      }
+    }
+  }
+}
+
+// The two warps of a B2 block meet here once a tile (barrier 1; 0 is
+// __syncthreads()).
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWarp) : "memory");
+}
+
+// B2.  32 streams a block; warp 0 scans, warp 1 copies and stores.  kVec:
+// N % 4 == 0 and x, phi 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(2 * kWarp) pll_phase_scan_kernel(
     const float* __restrict__ x, const float* __restrict__ kp,
     const float* __restrict__ ki, const float* __restrict__ dtheta,
     const float* __restrict__ integ0, const float* __restrict__ pe0,
@@ -70,38 +214,96 @@ __global__ void pll_phase_scan_kernel(
     float* __restrict__ integ1, float* __restrict__ pe1,
     float* __restrict__ ang1, long long n_streams, long long n, float pi,
     float two_pi, float inv_two_pi, float wrap) {
-  const long long s =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (s >= n_streams) return;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kTileFloats = kWarp * kStride;
+  float* in_tiles = smem;                        // [2][kWarp][kStride]
+  float* out_tiles = smem + 2 * kTileFloats;     // [2][kWarp][kStride]
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const long long s0 = static_cast<long long>(blockIdx.x) * kWarp;
+  const long long left = n_streams - s0;
+  const int rows = left < kWarp ? static_cast<int>(left) : kWarp;
+  const long long tiles = (n + kTile - 1) / kTile;
+  auto tile_len = [n](long long k) {
+    const long long rest = n - k * kTile;
+    return rest < kTile ? static_cast<int>(rest) : kTile;
+  };
+
+  if (warp == 1) {
+    // between barriers k - 1 and k: tile k + 1 in, tile k - 1's phases out
+    if (tiles > 0) {
+      copy_tile<kVec>(in_tiles, x, s0, rows, n, 0, tile_len(0), lane);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    pair_sync();
+    for (long long k = 0; k < tiles; ++k) {
+      if (k + 1 < tiles) {
+        copy_tile<kVec>(in_tiles + ((k + 1) & 1) * kTileFloats, x, s0, rows,
+                        n, (k + 1) * kTile, tile_len(k + 1), lane);
+        cp_async_commit();
+      }
+      if (k > 0)
+        store_tile<kVec>(phi, out_tiles + ((k - 1) & 1) * kTileFloats, s0,
+                         rows, n, (k - 1) * kTile, tile_len(k - 1), lane);
+      cp_async_wait<0>();
+      pair_sync();
+    }
+    if (tiles > 0)
+      store_tile<kVec>(phi, out_tiles + ((tiles - 1) & 1) * kTileFloats, s0,
+                       rows, n, (tiles - 1) * kTile, tile_len(tiles - 1),
+                       lane);
+    return;
+  }
+
+  const int r = lane < rows ? lane : rows - 1;   // masked lanes shadow
+  const long long s = s0 + r;
   const float kps = kp[s];
   const float kis = ki[s];
   const float dth = dtheta[s];
   float integ = integ0[s];
   float pe = pe0[s];
   float ang = ang0[s];
-  const float* xs = x + s * n;
-  float* out = phi + s * n;
-  for (long long t = 0; t < n; ++t) {
-    const float xt = xs[t];
-    const float tk = xt < 0.0f ? pi : 0.0f;
-    const float ph = __fadd_rn(ang, pe);
-    // wrap(tk - phi) to [-pi, pi): the atan2 phase detector
-    const float v = __fadd_rn(__fsub_rn(tk, ph), pi);
-    float err = __fsub_rn(
-        __fsub_rn(v, __fmul_rn(two_pi, floorf(__fmul_rn(v, inv_two_pi)))),
-        pi);
-    if (xt == 0.0f) err = 0.0f;  // zero-input guard
-    integ = __fadd_rn(integ, __fmul_rn(kis, err));
-    float p = __fadd_rn(__fadd_rn(pe, __fmul_rn(kps, err)), integ);
-    p = __fsub_rn(p, p >= wrap ? wrap : 0.0f);
-    pe = __fadd_rn(p, p < 0.0f ? wrap : 0.0f);
-    const float a = __fadd_rn(ang, dth);
-    ang = __fsub_rn(a, a >= wrap ? wrap : 0.0f);
-    out[t] = ph;  // the pre-update phase: the NCO lags the input by one
+  pair_sync();                                   // tile 0 is in
+  for (long long k = 0; k < tiles; ++k) {
+    const int len = tile_len(k);
+    const float* xs = in_tiles + (k & 1) * kTileFloats + r * kStride;
+    float* os = out_tiles + (k & 1) * kTileFloats + lane * kStride;
+    int j = 0;
+#pragma unroll 2
+    for (; j + 8 <= len; j += 8) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + j);
+      const float4 b = *reinterpret_cast<const float4*>(xs + j + 4);
+      float4 pa, pb;
+      pa.x = sign_step(a.x, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pa.y = sign_step(a.y, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pa.z = sign_step(a.z, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pa.w = sign_step(a.w, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pb.x = sign_step(b.x, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pb.y = sign_step(b.y, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pb.z = sign_step(b.z, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      pb.w = sign_step(b.w, integ, pe, ang, kps, kis, dth, pi, two_pi,
+                       inv_two_pi, wrap);
+      *reinterpret_cast<float4*>(os + j) = pa;
+      *reinterpret_cast<float4*>(os + j + 4) = pb;
+    }
+    for (; j < len; ++j)
+      os[j] = sign_step(xs[j], integ, pe, ang, kps, kis, dth, pi, two_pi,
+                        inv_two_pi, wrap);
+    pair_sync();                                 // tile k scanned, k + 1 in
   }
-  integ1[s] = integ;
-  pe1[s] = pe;
-  ang1[s] = ang;
+  if (lane < rows) {
+    integ1[s] = integ;
+    pe1[s] = pe;
+    ang1[s] = ang;
+  }
 }
 
 __global__ void pll_span_scan_kernel(
@@ -267,8 +469,9 @@ __global__ void pll_phase_scan_coded_kernel(
 
 }  // namespace
 
-// x, phi: [n_streams, n]; kp, ki, dtheta and the carries: [n_streams].
-// Returns cudaGetLastError() after the launch (0 = launched).
+// B2.  x, phi: [n_streams, n]; kp, ki, dtheta and the carries:
+// [n_streams].  Returns cudaGetLastError() after the launch (0 =
+// launched), or the error of raising the block's shared-memory limit.
 extern "C" int dy4_pll_phase_scan(
     const float* x, const float* kp, const float* ki, const float* dtheta,
     const float* integ0, const float* pe0, const float* ang0, float* phi,
@@ -276,11 +479,17 @@ extern "C" int dy4_pll_phase_scan(
     long long n, float pi, float two_pi, float inv_two_pi, float wrap,
     void* stream) {
   if (n_streams <= 0) return 0;
-  const int threads = 32;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(phi) % 16 == 0;
+  auto kernel = vec ? pll_phase_scan_kernel<true>
+                    : pll_phase_scan_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScanSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks =
-      static_cast<unsigned>((n_streams + threads - 1) / threads);
-  pll_phase_scan_kernel<<<blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned>((n_streams + kWarp - 1) / kWarp);
+  kernel<<<blocks, 2 * kWarp, kScanSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       x, kp, ki, dtheta, integ0, pe0, ang0, phi, integ1, pe1, ang1,
       n_streams, n, pi, two_pi, inv_two_pi, wrap);
   return static_cast<int>(cudaGetLastError());

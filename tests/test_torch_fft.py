@@ -9,9 +9,14 @@ mode, as dy4tpu's own tests run it) and its ``fft_four_step`` within
 ``"jnp"`` and ``"four_step"`` routes within 1e-3 dB on white noise
 (test_fft_psd.py's bar); and the routing: ``"auto"`` takes
 ``torch.fft.fft`` for a CPU tensor, and the kernel refuses a CPU tensor
-and an N it does not take.  The kernel itself runs only on the card
-(chip_smoke.py phase 6).
+and an N it does not take.  The kernel's radix plan (``_plan``, its
+twiddle table and ``_fft_plan_model``, the kernel's passes in torch)
+against ``torch.fft.fft`` and dy4tpu's Pallas kernel at every N of
+4..2048.  The kernel itself runs only on the card (chip_smoke.py phase
+6).
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ from dy4tpu_torch.ops import fft  # noqa: E402
 from dy4tpu_torch.ops import fft_cuda  # noqa: E402
 
 RNG = np.random.default_rng(11)
+PLAN_NS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)   # all B10 takes
 
 
 def _t(x):
@@ -220,3 +226,75 @@ def test_vector_magnitude_equals_dy4tpu():
     np.testing.assert_allclose(fft.vector_magnitude(_t(x)).numpy(),
                                np.asarray(jfft.vector_magnitude(
                                    jnp.asarray(x))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_plan_radices(n):
+    """B10's radix plan: radices of 2, 4, 8 or 16 whose product is N, the
+    first one the kernel's elements per thread, packed 4 bits a pass as
+    the kernel reads them; the twiddle table holds W_{Ns R}^(k r) of every
+    pass after the first at [(r - 1) Ns + k], computed in float64."""
+    plan = fft_cuda._plan(n)
+    assert int(np.prod(plan)) == n
+    assert all(r in (2, 4, 8, 16) for r in plan)
+    assert plan[0] == (8 if n >= 8 else 4)
+    assert all(r == 8 for r in plan[:-1])
+    code = fft_cuda._plan_code(n)
+    assert [1 << (code >> 4 * p & 15) for p in range(len(plan))] == list(plan)
+    assert code >> 4 * len(plan) == 0
+    tw = fft_cuda._plan_twiddles(n)
+    assert tw.dtype == np.complex64
+    ns, off = plan[0], 0
+    for r in plan[1:]:
+        k = np.arange(ns)
+        for j in range(1, r):
+            want = np.exp(-2j * np.pi * k * j / (ns * r)).astype(np.complex64)
+            np.testing.assert_array_equal(tw[off + (j - 1) * ns + k], want)
+        off += (r - 1) * ns
+        ns *= r
+    assert len(tw) == off
+    with pytest.raises(ValueError, match="4..2048"):
+        fft_cuda._plan(2 * 2048)
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_plan_model_equals_torch_fft_and_dy4tpu_pallas(n):
+    """``_fft_plan_model`` (B10's passes, twiddle indices, butterflies and
+    output order) against ``torch.fft.fft`` and dy4tpu's Pallas kernel in
+    interpret mode, real and complex rows, on an odd row count, within
+    1e-5 of the largest magnitude."""
+    rng = np.random.default_rng(100 + n)
+    for x in (rng.standard_normal((7, n)).astype(np.float32),
+              (rng.standard_normal((7, n))
+               + 1j * rng.standard_normal((7, n))).astype(np.complex64)):
+        ours = fft_cuda._fft_plan_model(_t(x)).numpy()
+        assert ours.dtype == np.complex64 and ours.shape == (7, n)
+        ref = torch.fft.fft(_t(x)).numpy()
+        pal = np.asarray(jfp.fft_pallas(jnp.asarray(x), interpret=True))
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(ours / scale, ref / scale, atol=1e-5)
+        np.testing.assert_allclose(ours / scale, pal / scale, atol=1e-5)
+
+
+def test_plan_model_real_rows_at_the_psd_path_shape():
+    """Real rows as the PSD path gives them (N = 512, Hann-windowed, a
+    prime number of rows as chip_smoke.py's FFT_ROWS): the model within
+    1e-5 of each batch's largest magnitude of ``torch.fft.fft``, the
+    batch dims kept."""
+    rng = np.random.default_rng(1531)
+    x = (rng.standard_normal((1531, 512)) * fft.hann_sq(512)).astype(
+        np.float32).reshape(1531, 1, 512)
+    ours = fft_cuda._fft_plan_model(_t(x))
+    ref = torch.fft.fft(_t(x))
+    assert ours.shape == (1531, 1, 512)
+    scale = float(ref.abs().max())
+    assert float((ours - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_plan_model_is_used_by_no_path():
+    """``_fft_plan_model`` is for these tests: no module of the port but
+    its own calls it."""
+    pkg = pathlib.Path(fft_cuda.__file__).resolve().parents[1]
+    users = [p for p in pkg.rglob("*.py")
+             if "_fft_plan_model" in p.read_text()]
+    assert users == [pathlib.Path(fft_cuda.__file__).resolve()]
