@@ -27,7 +27,11 @@ front-end routes and the kernels no receiver route runs:
    state (there elementwise within 1e-5 plus the demod's conditioning).
    At mode 0 B2 is also held bitwise at a ragged [37, 1531] (37 pilot
    rows, N no multiple of 4 or of its 128-step tile) and at the CLI's
-   [1, 2, 7680];
+   [1, 2, 7680]; at modes 0 and 1 (decim 10 and 5) B1, B1-corr and B6 also
+   at a ragged [37, 3132] (the block cut to 3132 IF samples: two tiles of
+   1536 and a last one of 60, shorter than the 100-sample band history)
+   and at the CLI's one channel, and B1 / B6's tile plan and shared
+   memory per block are printed;
 3. per mode, runs ``run_blocks`` over 24 blocks x 512 channels, checks
    that every kernel of the mode's path ran on every block (and no other
    kernel ran), decodes channel 0 (stereo separation, and RDS PI/PS in
@@ -192,6 +196,9 @@ FP32_LATENCY = 4                     # cycles from one dependent float op
 # an estimate from below.
 B2_STEP_OPS, B9_STEP_OPS, PLL_CHAIN_OPS = 17, 18, 13
 B2_RAGGED = (37, 1531)  # B2 at mode 0: 32 + 5 rows, N = 11 x 128 + 123, odd
+# B1 / B6 at modes 0 and 1: 37 rows, n_out = two tiles + 60 (the last
+# tile shorter than the band filters' 100-sample history)
+FRONT_RAGGED_ROWS, FRONT_RAGGED_LAST = 37, 60
 PROFILE_REPS = 20       # calls under torch.profiler for the kernel alone
 U32 = 2.0 ** -24        # float32 unit roundoff
 MOM_TOL = 1e-5         # tracker moments, relative to E[|i|^p |q|^r]
@@ -409,11 +416,13 @@ class _Row:
                     **self.extra)
 
 
-def _front_flops(cfg, c: int, rds: bool, rf: bool, corr: bool = False):
-    """Float operations of the front half per block: per IF sample the RF
-    LPF on both legs (``rf``), the demod (about 9), the band bank and,
-    with RDS, squaring and the carrier BPF; ``corr`` adds the 14 moments
-    and the correction (about 30)."""
+def _front_flops(cfg, c: int, rds: bool, rf: bool, corr: bool = False,
+                 n=None):
+    """Float operations of the front half per block of ``n`` IF samples
+    (the mode's by default): per IF sample the RF LPF on both legs
+    (``rf``), the demod (about 9), the band bank and, with RDS, squaring
+    and the carrier BPF; ``corr`` adds the 14 moments and the correction
+    (about 30)."""
     kb = cfg.num_taps
     per = 9 + (3 if rds else 2) * kb * 2
     if rds:
@@ -422,13 +431,14 @@ def _front_flops(cfg, c: int, rds: bool, rf: bool, corr: bool = False):
         per += 2 * cfg.num_taps * 2
     if corr:
         per += 30
-    return c * cfg.if_per_block * per
+    return c * (cfg.if_per_block if n is None else n) * per
 
 
 def _front_corr_pair(label, fargs, corr, rds):
-    """B1's corr variant and its plain version on ``fargs`` (the eleven
-    tensors and the decimation of ``fused_frontend_full``); raises unless
-    the new RF tails are equal.  Returns both output tuples."""
+    """B1 (its corr variant with ``corr``) and its plain version on
+    ``fargs`` (the eleven tensors and the decimation of
+    ``fused_frontend_full``); raises unless the new RF tails are equal.
+    Returns both output tuples."""
     import torch
     from dy4tpu_torch.ops import frontend_cuda
     k_out = frontend_cuda.fused_frontend_full(*fargs, rds=rds, corr=corr)
@@ -454,7 +464,8 @@ def _moments_rel_err(label, blk, params, cfg, iq_tail, k_mom, p_mom):
         (i_ds.double().abs() ** p * q_ds.double().abs() ** r).mean(-1)
         for p, r in iqcorr._POWERS], dim=-1)
     rel = float(((k_mom.double() - p_mom.double()).abs() / scale).max())
-    _say(f"phase 2: {label}: moments [{C}, 14] within a relative {rel:.3g} "
+    _say(f"phase 2: {label}: moments {list(k_mom.shape)} within a relative "
+         f"{rel:.3g} "
          f"of the plain version's (tolerance {MOM_TOL:g})")
     if not rel <= MOM_TOL:
         raise AssertionError(f"{label}: moments depart from the plain "
@@ -573,6 +584,93 @@ def _check_corr_cold(cfg, params, blk, corr, dev) -> float:
          f"{float((p_out[0].double() - ref).abs().max()):.3g}; tails "
          f"{tails:.3g}")
     return worst
+
+
+def _front_plan(cfg) -> None:
+    """B1 / B6's tile plan at the mode's block: the wrapper's shared
+    memory per block must equal the kernel's own formula and stay within
+    60 KB, and a row must spread over more than one block."""
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    from dy4tpu_torch.runtime import kernels
+    import ctypes
+    rds = cfg.supports_rds
+    kb = cfg.num_taps
+    smem = kernels.load("frontend").dy4_frontend_smem
+    smem.argtypes = [ctypes.c_int] * 7
+    smem.restype = ctypes.c_longlong
+    for what, k, d, corr in (("B1", cfg.num_taps, cfg.rf_decim, 0),
+                             ("B1-corr", cfg.num_taps, cfg.rf_decim, 1),
+                             ("B6", 0, 1, 0)):
+        plan = fc._tile_plan(cfg.if_per_block, d, k, kb, rds)
+        need = smem(plan.tile, plan.sub, d, k, kb, int(rds), corr)
+        mine = fc._smem_bytes(plan, d, k, kb, rds, bool(corr))
+        _say(f"phase 2: {what} mode{cfg.mode} plan: {plan.n_tiles} tiles of "
+             f"{plan.tile} (halo {plan.halo}, RF passes of {plan.sub}), "
+             f"{need} bytes of shared memory a block")
+        if need != mine or need > 60 * 1024 or plan.n_tiles < 2:
+            raise AssertionError(f"{what} mode{cfg.mode}: plan {plan}, "
+                                 f"{need} bytes of shared memory a block "
+                                 f"(the wrapper's formula {mine})")
+
+
+def _front_cut_rows(cfg, params, fargs, corr, label) -> list:
+    """B1, B1-corr and B6 against their plain versions at a cut geometry,
+    ``fargs`` as for ``fused_frontend_full`` (B6 on the plain RF stage's
+    IF I/Q of the same rows): outputs within 1e-5, iq_tail and B6's
+    prev_i/prev_q equal, the moments within ``MOM_TOL``.  Returns the
+    rows."""
+    import torch
+    from dy4tpu_torch.ops import frontend_cuda
+    rds = cfg.supports_rds
+    blk = fargs[0]
+    c, bs = blk.shape
+    n = bs // 2 // cfg.rf_decim
+    geom = f"mode{cfg.mode} {label} [{c}, {n}] decim {cfg.rf_decim} rds={rds}"
+    where = f"C={c}"
+    src, rep = "dy4tpu_torch/csrc/frontend.cu", "dy4tpu/ops/frontend_pallas.py"
+    _distinct_rows(f"B1 {label}", *fargs[:1], *fargs[4:11])
+    k_out, p_out = _front_corr_pair(f"B1 {geom}", fargs, None, rds)
+    b1_in = fargs[:11] if rds else fargs[:3] + fargs[4:9]
+    rows = [_Row(
+        "B1 frontend", geom, src, f"{rep}:693",
+        frontend_cuda.fused_frontend_full, _max_err(k_out, p_out), 1e-5,
+        lambda: frontend_cuda.fused_frontend_full(*fargs, rds=rds),
+        lambda: frontend_cuda.fused_frontend_full_plain(*fargs, rds=rds),
+        where=where, nbytes=_nbytes(b1_in, k_out),
+        flops=_front_flops(cfg, c, rds, rf=True, n=n))]
+    k_out, p_out = _front_corr_pair(f"B1 corr {geom}", fargs, corr, rds)
+    mom_rel = _moments_rel_err(f"B1 corr {geom}", blk, params, cfg,
+                               fargs[4], k_out[12], p_out[12])
+    rows.append(_Row(
+        "B1 frontend_corr", geom, src, f"{rep}:693",
+        frontend_cuda.fused_frontend_full.corr,
+        _max_err(k_out[:12], p_out[:12]), 1e-5,
+        lambda: frontend_cuda.fused_frontend_full(*fargs, rds=rds, corr=corr),
+        lambda: frontend_cuda.fused_frontend_full_plain(*fargs, rds=rds,
+                                                        corr=corr),
+        where=where, nbytes=_nbytes(b1_in, corr, k_out),
+        flops=_front_flops(cfg, c, rds, rf=True, corr=True, n=n),
+        extra=dict(mom_rel_err=mom_rel)))
+    i_if, q_if, _ = frontend_cuda.rf_lpf_plain(blk, params.rf_coeff,
+                                               fargs[4], cfg.rf_decim)
+    iargs = (i_if.contiguous(), q_if.contiguous(), *fargs[5:7],
+             params.bank_coeff, params.rds_carrier_coeff, *fargs[7:11])
+    k_out = frontend_cuda.fused_frontend_if(*iargs, rds=rds)
+    p_out = frontend_cuda.fused_frontend_if_plain(*iargs, rds=rds)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_out[5], p_out[5])
+            and torch.equal(k_out[6], p_out[6])):
+        raise AssertionError(f"B6 {geom}: prev_i/prev_q differ from the "
+                             f"plain version")
+    rows.append(_Row(
+        "B6 frontend_if", geom, src, f"{rep}:881",
+        frontend_cuda.fused_frontend_if, _max_err(k_out, p_out), 1e-5,
+        lambda: frontend_cuda.fused_frontend_if(*iargs, rds=rds),
+        lambda: frontend_cuda.fused_frontend_if_plain(*iargs, rds=rds),
+        where=where,
+        nbytes=_nbytes(iargs if rds else iargs[:5] + iargs[6:8], k_out),
+        flops=_front_flops(cfg, c, rds, rf=False, n=n)))
+    return rows
 
 
 def _pll_case(cfg, st, pilot, carrier, dev):
@@ -762,6 +860,29 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
             lambda: frontend_cuda.fused_frontend_if_plain(*iargs, rds=rds),
             nbytes=_nbytes(iargs if rds else iargs[:5] + iargs[6:8], k_out),
             flops=_front_flops(cfg, C, rds, rf=False)))
+
+    _front_plan(cfg)
+    if cfg.mode in OPT_MODES:
+        # the tiling's edges, B1, B1-corr and B6: a ragged geometry whose
+        # last tile is shorter than the band history, and the CLI's one
+        # channel
+        from dy4tpu_torch.ops.frontend_cuda import _tile_plan
+        rg = FRONT_RAGGED_ROWS
+        n_r = 2 * frontend_cuda.TILE + FRONT_RAGGED_LAST
+        plan = _tile_plan(n_r, cfg.rf_decim, cfg.num_taps, cfg.num_taps, rds)
+        last = n_r - (plan.n_tiles - 1) * plan.tile
+        if not 0 < last < cfg.num_taps - 1:
+            raise AssertionError(f"[{rg}, {n_r}]: the last tile holds "
+                                 f"{last} samples, not fewer than the band "
+                                 f"history")
+        cut = lambda t, r: (  # noqa: E731
+            None if t is None else t[:r].contiguous())
+        for label, r, n_b in (("ragged", rg, n_r),
+                              ("CLI", 1, cfg.if_per_block)):
+            args = (blk[:r, :2 * cfg.rf_decim * n_b].contiguous(),
+                    *fargs[1:4], *(cut(t, r) for t in fargs[4:11]),
+                    cfg.rf_decim)
+            rows += _front_cut_rows(cfg, params, args, cut(corr, r), label)
 
     x, lanes, state, consts, (kp, ki, dth), carry = _pll_case(
         cfg, st, pilot, carrier, dev)

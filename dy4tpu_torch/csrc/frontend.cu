@@ -1,5 +1,6 @@
-// The whole LTI front half of one receiver block: one thread block per
-// channel row.  Two kernels share every stage after the FM demod's input.
+// The whole LTI front half of one receiver block, time-tiled: a thread
+// block owns the decimated outputs [m0, m1) of one channel row.  Two
+// kernels share every stage after the FM demod's input.
 //
 // B1 frontend_full_kernel replaces dy4tpu/ops/frontend_pallas.py ::
 // fused_frontend_full (_kernel_front_full, _band_stages).  Per row:
@@ -13,51 +14,79 @@
 // B1 with kCorr is the same kernel with fused_frontend_full's `corr`
 // epilogue (the narrowband IQ tracker): after stage 1 it takes the 14
 // conic-fit moments E[i^p q^r] (order <= 4, iqcorr.py's _POWERS order) of
-// the row's decimated I/Q, before the correction, as a block reduction in
-// a fixed order (per-thread sums over a fixed stride, a warp shuffle tree,
-// then one thread over the warps; no atomics, so the result is the same
-// on every run), and applies i -= dc_i; q = (q - dc_q - rho*i)*s to the
-// I/Q in shared memory before the demod.
+// the tile's decimated I/Q before the correction, and applies i -= dc_i;
+// q = (q - dc_q - rho*i)*s to every I/Q sample it computed, halo too,
+// before the demod.
 // B6 frontend_if_kernel replaces fused_frontend_if (_kernel_front_if): its
 // stage 1 reads float32 IF I/Q rows (a channelizer's output, already band-
 // limited and decimated) instead of running the u8 read and the RF LPF;
 // stages 2-4 are the same device routine, band_stages<kRds>.  Both kernels
 // are templated on RDS: without it the bank has two rows, stage 4 is
 // skipped, and neither the carrier taps nor the RDS tails and outputs are
-// touched (their pointers may be null).  New tails are the trailing
-// samples of each stream.
+// touched (their pointers may be null).
 //
-// What bounds it on the card: for B1 the u8 read (153,600 bytes per row at
-// mode 0) is the only stream from device memory that scales with the
-// input; the IF-rate outputs are 1/20 of it each in samples.  The MACs
-// (~2 x 101 per IF sample for the RF legs, ~4 x 101 for the bank and the
-// carrier) are float32 work the SMs do at a fraction of their rate.  B6
-// reads two float32 IF rows and writes up to five, so it moves less than
-// B1 and does no RF MACs.  The design keeps every intermediate stream
-// (i_ds, q_ds, fm, the RDS band and its square) in shared memory, so
-// nothing but the block's input and the outputs touch device memory, and
-// loads the u8 row tile by tile with consecutive threads on consecutive
-// bytes.  A whole row lives in shared memory (95 KB for B6 and 117 KB
-// for B1 at mode 0, 166 KB for B1 at mode 3), so one block runs per SM;
-// the wrappers check the 227 KB ceiling before a launch.
+// What bounds it on the card: the float32 multiply-adds (2 x 101 per IF
+// sample for the RF legs, 4 x 101 for the bank and the carrier); the u8
+// read (153,600 bytes a row at mode 0) is the only stream from device
+// memory that scales with the input.  The design:
+//
+//  * Grid (row, tile).  A tile is `tile` decimated outputs (the wrapper's
+//    plan, frontend_cuda._tile_plan: 1536), so shared memory scales with
+//    the tile, not the row (about 52 KB a block for B1 at mode 0, 22 KB
+//    for B6), B1's registers are capped for 3 blocks of 256 threads an SM,
+//    and one row spreads over n_out / tile SMs.  A tile
+//    recomputes a halo of `halo` samples before m0: 2*(kb-1)+1 with RDS
+//    (the carrier BPF needs kb-1 squared RDS-band samples, the bank kb-1
+//    fm samples, the demod one I/Q sample), kb without.  tile >= halo, so
+//    only tile 0 reads the carried state (prev_i/prev_q, bank_tail,
+//    carrier_tail, mono_delay, rds_delay), and the last tile writes every
+//    new tail from its own halo-extended buffers.  Every output is summed
+//    tap by tap in one fixed order, so a recomputed halo sample equals the
+//    one its own tile computes.
+//  * The RF stage runs in passes of `sub` outputs.  A pass's window of the
+//    row sits in shared memory in polyphase order (ext sample e0 + v*D + r
+//    at [r][v], as in frontend_rf.cu), filled with consecutive threads on
+//    consecutive pairs of complex samples (16-bit loads); the next pass's
+//    samples are loaded into registers while this pass multiplies.
+//  * Every MAC stage is register-blocked: a thread makes kR = 4
+//    consecutive outputs from one window that slides through registers,
+//    16 bytes a load, with each tap broadcast to the 4 outputs (and, in
+//    the bank, one window shared by its 2 or 3 filters).  So a warp's
+//    float4 window loads hit all 32 banks once, and a tap feeds 4 FMAs.
+//    Taps are padded with zeros to a multiple of 4 (a phase's to nq).
+//  * The corr moments cover [m0, m1) only: per-thread sums over a stride,
+//    a warp shuffle tree, the warps in order, into partial[row, tile]; the
+//    row's last block to finish (a ticket from an integer atomic, the
+//    partials fenced) sums the tiles in tile order and divides by n_out.
+//    No float atomics, so the result is the same on every run.
 //
 // Numerics: the normalize is done first, (x-128)/128, which is exact in
 // float32 (the TPU kernel's -128*sum(h) epilogue is an MXU device that
-// cancels in float32 and is not copied).  The sums run tap by tap and
-// may contract into FMAs, so results match the plain torch version to
-// float32 tolerance, not bitwise; iq_tail comes straight from the raw
-// block, and B6's prev_i/prev_q straight from its input, so both are
-// exact.
+// cancels in float32 and is not copied).  The sums run tap by tap with
+// FMAs, so results match the plain torch version to float32 tolerance,
+// not bitwise; iq_tail comes straight from the raw block, and B6's
+// prev_i/prev_q straight from its input, so both are exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 256;  // RF outputs per u8 tile
+constexpr int kFullBlocks = 3;  // B1 blocks an SM: 80 registers a thread
+constexpr int kR = 4;         // consecutive outputs a thread makes
+constexpr int kPre = 10;      // sample pairs a thread holds for a pass
 constexpr int kMoments = 14;  // IQ-tracker moments (corr epilogue)
+constexpr float kScale = 0.0078125f;
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// A window row of n floats padded to 4 mod 32 words, so that the fill's
+// stores (consecutive samples across the D rows) meet at most 2 to a bank.
+__host__ __device__ inline int window_row(int n) {
+  return n + (36 - n % 32) % 32;
+}
 
 struct Geometry {
   long long bs;    // u8 bytes per row (I and Q interleaved); 2*n_out for B6
@@ -69,10 +98,19 @@ struct Geometry {
   int kb;          // band / carrier taps
   int s_b;         // kb - 1: band history
   int dly;         // kb / 2: mono and RDS delays
-  int tile_in;     // kTile * decim + s_rf: input samples per tile
+  int tile;        // outputs a tile owns
+  int n_tiles;     // tiles a row
+  int halo;        // I/Q samples a tile recomputes before m0
+  int sub;         // RF outputs a pass
+  int nq;          // taps a polyphase row, padded to 4
+  int lp;          // window row, floats
+  int kp;          // band taps padded to 4
+  int l_iq;        // floats of each I/Q buffer
+  int l_fm;        // floats of the fm buffer
 };
 
-Geometry make_geometry(long long bs, int decim, int k_rf, int kb) {
+Geometry make_geometry(long long bs, int decim, int k_rf, int kb, bool rds,
+                       int tile, int sub) {
   Geometry g;
   g.bs = bs;
   g.n_in = static_cast<int>(bs / 2);
@@ -83,56 +121,102 @@ Geometry make_geometry(long long bs, int decim, int k_rf, int kb) {
   g.kb = kb;
   g.s_b = kb - 1;
   g.dly = kb / 2;
-  g.tile_in = k_rf ? kTile * decim + g.s_rf : 0;
+  g.tile = tile;
+  g.n_tiles = (g.n_out + tile - 1) / tile;
+  g.halo = rds ? 2 * g.s_b + 1 : kb;
+  g.sub = k_rf ? sub : 0;
+  g.nq = k_rf ? round4(g.s_rf / decim + 1) : 0;
+  g.lp = k_rf ? window_row(sub + g.nq) : 0;
+  g.kp = round4(kb);
+  g.l_iq = round4(tile + g.halo);
+  g.l_fm = round4(tile + (rds ? g.s_b : 0)) + g.kp + 4;
   return g;
 }
 
-// Shared-memory layout, in floats, in this order:
-//   hr [k_rf]          RF taps (B1 only)
-//   hb [nb, kb]        bank taps, nb = 3 with RDS, else 2
-//   hc [kb]            carrier taps (RDS only)
-//   buf_a [a_len]      i_ds; then [carrier_tail || squared RDS band]
-//   buf_b [b_len]      q_ds; then the RDS band
-//   fm_ext [s_b+n_out] [bank_tail || fm]
-//   tile_i, tile_q [tile_in] the u8 tile of each leg (B1 only)
+bool plan_ok(const Geometry& g) {
+  return g.tile >= g.halo && g.tile % 4 == 0 &&
+         (!g.k_rf || (g.sub >= kR && g.sub % kR == 0 &&
+                      g.decim * (g.sub + g.nq) <= 2 * kPre * kThreads));
+}
+
+// Shared-memory layout, in floats, in this order (each a multiple of 4):
+//   hs [decim, nq]     RF taps by phase, hs[r][q] = h[s - q*D - r] (B1)
+//   hb [nb, kp]        bank taps reversed, hb[f][a] = h_bank[f][kb-1-a]
+//   hc [kp]            carrier taps reversed (RDS only)
+//   iq_i, iq_q [l_iq]  the tile's I/Q; then the RDS band and
+//                      [carrier_tail || its square]
+//   u                  the RF window [2, decim, lp] (B1), then
+//                      fm_ext [bank_tail || fm]
 //   red [kMoments, kWarps] per-warp moment sums (B1 with corr only)
 __host__ __device__ inline int bank_rows(bool rds) { return rds ? 3 : 2; }
-__host__ __device__ inline int buf_a_len(const Geometry& g, bool rds) {
-  return rds ? g.s_b + g.n_out : g.n_out;
+
+__host__ __device__ inline int u_len(const Geometry& g) {
+  const int win = g.k_rf ? 2 * g.decim * g.lp : 0;
+  return win > g.l_fm ? win : g.l_fm;
 }
 
 __host__ __device__ inline size_t smem_floats(const Geometry& g, bool rds,
                                               bool corr) {
-  return static_cast<size_t>(g.k_rf) + (bank_rows(rds) + rds) * g.kb +
-         2 * static_cast<size_t>(buf_a_len(g, rds)) + g.s_b + g.n_out +
-         2 * static_cast<size_t>(g.tile_in) + (corr ? kMoments * kWarps : 0);
+  return static_cast<size_t>(g.k_rf ? g.decim * g.nq : 0) +
+         (bank_rows(rds) + rds) * g.kp + 2 * static_cast<size_t>(g.l_iq) +
+         u_len(g) + (corr ? kMoments * kWarps : 0);
 }
 
 struct Smem {
-  float* hr;
+  float* hs;
   float* hb;
   float* hc;
-  float* buf_a;
-  float* buf_b;
-  float* fm_ext;
-  float* tile_i;
-  float* tile_q;
+  float* iq_i;
+  float* iq_q;
+  float* win_i;
+  float* win_q;
+  float* fm;
+  float* rb;   // the RDS band, over iq_i
+  float* sq;   // [carrier_tail || squared RDS band], over iq_q
   float* red;
 };
 
-template <bool kRds>
-__device__ Smem carve(float* smem, const Geometry& g) {
+__device__ Smem carve(float* smem, const Geometry& g, bool rds) {
   Smem s;
-  s.hr = smem;
-  s.hb = s.hr + g.k_rf;
-  s.hc = s.hb + bank_rows(kRds) * g.kb;
-  s.buf_a = s.hc + (kRds ? g.kb : 0);
-  s.buf_b = s.buf_a + buf_a_len(g, kRds);
-  s.fm_ext = s.buf_b + buf_a_len(g, kRds);
-  s.tile_i = s.fm_ext + g.s_b + g.n_out;
-  s.tile_q = s.tile_i + g.tile_in;
-  s.red = s.tile_q + g.tile_in;
+  s.hs = smem;
+  s.hb = s.hs + (g.k_rf ? g.decim * g.nq : 0);
+  s.hc = s.hb + bank_rows(rds) * g.kp;
+  s.iq_i = s.hc + (rds ? g.kp : 0);
+  s.iq_q = s.iq_i + g.l_iq;
+  s.win_i = s.iq_q + g.l_iq;
+  s.win_q = s.win_i + g.decim * g.lp;
+  s.fm = s.win_i;
+  s.rb = s.iq_i;
+  s.sq = s.iq_q;
+  s.red = s.win_i + u_len(g);
   return s;
+}
+
+// One tile's ranges, in global sample indices of the row.  The tile owns
+// outputs [m0, m1); the bank makes [b0, m1) (with RDS the RDS band's kb-1
+// samples before m0, for the carrier); fm_ext[l] holds fm at f_base + l
+// and iq[l] the I/Q at q_base + l.  The RF stage (or B6's load) fills the
+// I/Q from global g0: q_base, or 0 in tile 0, whose slot s_b holds the
+// carried prev_i/prev_q and whose fm history is bank_tail.
+struct Tile {
+  int m0, m1, b0, n_bank, f_base, q_base, g0, l0, lf0;
+  bool first, last;
+};
+
+__device__ Tile make_tile(const Geometry& g, int tile, bool rds) {
+  Tile t;
+  t.first = tile == 0;
+  t.last = tile == g.n_tiles - 1;
+  t.m0 = tile * g.tile;
+  t.m1 = min(t.m0 + g.tile, g.n_out);
+  t.b0 = t.first ? 0 : t.m0 - (rds ? g.s_b : 0);
+  t.n_bank = t.m1 - t.b0;
+  t.f_base = t.b0 - g.s_b;
+  t.q_base = t.f_base - 1;
+  t.g0 = t.first ? 0 : t.q_base;
+  t.l0 = t.g0 - t.q_base;
+  t.lf0 = t.first ? g.s_b : 0;
+  return t;
 }
 
 // Per-row pointers of everything stages 2-4 read and write.
@@ -146,116 +230,192 @@ struct BandIO {
   float* carrier_tail_out;  float* rds_delay_out;
 };
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Four taps h[0..3] of kF filters (filter f at h + f*hs) against the
+// window a || b, 8 consecutive samples: acc[f][k] += h[f][u] * x[u + k].
+template <int kF>
+__device__ __forceinline__ void step4(const float* h, int hs, float4 a,
+                                      float4 b, float (&acc)[kF][kR]) {
+  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    const float4 hv = ld4(h + f * hs);
+    const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int k = 0; k < kR; ++k)
+        acc[f][k] = fmaf(hh[u], x[u + k], acc[f][k]);
+  }
+}
+
+// acc[f][k] += sum_{a < 4*n4} h[f][a] * w[a + k], k < kR, taps in order;
+// reads w[0, 4*n4 + 4).  h, w 16-byte aligned.
+template <int kF>
+__device__ __forceinline__ void mac4(const float* h, int hs, const float* w,
+                                     int n4, float (&acc)[kF][kR]) {
+  float4 a = ld4(w);
+  int q = 0;
+  for (; q + 8 <= 4 * n4; q += 8) {
+    const float4 b = ld4(w + q + 4);
+    step4<kF>(h + q, hs, a, b, acc);
+    a = ld4(w + q + 8);
+    step4<kF>(h + q + 4, hs, b, a, acc);
+  }
+  if (q < 4 * n4) step4<kF>(h + q, hs, a, ld4(w + q + 4), acc);
+}
+
 __device__ inline void load_taps(const Smem& s, const Geometry& g,
                                  const float* h_bank, const float* h_carrier,
                                  int nb, int tid) {
-  for (int j = tid; j < nb * g.kb; j += kThreads) s.hb[j] = h_bank[j];
+  for (int j = tid; j < nb * g.kp; j += kThreads) {
+    const int f = j / g.kp, a = j % g.kp;
+    s.hb[j] = a < g.kb ? h_bank[f * g.kb + g.s_b - a] : 0.0f;
+  }
   if (h_carrier)
-    for (int j = tid; j < g.kb; j += kThreads) s.hc[j] = h_carrier[j];
+    for (int a = tid; a < g.kp; a += kThreads)
+      s.hc[a] = a < g.kb ? h_carrier[g.s_b - a] : 0.0f;
 }
 
-// Stages 2-4 of one row.  On entry buf_a[0, n_out) holds the row's I and
-// buf_b[0, n_out) its Q at the IF rate, visible to every thread, and the
-// bank (and carrier) taps are in shared memory.
-template <bool kRds>
-__device__ void band_stages(const Smem& s, const Geometry& g, long long row,
-                            int tid, const BandIO& io) {
-  float* buf_a = s.buf_a;
-  float* buf_b = s.buf_b;
-  float* fm_ext = s.fm_ext;
-  const long long ro = row * g.n_out;
+__device__ inline float norm(unsigned v) {
+  return (static_cast<float>(v) - 128.0f) * kScale;
+}
 
-  // ---- 2. demod into fm_ext = [bank_tail || fm]
-  for (int k = tid; k < g.s_b; k += kThreads)
-    fm_ext[k] = io.bank_tail[row * g.s_b + k];
-  for (int m = tid; m < g.n_out; m += kThreads) {
-    const float i = buf_a[m];
-    const float q = buf_b[m];
-    const float ip = m ? buf_a[m - 1] : io.prev_i[row];
-    const float qp = m ? buf_b[m - 1] : io.prev_q[row];
-    const float power = i * i + q * q;
-    const float num = i * (q - qp) - q * (i - ip);
-    fm_ext[g.s_b + m] = power == 0.0f ? 0.0f : num / power;
+// The complex samples [e0, e0 + n_samp) of ext = [tail || block] that
+// lie in the block, into registers: thread tid holds samples 2*tid +
+// 2*kThreads*j and the next one, each a 16-bit I/Q pair, packed in
+// pre[j] (0x8080, i.e. 0, outside the block).
+__device__ inline void fetch(unsigned (&pre)[kPre], const uint16_t* x16,
+                             const Geometry& g, long long e0, int n_samp,
+                             int tid) {
+#pragma unroll
+  for (int j = 0; j < kPre; ++j) {
+    const int l = 2 * (tid + j * kThreads);
+    const long long n = e0 + l - g.s_rf;
+    const unsigned lo =
+        (l < n_samp && n >= 0 && n < g.n_in) ? x16[n] : 0x8080u;
+    const unsigned hi =
+        (l + 1 < n_samp && n + 1 >= 0 && n + 1 < g.n_in) ? x16[n + 1]
+                                                        : 0x8080u;
+    pre[j] = lo | hi << 16;
   }
-  if (tid == 0) {
-    io.prev_i_out[row] = buf_a[g.n_out - 1];
-    io.prev_q_out[row] = buf_b[g.n_out - 1];
-  }
-  __syncthreads();  // i / q are dead from here on
+}
 
-  // ---- 3. band bank over fm, mono delay; with RDS the RDS band goes to
-  // buf_b and its square to buf_a = [carrier_tail || sq]
-  if (kRds)
-    for (int k = tid; k < g.s_b; k += kThreads)
-      buf_a[k] = io.carrier_tail[row * g.s_b + k];
-  const float* hb = s.hb;
-  for (int m = tid; m < g.n_out; m += kThreads) {
-    float p = 0.0f, st = 0.0f, rb = 0.0f;
-    const float* f = fm_ext + m + g.s_b;
-    for (int j = 0; j < g.kb; ++j) {
-      const float v = f[-j];
-      p += hb[j] * v;
-      st += hb[g.kb + j] * v;
-      if (kRds) rb += hb[2 * g.kb + j] * v;
+// One fetched sample (a 16-bit I/Q pair) into window slot (r, v); a
+// sample in the RF tail straight from it.
+__device__ inline void stage_one(const Smem& s, const Geometry& g,
+                                 const float* tail, long long e, int r,
+                                 int v, unsigned pair) {
+  const int slot = r * g.lp + v;
+  const bool in_tail = e < g.s_rf;
+  s.win_i[slot] = in_tail ? tail[e] : norm(pair & 0xFFu);
+  s.win_q[slot] = in_tail ? tail[g.s_rf + e] : norm((pair >> 8) & 0xFFu);
+}
+
+// The fetched samples into the window in polyphase order (sample l at
+// [l % D][l / D], the phase and column stepped, not divided, per j).
+__device__ inline void stage_window(const unsigned (&pre)[kPre],
+                                    const Smem& s, const Geometry& g,
+                                    const float* tail, long long e0,
+                                    int n_samp, int tid) {
+  const int d = g.decim;
+  const int step = 2 * kThreads;
+  const int dv = step / d, dr = step % d;
+  int r = (2 * tid) % d, v = (2 * tid) / d;
+#pragma unroll
+  for (int j = 0; j < kPre; ++j) {
+    const int l = 2 * (tid + j * kThreads);
+    if (l < n_samp) {
+      stage_one(s, g, tail, e0 + l, r, v, pre[j] & 0xFFFFu);
+      if (l + 1 < n_samp)
+        stage_one(s, g, tail, e0 + l + 1, r + 1 == d ? 0 : r + 1,
+                  r + 1 == d ? v + 1 : v, pre[j] >> 16);
     }
-    io.pilot[ro + m] = p;
-    io.stereo[ro + m] = st;
-    if (kRds) {
-      buf_b[m] = rb;
-      buf_a[g.s_b + m] = rb * rb;
+    r += dr;
+    v += dv;
+    if (r >= d) {
+      r -= d;
+      ++v;
     }
-    io.fmd[ro + m] = m < g.dly ? io.mono_delay[row * g.dly + m]
-                               : fm_ext[g.s_b + m - g.dly];
   }
-  for (int k = tid; k < g.s_b; k += kThreads)
-    io.bank_tail_out[row * g.s_b + k] = fm_ext[g.n_out + k];
-  for (int d = tid; d < g.dly; d += kThreads)
-    io.mono_delay_out[row * g.dly + d] =
-        fm_ext[g.s_b + g.n_out - g.dly + d];
-  if (!kRds) return;
+}
+
+// Stage 1 of B1: the tile's RF outputs [g0, m1) on both legs into iq_i /
+// iq_q from l0 on: y[m] = sum_a h[s - a] ext[m*D + a].  Ends with every
+// output visible to every thread.
+__device__ void rf_stage(const Smem& s, const Geometry& g, const Tile& t,
+                         const uint8_t* x, const float* tail, int tid) {
+  const int d = g.decim;
+  const int n_rf = t.m1 - t.g0;
+  const int passes = (n_rf + g.sub - 1) / g.sub;
+  const int n_samp = d * (g.sub + g.nq);
+  const int chunks = g.sub / kR;
+  const uint16_t* x16 = reinterpret_cast<const uint16_t*>(x);
+  unsigned pre[kPre];
+  fetch(pre, x16, g, static_cast<long long>(t.g0) * d, n_samp, tid);
+  for (int p = 0; p < passes; ++p) {
+    const long long e0 = static_cast<long long>(t.g0 + p * g.sub) * d;
+    __syncthreads();  // the last pass's window consumed (and taps loaded)
+    stage_window(pre, s, g, tail, e0, n_samp, tid);
+    __syncthreads();
+    if (p + 1 < passes)
+      fetch(pre, x16, g, e0 + static_cast<long long>(g.sub) * d, n_samp,
+            tid);
+    for (int task = tid; task < 2 * chunks; task += kThreads) {
+      const int leg = task / chunks;
+      const int t0 = (task - leg * chunks) * kR;
+      const float* w = (leg ? s.win_q : s.win_i) + t0;
+      float acc[1][kR] = {};
+      for (int r = 0; r < d; ++r)
+        mac4<1>(s.hs + r * g.nq, 0, w + r * g.lp, g.nq / 4, acc);
+      const int o = p * g.sub + t0;
+      float* out = (leg ? s.iq_q : s.iq_i) + t.l0 + o;
+#pragma unroll
+      for (int k = 0; k < kR; ++k)
+        if (o + k < n_rf) out[k] = acc[0][k];
+    }
+  }
   __syncthreads();
-
-  // ---- 4. carrier BPF over the squared RDS band, RDS delay
-  const float* hc = s.hc;
-  for (int m = tid; m < g.n_out; m += kThreads) {
-    float acc = 0.0f;
-    const float* sq = buf_a + m + g.s_b;
-    for (int j = 0; j < g.kb; ++j) acc += hc[j] * sq[-j];
-    io.carrier[ro + m] = acc;
-    io.rdsdel[ro + m] = m < g.dly ? io.rds_delay[row * g.dly + m]
-                                  : buf_b[m - g.dly];
-  }
-  for (int k = tid; k < g.s_b; k += kThreads)
-    io.carrier_tail_out[row * g.s_b + k] = buf_a[g.n_out + k];
-  for (int d = tid; d < g.dly; d += kThreads)
-    io.rds_delay_out[row * g.dly + d] = buf_b[g.n_out - g.dly + d];
 }
 
-// The corr epilogue of one row.  On entry buf_a/buf_b [0, n_out) hold the
-// row's decimated I and Q, visible to every thread.  Writes the 14 means
-// of the pre-correction moments to mom[0, 14) and leaves the corrected
-// I/Q in place, visible to every thread.
-__device__ void corr_epilogue(const Smem& s, const Geometry& g, int tid,
-                              const float* corr, float* mom) {
-  const float dci = corr[0], dcq = corr[1], rho = corr[2], sc = corr[3];
+// The corr epilogue of one tile.  On entry iq_i/iq_q hold the tile's
+// decimated I/Q, visible to every thread.  Writes the tile's moment sums
+// over [m0, m1) to partial[row, tile] (thread t sums the tile's samples
+// g0 + t + kThreads*k that are its own outputs); the row's last tile to
+// get here sums the row's partials in tile order into mom[row] / n_out.
+// Leaves the corrected I/Q in place, visible to every thread.
+__device__ void corr_stage(const Smem& s, const Geometry& g, const Tile& t,
+                           long long row, int tile, int tid,
+                           const float* corr, float* mom, float* partial,
+                           int* count) {
+  __shared__ int last;
+  const float dci = corr[row * 4], dcq = corr[row * 4 + 1];
+  const float rho = corr[row * 4 + 2], sc = corr[row * 4 + 3];
   float acc[kMoments];
 #pragma unroll
   for (int k = 0; k < kMoments; ++k) acc[k] = 0.0f;
-  for (int m = tid; m < g.n_out; m += kThreads) {
-    const float im = s.buf_a[m];
-    const float qm = s.buf_b[m];
-    const float i2 = im * im, q2 = qm * qm;
-    const float i3 = i2 * im, q3 = q2 * qm;
-    // _POWERS: (4,0) (3,1) (2,2) (1,3) (0,4) (3,0) (2,1) (1,2) (0,3)
-    //          (2,0) (1,1) (0,2) (1,0) (0,1)
-    acc[0] += i2 * i2;  acc[1] += i3 * qm;  acc[2] += i2 * q2;
-    acc[3] += im * q3;  acc[4] += q2 * q2;  acc[5] += i3;
-    acc[6] += i2 * qm;  acc[7] += im * q2;  acc[8] += q3;
-    acc[9] += i2;       acc[10] += im * qm; acc[11] += q2;
-    acc[12] += im;      acc[13] += qm;
+  // each thread reads, sums (its own outputs only) and corrects its
+  // samples, so no other thread sees one before its correction
+  for (int l = t.l0 + tid; l < t.m1 - t.q_base; l += kThreads) {
+    const float im = s.iq_i[l];
+    const float qm = s.iq_q[l];
+    if (l + t.q_base >= t.m0) {
+      const float i2 = im * im, q2 = qm * qm;
+      const float i3 = i2 * im, q3 = q2 * qm;
+      // _POWERS: (4,0) (3,1) (2,2) (1,3) (0,4) (3,0) (2,1) (1,2) (0,3)
+      //          (2,0) (1,1) (0,2) (1,0) (0,1)
+      acc[0] += i2 * i2;  acc[1] += i3 * qm;  acc[2] += i2 * q2;
+      acc[3] += im * q3;  acc[4] += q2 * q2;  acc[5] += i3;
+      acc[6] += i2 * qm;  acc[7] += im * q2;  acc[8] += q3;
+      acc[9] += i2;       acc[10] += im * qm; acc[11] += q2;
+      acc[12] += im;      acc[13] += qm;
+    }
     const float ic = im - dci;
-    s.buf_a[m] = ic;
-    s.buf_b[m] = (qm - dcq - rho * ic) * sc;
+    s.iq_i[l] = ic;
+    s.iq_q[l] = (qm - dcq - rho * ic) * sc;
   }
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -267,75 +427,156 @@ __device__ void corr_epilogue(const Smem& s, const Geometry& g, int tid,
     if (lane == 0) s.red[k * kWarps + warp] = v;
   }
   __syncthreads();  // the per-warp sums and the corrected I/Q
+  float* mine = partial + (row * g.n_tiles + tile) * kMoments;
   if (tid < kMoments) {
-    float t = 0.0f;
-    for (int w = 0; w < kWarps; ++w) t += s.red[tid * kWarps + w];
-    mom[tid] = t / static_cast<float>(g.n_out);
+    float v = 0.0f;
+    for (int w = 0; w < kWarps; ++w) v += s.red[tid * kWarps + w];
+    mine[tid] = v;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(count + row, 1) == g.n_tiles - 1;
+  __syncthreads();
+  if (last && tid < kMoments) {
+    __threadfence();
+    const float* all = partial + row * g.n_tiles * kMoments;
+    float v = 0.0f;
+    for (int k = 0; k < g.n_tiles; ++k) v += __ldcg(all + k * kMoments + tid);
+    mom[row * kMoments + tid] = v / static_cast<float>(g.n_out);
+  }
+}
+
+// Stages 2-4 of one tile.  On entry iq_i/iq_q hold the tile's I/Q from
+// l0 on (and tile 0's carried prev at s_b), visible to every thread, and
+// the bank (and carrier) taps are in shared memory.
+template <bool kRds>
+__device__ void band_stages(const Smem& s, const Geometry& g, const Tile& t,
+                            long long row, int tid, const BandIO& io) {
+  constexpr int kNb = kRds ? 3 : 2;
+  const long long ro = row * g.n_out;
+  float* fm = s.fm;
+
+  // ---- 2. demod into fm_ext = [bank_tail || fm] (tile 0) or fm
+  if (t.first)
+    for (int k = tid; k < g.s_b; k += kThreads)
+      fm[k] = io.bank_tail[row * g.s_b + k];
+  const int n_fm = t.n_bank + g.s_b;
+  for (int l = t.lf0 + tid; l < n_fm; l += kThreads) {
+    const float i = s.iq_i[l + 1];
+    const float q = s.iq_q[l + 1];
+    const float ip = s.iq_i[l];
+    const float qp = s.iq_q[l];
+    const float power = i * i + q * q;
+    const float num = i * (q - qp) - q * (i - ip);
+    fm[l] = power == 0.0f ? 0.0f : num / power;
+  }
+  for (int l = n_fm + tid; l < g.l_fm; l += kThreads) fm[l] = 0.0f;
+  if (t.last && tid == 0) {
+    io.prev_i_out[row] = s.iq_i[g.n_out - 1 - t.q_base];
+    io.prev_q_out[row] = s.iq_q[g.n_out - 1 - t.q_base];
+  }
+  __syncthreads();  // i / q are dead from here on
+
+  // ---- 3. band bank over fm, mono delay; with RDS the RDS band goes to
+  // rb and its square to sq = [carrier_tail || sq] (tile 0) or sq
+  const int sq_off = t.first ? g.s_b : 0;
+  if (kRds && t.first)
+    for (int k = tid; k < g.s_b; k += kThreads)
+      s.sq[k] = io.carrier_tail[row * g.s_b + k];
+  for (int c = tid; c < round4(t.n_bank) / kR; c += kThreads) {
+    const int t0 = c * kR;
+    float acc[kNb][kR] = {};
+    mac4<kNb>(s.hb, g.kp, fm + t0, g.kp / 4, acc);
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      const int tt = t0 + k;
+      if (tt < t.n_bank) {
+        const int m = t.b0 + tt;
+        if (m >= t.m0) {
+          io.pilot[ro + m] = acc[0][k];
+          io.stereo[ro + m] = acc[1][k];
+        }
+        if (kRds) {
+          s.rb[tt] = acc[kNb - 1][k];
+          s.sq[tt + sq_off] = acc[kNb - 1][k] * acc[kNb - 1][k];
+        }
+      }
+    }
+  }
+  for (int m = t.m0 + tid; m < t.m1; m += kThreads)
+    io.fmd[ro + m] = t.first && m < g.dly ? io.mono_delay[row * g.dly + m]
+                                          : fm[m - g.dly - t.f_base];
+  if (t.last) {
+    for (int k = tid; k < g.s_b; k += kThreads)
+      io.bank_tail_out[row * g.s_b + k] = fm[g.n_out - g.s_b + k - t.f_base];
+    for (int d = tid; d < g.dly; d += kThreads)
+      io.mono_delay_out[row * g.dly + d] =
+          fm[g.n_out - g.dly + d - t.f_base];
+  }
+  if (!kRds) return;
+  const int n_c = t.m1 - t.m0;
+  for (int k = n_c + g.s_b + tid; k < round4(n_c) + g.kp; k += kThreads)
+    s.sq[k] = 0.0f;
+  __syncthreads();
+
+  // ---- 4. carrier BPF over the squared RDS band, RDS delay
+  for (int c = tid; c < round4(n_c) / kR; c += kThreads) {
+    const int t0 = c * kR;
+    float acc[1][kR] = {};
+    mac4<1>(s.hc, 0, s.sq + t0, g.kp / 4, acc);
+#pragma unroll
+    for (int k = 0; k < kR; ++k)
+      if (t0 + k < n_c) io.carrier[ro + t.m0 + t0 + k] = acc[0][k];
+  }
+  for (int m = t.m0 + tid; m < t.m1; m += kThreads)
+    io.rdsdel[ro + m] = t.first && m < g.dly ? io.rds_delay[row * g.dly + m]
+                                             : s.rb[m - g.dly - t.b0];
+  if (t.last) {
+    for (int k = tid; k < g.s_b; k += kThreads)
+      io.carrier_tail_out[row * g.s_b + k] = s.sq[g.n_out - t.m0 + k];
+    for (int d = tid; d < g.dly; d += kThreads)
+      io.rds_delay_out[row * g.dly + d] = s.rb[g.n_out - g.dly + d - t.b0];
   }
 }
 
 template <bool kRds, bool kCorr>
-__global__ void __launch_bounds__(kThreads) frontend_full_kernel(
+__global__ void __launch_bounds__(kThreads, kFullBlocks)
+    frontend_full_kernel(
     const uint8_t* __restrict__ iq_u8, const float* __restrict__ h_rf,
     const float* __restrict__ h_bank, const float* __restrict__ h_carrier,
     const float* __restrict__ iq_tail, float* __restrict__ iq_tail_out,
-    const float* __restrict__ corr, float* __restrict__ mom, BandIO io,
+    const float* __restrict__ corr, float* __restrict__ mom,
+    float* __restrict__ partial, int* __restrict__ count, BandIO io,
     Geometry g) {
-  extern __shared__ float smem[];
-  const Smem s = carve<kRds>(smem, g);
+  extern __shared__ float4 smem4[];
+  const Smem s = carve(reinterpret_cast<float*>(smem4), g, kRds);
   const long long row = blockIdx.x;
+  const int tile = blockIdx.y;
   const int tid = threadIdx.x;
+  const Tile t = make_tile(g, tile, kRds);
   const uint8_t* x = iq_u8 + row * g.bs;
   const float* tail = iq_tail + row * 2 * g.s_rf;  // [2, s_rf]
 
-  for (int j = tid; j < g.k_rf; j += kThreads) s.hr[j] = h_rf[j];
+  for (int i = tid; i < g.decim * g.nq; i += kThreads) {
+    const int a = (i % g.nq) * g.decim + i / g.nq;
+    s.hs[i] = a <= g.s_rf ? h_rf[g.s_rf - a] : 0.0f;
+  }
   load_taps(s, g, h_bank, kRds ? h_carrier : nullptr, bank_rows(kRds), tid);
-
-  // ---- 1. RF LPF, both legs: y[m] = sum_j h[j] * ext[m*decim + s_rf - j]
-  // with ext = [tail || x] per leg.  A tile of kTile outputs reads ext
-  // indices [m0*decim, m0*decim + tile_in).  i_ds goes to buf_a, q_ds to
-  // buf_b.
-  for (int m0 = 0; m0 < g.n_out; m0 += kTile) {
-    __syncthreads();  // previous tile consumed (and taps loaded)
-    const long long w0 = static_cast<long long>(m0) * g.decim;
-    // walk the interleaved bytes: consecutive threads, consecutive bytes
-    for (int b = tid; b < 2 * g.tile_in; b += kThreads) {
-      const int u = b >> 1;
-      const int leg = b & 1;
-      const long long w = w0 + u;     // ext index
-      float v = 0.0f;
-      if (w < g.s_rf) {
-        v = tail[leg * g.s_rf + w];
-      } else if (w - g.s_rf < g.n_in) {
-        v = (static_cast<float>(x[2 * (w - g.s_rf) + leg]) - 128.0f) *
-            0.0078125f;
-      }
-      (leg ? s.tile_q : s.tile_i)[u] = v;
-    }
-    __syncthreads();
-    for (int i = tid; i < kTile && m0 + i < g.n_out; i += kThreads) {
-      const int base = i * g.decim + g.s_rf;
-      float ai = 0.0f, aq = 0.0f;
-      for (int j = 0; j < g.k_rf; ++j) {
-        ai += s.hr[j] * s.tile_i[base - j];
-        aq += s.hr[j] * s.tile_q[base - j];
-      }
-      s.buf_a[m0 + i] = ai;
-      s.buf_b[m0 + i] = aq;
-    }
+  if (t.first && tid == 0) {
+    s.iq_i[g.s_b] = io.prev_i[row];
+    s.iq_q[g.s_b] = io.prev_q[row];
   }
-  for (int t = tid; t < 2 * g.s_rf; t += kThreads) {
-    // next RF tail, [2, s_rf], from the raw block's last 2*s_rf bytes
-    const int leg = t / g.s_rf;
-    const int k = t % g.s_rf;
-    iq_tail_out[row * 2 * g.s_rf + t] =
-        (static_cast<float>(x[g.bs - 2 * g.s_rf + 2 * k + leg]) - 128.0f) *
-        0.0078125f;
-  }
-  __syncthreads();
-  if (kCorr)
-    corr_epilogue(s, g, tid, corr + row * 4, mom + row * kMoments);
-  band_stages<kRds>(s, g, row, tid, io);
+  rf_stage(s, g, t, x, tail, tid);
+  if (t.last)
+    for (int j = tid; j < 2 * g.s_rf; j += kThreads) {
+      // next RF tail, [2, s_rf], from the raw block's last 2*s_rf bytes
+      const int leg = j / g.s_rf;
+      const int k = j % g.s_rf;
+      iq_tail_out[row * 2 * g.s_rf + j] =
+          norm(x[g.bs - 2 * g.s_rf + 2 * k + leg]);
+    }
+  if (kCorr) corr_stage(s, g, t, row, tile, tid, corr, mom, partial, count);
+  band_stages<kRds>(s, g, t, row, tid, io);
 }
 
 template <bool kRds>
@@ -343,37 +584,48 @@ __global__ void __launch_bounds__(kThreads) frontend_if_kernel(
     const float* __restrict__ i_if, const float* __restrict__ q_if,
     const float* __restrict__ h_bank, const float* __restrict__ h_carrier,
     BandIO io, Geometry g) {
-  extern __shared__ float smem[];
-  const Smem s = carve<kRds>(smem, g);
+  extern __shared__ float4 smem4[];
+  const Smem s = carve(reinterpret_cast<float*>(smem4), g, kRds);
   const long long row = blockIdx.x;
   const int tid = threadIdx.x;
+  const Tile t = make_tile(g, blockIdx.y, kRds);
   const long long ro = row * g.n_out;
 
   load_taps(s, g, h_bank, kRds ? h_carrier : nullptr, bank_rows(kRds), tid);
-  // ---- 1. the IF I/Q rows into buf_a / buf_b
-  for (int m = tid; m < g.n_out; m += kThreads) {
-    s.buf_a[m] = i_if[ro + m];
-    s.buf_b[m] = q_if[ro + m];
+  if (t.first && tid == 0) {
+    s.iq_i[g.s_b] = io.prev_i[row];
+    s.iq_q[g.s_b] = io.prev_q[row];
+  }
+  // ---- 1. the tile's IF I/Q [g0, m1) into iq_i / iq_q
+  for (int m = t.g0 + tid; m < t.m1; m += kThreads) {
+    s.iq_i[m - t.q_base] = i_if[ro + m];
+    s.iq_q[m - t.q_base] = q_if[ro + m];
   }
   __syncthreads();
-  band_stages<kRds>(s, g, row, tid, io);
+  band_stages<kRds>(s, g, t, row, tid, io);
 }
 
 template <bool kRds, bool kCorr>
 int launch_full(const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
                 const float* h_carrier, const float* iq_tail,
                 float* iq_tail_out, const float* corr, float* mom,
-                const BandIO& io, const Geometry& g, long long c,
-                cudaStream_t stream) {
+                float* partial, int* count, const BandIO& io,
+                const Geometry& g, long long c, cudaStream_t stream) {
+  if (!plan_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_floats(g, kRds, kCorr) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       frontend_full_kernel<kRds, kCorr>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  frontend_full_kernel<kRds, kCorr>
-      <<<static_cast<unsigned>(c), kThreads, smem, stream>>>(
-          iq_u8, h_rf, h_bank, h_carrier, iq_tail, iq_tail_out, corr, mom,
-          io, g);
+  if (kCorr) {
+    err = cudaMemsetAsync(count, 0, static_cast<size_t>(c) * sizeof(int),
+                          stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(c), static_cast<unsigned>(g.n_tiles));
+  frontend_full_kernel<kRds, kCorr><<<grid, kThreads, smem, stream>>>(
+      iq_u8, h_rf, h_bank, h_carrier, iq_tail, iq_tail_out, corr, mom,
+      partial, count, io, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,26 +633,30 @@ template <bool kRds>
 int launch_if(const float* i_if, const float* q_if, const float* h_bank,
               const float* h_carrier, const BandIO& io, const Geometry& g,
               long long c, cudaStream_t stream) {
+  if (!plan_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_floats(g, kRds, false) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       frontend_if_kernel<kRds>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  frontend_if_kernel<kRds><<<static_cast<unsigned>(c), kThreads, smem,
-                             stream>>>(i_if, q_if, h_bank, h_carrier, io, g);
+  const dim3 grid(static_cast<unsigned>(c), static_cast<unsigned>(g.n_tiles));
+  frontend_if_kernel<kRds><<<grid, kThreads, smem, stream>>>(
+      i_if, q_if, h_bank, h_carrier, io, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one thread block takes: B1 for a row of
-// n_in complex samples decimated by `decim` through k_rf RF taps (with the
-// corr epilogue when corr != 0), or B6 (k_rf = 0, decim = 1, corr = 0)
-// for a row of n_in IF samples.  The wrappers check it against the card's
-// 227 KB before a launch.
-extern "C" long long dy4_frontend_smem(int n_in, int decim, int k_rf, int kb,
-                                       int rds, int corr) {
-  const Geometry g = make_geometry(2LL * n_in, decim, k_rf, kb);
+// Bytes of dynamic shared memory one thread block takes: B1 for tiles of
+// `tile` outputs and RF passes of `sub` outputs at decimation `decim`
+// through k_rf RF taps (with the corr epilogue when corr != 0), or B6
+// (k_rf = 0, decim = 1, sub = 0, corr = 0).  frontend_cuda._smem_bytes
+// computes the same; the wrappers check it against the card's 227 KB
+// before a launch.
+extern "C" long long dy4_frontend_smem(int tile, int sub, int decim,
+                                       int k_rf, int kb, int rds, int corr) {
+  const Geometry g = make_geometry(2LL * decim * tile, decim, k_rf, kb,
+                                   rds != 0, tile, sub);
   return static_cast<long long>(smem_floats(g, rds != 0, corr != 0) *
                                 sizeof(float));
 }
@@ -412,8 +668,9 @@ extern "C" long long dy4_frontend_smem(int n_in, int decim, int k_rf, int kb,
 // carrier_tail [c, kb-1], rds_delay [c, kb/2]; the five outputs
 // [c, bs/2/decim] and the new tails in the shapes of the old ones.  With
 // rds = 0, h_carrier, carrier_tail, rds_delay, carrier, rdsdel and their
-// new tails are not touched and may be null.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// new tails are not touched and may be null.  tile, sub: the plan
+// (frontend_cuda._tile_plan).  Returns cudaGetLastError() after the
+// launch (0 = launched), cudaErrorInvalidValue for a plan it cannot run.
 extern "C" int dy4_frontend_full(
     const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
     const float* h_carrier, const float* iq_tail, const float* prev_i,
@@ -423,9 +680,9 @@ extern "C" int dy4_frontend_full(
     float* iq_tail_out, float* prev_i_out, float* prev_q_out,
     float* bank_tail_out, float* mono_delay_out, float* carrier_tail_out,
     float* rds_delay_out, long long c, long long bs, int decim, int k_rf,
-    int kb, int rds, void* stream) {
+    int kb, int rds, int tile, int sub, void* stream) {
   if (c <= 0) return 0;
-  const Geometry g = make_geometry(bs, decim, k_rf, kb);
+  const Geometry g = make_geometry(bs, decim, k_rf, kb, rds != 0, tile, sub);
   const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
                   rds_delay, fmd, pilot, stereo, carrier, rdsdel,
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
@@ -433,14 +690,18 @@ extern "C" int dy4_frontend_full(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rds ? launch_full<true, false>(iq_u8, h_rf, h_bank, h_carrier,
                                         iq_tail, iq_tail_out, nullptr,
-                                        nullptr, io, g, c, st)
+                                        nullptr, nullptr, nullptr, io, g, c,
+                                        st)
              : launch_full<false, false>(iq_u8, h_rf, h_bank, h_carrier,
                                          iq_tail, iq_tail_out, nullptr,
-                                         nullptr, io, g, c, st);
+                                         nullptr, nullptr, nullptr, io, g, c,
+                                         st);
 }
 
 // B1 with the corr epilogue: the arguments of dy4_frontend_full, then
-// corr [c, 4] (dc_i, dc_q, rho, s per row) and mom [c, 14] (out).
+// corr [c, 4] (dc_i, dc_q, rho, s per row), mom [c, 14] (out), and the
+// scratch partial [c, n_tiles, 14] float32 and count [c] int32 (zeroed
+// here on the stream before the launch).
 extern "C" int dy4_frontend_full_corr(
     const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
     const float* h_carrier, const float* iq_tail, const float* prev_i,
@@ -449,21 +710,22 @@ extern "C" int dy4_frontend_full_corr(
     float* pilot, float* stereo, float* carrier, float* rdsdel,
     float* iq_tail_out, float* prev_i_out, float* prev_q_out,
     float* bank_tail_out, float* mono_delay_out, float* carrier_tail_out,
-    float* rds_delay_out, const float* corr, float* mom, long long c,
-    long long bs, int decim, int k_rf, int kb, int rds, void* stream) {
+    float* rds_delay_out, const float* corr, float* mom, float* partial,
+    int* count, long long c, long long bs, int decim, int k_rf, int kb,
+    int rds, int tile, int sub, void* stream) {
   if (c <= 0) return 0;
-  const Geometry g = make_geometry(bs, decim, k_rf, kb);
+  const Geometry g = make_geometry(bs, decim, k_rf, kb, rds != 0, tile, sub);
   const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
                   rds_delay, fmd, pilot, stereo, carrier, rdsdel,
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
                   carrier_tail_out, rds_delay_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rds ? launch_full<true, true>(iq_u8, h_rf, h_bank, h_carrier,
-                                       iq_tail, iq_tail_out, corr, mom, io,
-                                       g, c, st)
+                                       iq_tail, iq_tail_out, corr, mom,
+                                       partial, count, io, g, c, st)
              : launch_full<false, true>(iq_u8, h_rf, h_bank, h_carrier,
-                                        iq_tail, iq_tail_out, corr, mom, io,
-                                        g, c, st);
+                                        iq_tail, iq_tail_out, corr, mom,
+                                        partial, count, io, g, c, st);
 }
 
 // B6.  i_if, q_if: [c, n_out] float32; the rest as for B1 without the RF
@@ -476,9 +738,9 @@ extern "C" int dy4_frontend_if(
     float* pilot, float* stereo, float* carrier, float* rdsdel,
     float* prev_i_out, float* prev_q_out, float* bank_tail_out,
     float* mono_delay_out, float* carrier_tail_out, float* rds_delay_out,
-    long long c, int n_out, int kb, int rds, void* stream) {
+    long long c, int n_out, int kb, int rds, int tile, void* stream) {
   if (c <= 0) return 0;
-  const Geometry g = make_geometry(2LL * n_out, 1, 0, kb);
+  const Geometry g = make_geometry(2LL * n_out, 1, 0, kb, rds != 0, tile, 0);
   const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
                   rds_delay, fmd, pilot, stereo, carrier, rdsdel,
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,

@@ -16,9 +16,11 @@ conic-fit moments of the decimated I/Q before the correction
 the same stages from the demod on, for float32 IF I/Q rows (the IF entry,
 ``receiver_step_if``); the RF ``iq_tail`` is not its business.
 
-B1 and B6 keep all intermediate streams of a row in shared memory, so
-only the block's input and the IF-rate outputs touch device memory (see
-the note in ``csrc/frontend.cu``).  They match the plain versions to
+B1 and B6 run on a grid of (row, time tile): a thread block owns
+``_tile_plan``'s tile of IF outputs of one row and recomputes a halo of
+samples before it, so every intermediate stream stays in shared memory
+and only the block's input and the IF-rate outputs touch device memory
+(see the note in ``csrc/frontend.cu``).  They match the plain versions to
 float32 tolerance; B1's new ``iq_tail`` and B6's new ``prev_i``/``prev_q``
 are exact.
 
@@ -52,6 +54,7 @@ exact.
 from __future__ import annotations
 
 import ctypes
+import typing
 
 import torch
 import torch.nn.functional as F
@@ -62,15 +65,84 @@ from dy4tpu_torch.runtime import kernels
 Tensor = torch.Tensor
 
 _ARGS = ([ctypes.c_void_p] * 23 + [ctypes.c_longlong] * 2
-         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_CORR_ARGS = ([ctypes.c_void_p] * 25 + [ctypes.c_longlong] * 2
-              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_CORR_ARGS = ([ctypes.c_void_p] * 27 + [ctypes.c_longlong] * 2
+              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _IF_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _RF_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 # the u8 block's way into the RF kernel (csrc/frontend_rf.cu's Source)
 _BYTES, _PLANES, _WORDS = 0, 1, 2
+
+
+# B1 / B6's tiling (csrc/frontend.cu): IF outputs a tile owns, threads a
+# block, window samples a thread holds for an RF pass
+TILE, THREADS, PASS_SAMPLES = 1536, 256, 20 * 256
+MOMENTS = len(iqcorr._POWERS)
+
+
+class TilePlan(typing.NamedTuple):
+    """B1 / B6's grid over one row: ``n_tiles`` tiles of ``tile`` IF
+    outputs (the last one ragged), each recomputing ``halo`` I/Q samples
+    before its first output; B1's RF stage runs in passes of ``sub``
+    outputs (0 for B6)."""
+    tile: int
+    n_tiles: int
+    halo: int
+    sub: int
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _phase_taps(decim: int, k_rf: int) -> int:
+    """RF taps a polyphase row of B1's window holds, padded to 4."""
+    return _round4((k_rf - 1) // decim + 1) if k_rf else 0
+
+
+def _tile_plan(n_out: int, decim: int, k_rf: int, kb: int,
+               rds: bool) -> TilePlan:
+    """The kernels' plan for rows of ``n_out`` IF samples (``k_rf`` = 0
+    for B6).  The halo is what one output needs before it: 2*(kb-1)+1
+    with RDS (the carrier BPF over kb-1 RDS-band samples, the bank over
+    kb-1 fm samples, the demod one I/Q sample), kb without; a tile is at
+    least the halo, so only tile 0 reads the carried state.  B1's RF
+    passes split the most RF outputs a tile makes (tile + halo) evenly
+    into passes whose window (``sub`` + the phase taps, padded, times
+    decim) fits the ``PASS_SAMPLES`` the threads prefetch."""
+    halo = 2 * (kb - 1) + 1 if rds else kb
+    tile = max(TILE, _round4(halo))
+    n_tiles = -(-n_out // tile)
+    sub = 0
+    if k_rf:
+        # a pass's window row is sub + phase taps, padded by up to 28
+        w_max = (PASS_SAMPLES // decim - _phase_taps(decim, k_rf) - 28
+                 ) // 4 * 4
+        if w_max < 4:
+            raise ValueError(f"B1 does not take decimation {decim} with "
+                             f"{k_rf} RF taps")
+        n_rf = min(n_out, tile) + halo
+        passes = -(-n_rf // w_max)
+        sub = _round4(-(-n_rf // passes))
+    return TilePlan(tile, n_tiles, halo, sub)
+
+
+def _smem_bytes(plan: TilePlan, decim: int, k_rf: int, kb: int, rds: bool,
+                corr: bool) -> int:
+    """Shared memory one B1 / B6 block takes: ``dy4_frontend_smem``'s
+    formula (``csrc/frontend.cu``), for the CPU tests."""
+    kp = _round4(kb)
+    nq = _phase_taps(decim, k_rf)
+    lp = plan.sub + nq
+    lp += (36 - lp % 32) % 32
+    taps = (decim * nq if k_rf else 0) + ((3 if rds else 2) + rds) * kp
+    l_iq = _round4(plan.tile + plan.halo)
+    l_fm = _round4(plan.tile + (kb - 1 if rds else 0)) + kp + 4
+    win = 2 * decim * lp if k_rf else 0
+    return 4 * (taps + 2 * l_iq + max(win, l_fm)
+                + (MOMENTS * THREADS // 32 if corr else 0))
 
 
 def rf_lpf_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor, decim: int):
@@ -177,9 +249,10 @@ def _launch_full(args, decim: int, rds: bool, corr=None):
     with_corr = corr is not None
     if with_corr:
         kernels.require(corr, "corr", (c, 4), device=dev)
+    plan = _tile_plan(n_out, decim, k, kb, rds)
     kernels.check_smem("frontend", "dy4_frontend_smem",
-                       "fused_frontend_full", bs // 2, decim, k, kb,
-                       int(rds), int(with_corr))
+                       "fused_frontend_full", plan.tile, plan.sub, decim, k,
+                       kb, int(rds), int(with_corr))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     rds_new = lambda *shape: new(*shape) if rds else None  # noqa: E731
@@ -191,14 +264,17 @@ def _launch_full(args, decim: int, rds: bool, corr=None):
         args = args[:3] + (None,) + args[4:9] + (None, None)
     ptrs = [_ptr(t) for t in (*args, *outs)]
     if with_corr:
-        mom = new(c, len(iqcorr._POWERS))
+        mom = new(c, MOMENTS)
+        partial = new(c, plan.n_tiles, MOMENTS)       # per-tile sums
+        count = torch.empty(c, dtype=torch.int32, device=dev)
         fn = kernels.entry("frontend", "dy4_frontend_full_corr", _CORR_ARGS)
-        ptrs += [corr.data_ptr(), mom.data_ptr()]
+        ptrs += [corr.data_ptr(), mom.data_ptr(), partial.data_ptr(),
+                 count.data_ptr()]
     else:
         fn = kernels.entry("frontend", "dy4_frontend_full", _ARGS)
     with torch.cuda.device(dev):
-        status = fn(*ptrs, c, bs, decim, k, kb, int(rds),
-                    kernels.stream_of(iq_u8))
+        status = fn(*ptrs, c, bs, decim, k, kb, int(rds), plan.tile,
+                    plan.sub, kernels.stream_of(iq_u8))
     kernels.check_launch(status, "frontend fused_frontend_full")
     return (*outs, mom) if with_corr else tuple(outs)
 
@@ -285,8 +361,9 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
         kernels.require(t, name, shape, device=dev)
     _require_bands(h_bank, h_carrier, bank_tail, mono_delay, carrier_tail,
                    rds_delay, c, rds, dev)
+    plan = _tile_plan(n, 1, 0, kb, rds)
     kernels.check_smem("frontend", "dy4_frontend_smem", "fused_frontend_if",
-                       n, 1, 0, kb, int(rds), 0)
+                       plan.tile, 0, 1, 0, kb, int(rds), 0)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     rds_new = lambda *shape: new(*shape) if rds else None  # noqa: E731
@@ -299,7 +376,7 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
     fn = kernels.entry("frontend", "dy4_frontend_if", _IF_ARGS)
     with torch.cuda.device(dev):
         status = fn(*(_ptr(t) for t in ins), *(_ptr(t) for t in outs), c, n,
-                    kb, int(rds), kernels.stream_of(i_if))
+                    kb, int(rds), plan.tile, kernels.stream_of(i_if))
     kernels.check_launch(status, "frontend fused_frontend_if")
     fused_frontend_if.launches += 1
     return tuple(outs)
