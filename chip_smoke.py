@@ -25,6 +25,8 @@ front-end routes and the kernels no receiver route runs:
    the IQ tracker's corr epilogue (per-row coefficients from a seed; the
    moments within a relative 1e-5), mid-stream and on block 0 from a cold
    state (there elementwise within 1e-5 plus the demod's conditioning).
+   B9 also at a ragged [37, 383] (37 streams, m two 128-step tiles + 127,
+   NaN spans over the tile boundary at 128 in every third row).
    At mode 0 B2 is also held bitwise at a ragged [37, 1531] (37 pilot
    rows, N no multiple of 4 or of its 128-step tile) and at the CLI's
    [1, 2, 7680]; at modes 0 and 1 (decim 10 and 5) B1, B1-corr and B6 also
@@ -70,12 +72,16 @@ front-end routes and the kernels no receiver route runs:
    ``bench.py``'s sharded point (C=128, shard_blocks=6, the auto 1920-IF
    halo): B8 against its plain version and against B2 on the float32
    samples its codes came from, bitwise, at [128, 2, 48000] (some rows
-   with an INVALID prefix, one INVALID throughout); then 4 ``step`` calls
+   with an INVALID prefix, one INVALID throughout) and at a ragged
+   [37, 1531] (N no multiple of 16 or of the tile; split_at 0, 128, 1000
+   and 1531; an INVALID run over [100, 300) in every third row, one row
+   INVALID throughout); then 4 ``step`` calls
    over 24 blocks, every output bitwise equal to ``run_blocks`` on the
    card, B8 launched once per step and B1, B3, B4 seven times (the warm-up
    and six blocks), B2 and B9 never; channel 0 decoded; and the sharded
    step against plain ``run_blocks`` as ``bench.py``'s ``_time_sharded``
-   times them (medians of 5);
+   times them (medians of 5), with B8's share of the sharded step's device
+   time under ``torch.profiler``;
 7. phase 6, the PSD path and the tools at mode 0: B10 (the FFT) against its
    plain version (the four-step) and against ``torch.fft.fft``, within 1e-5
    of the largest magnitude, at every N of 4..2048 that its TPU twin takes,
@@ -95,16 +101,17 @@ front-end routes and the kernels no receiver route runs:
    plain versions and B12, B13 against B11 on block 2 (fm within 1e-3 where
    the decimated power is above 1e-3, iq_tail exact, prev_i/prev_q within
    1e-5), and B9-expand against its plain version and B9 + the torch
-   expansion, bitwise; ``run_blocks`` over 24 blocks with
-   ``frontend="fused-rf"`` and ``"fused-phase"`` (B11 or B12 exactly once
-   a block, B1 never; channel 0 decoded; four channels held to the B1
-   route; median of 5 rates) and with ``pll_span=8, pll_span_emit=
-   "kernel"`` (B9-expand once a block, B9 never; decoded; every output
-   bitwise equal to the torch expansion's run); at mode 0, B13 and B14
-   (``fir.block_fir_decim(impl="kernel")`` on the RF legs) through their
-   own calls over the 24 blocks, state carried, each once a block and
-   nothing else; then B14 against its plain conv1d (also the library
-   call) at six geometries, y within 2e-4 x max(1, max|y|), state exact.
+   expansion, bitwise, also at B9's ragged [37, 383]; ``run_blocks`` over
+   24 blocks with ``frontend="fused-rf"`` and ``"fused-phase"`` (B11 or
+   B12 exactly once a block, B1 never; channel 0 decoded; four channels
+   held to the B1 route; median of 5 rates) and with ``pll_span=8,
+   pll_span_emit="kernel"`` (B9-expand once a block, B9 never; decoded;
+   every output bitwise equal to the torch expansion's run); at mode 0,
+   B13 and B14 (``fir.block_fir_decim(impl="kernel")`` on the RF legs)
+   through their own calls over the 24 blocks, state carried, each once a
+   block and nothing else; then B14 against its plain conv1d (also the
+   library call) at six geometries, y within 2e-4 x max(1, max|y|), state
+   exact.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -196,6 +203,16 @@ FP32_LATENCY = 4                     # cycles from one dependent float op
 # an estimate from below.
 B2_STEP_OPS, B9_STEP_OPS, PLL_CHAIN_OPS = 17, 18, 13
 B2_RAGGED = (37, 1531)  # B2 at mode 0: 32 + 5 rows, N = 11 x 128 + 123, odd
+# B8 (phase 5) at 32 + 5 rows, N no multiple of 16 or of the 128-step
+# tile, split_at at 0, a tile boundary, strictly inside a tile and N, with
+# an INVALID run over the tile boundaries at 128 and 256 in every third row
+# from row 1 and one row INVALID throughout
+B8_RAGGED, B8_SPLITS = (37, 1531), (0, 128, 1000, 1531)
+B8_INVALID = (100, 300)
+# B9 and B9-expand at modes 0 and 1: 32 + 5 streams, m = 2 x 128 + 127 span
+# steps (odd: 4-byte copies), NaN spans over the tile boundary at 128 in
+# every third row from row 1
+B9_RAGGED, B9_NAN = (37, 383), (120, 136)
 # B1 / B6 at modes 0 and 1: 37 rows, n_out = two tiles + 60 (the last
 # tile shorter than the band filters' 100-sample history)
 FRONT_RAGGED_ROWS, FRONT_RAGGED_LAST = 37, 60
@@ -727,6 +744,62 @@ def _span_case(x, consts, dth, dev):
     return tuple(torch.as_tensor(v, device=dev) for v in eff), targets
 
 
+def _ragged_span(targets, eff, carry, per_sample=()):
+    """The span scans' ragged case cut from a full one: the first
+    B9_RAGGED[0] streams (lanes flattened), the first B9_RAGGED[1] span
+    steps, and NaN spans B9_NAN over a tile boundary in every third row
+    from row 1.  Returns ``(targets, eff, carry, per_sample)`` with every
+    constant one value a stream."""
+    import torch
+
+    rows, m = B9_RAGGED
+    batch = targets.shape[:-1]
+    def cut(a):
+        return torch.broadcast_to(a, batch).reshape(-1)[:rows].contiguous()
+
+    t = targets.reshape(-1, targets.shape[-1])[:rows, :m].clone()
+    t[1::3, B9_NAN[0]:B9_NAN[1]] = float("nan")
+    return (t, tuple(cut(a) for a in eff), tuple(cut(c) for c in carry),
+            tuple(cut(a) for a in per_sample))
+
+
+def _b9_row(label, targets, eff, carry, where=f"C={C}") -> "_Row":
+    """B9 against its plain span scan on ``targets`` [..., M] with the
+    span constants ``eff`` from ``carry``, bitwise (phi0, i0 and the end
+    carry); raises otherwise.  Returns the row, the plain scan timed by
+    its comparison call."""
+    import torch
+    from dy4tpu_torch.ops import pll_cuda
+
+    kp_s, ki_s, dth_s = eff
+    _distinct_rows("B9", torch.nan_to_num(targets, nan=9.0), *carry)
+    k_res = pll_cuda.phase_scan_target(targets, kp_s, ki_s, dth_s, carry,
+                                       span=SPAN)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_res = pll_cuda.phase_scan_target_plain(targets, kp_s, ki_s, dth_s,
+                                             carry, span=SPAN)
+    stop.record()
+    torch.cuda.synchronize()
+    k_flat = (k_res[0], k_res[1], *k_res[2])
+    p_flat = (p_res[0], p_res[1], *p_res[2])
+    if not all(torch.equal(a, b) for a, b in zip(k_flat, p_flat)):
+        raise AssertionError(f"B9 {label} {list(targets.shape)} span PLL is "
+                             f"not bitwise equal to its plain version: max "
+                             f"|dphi0| {_max_err(k_flat, p_flat)}")
+    return _Row(
+        "B9 pll_span", f"{label} {list(targets.shape)} span {SPAN}",
+        "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:278",
+        pll_cuda.phase_scan_target, _max_err(k_flat, p_flat), 0.0,
+        lambda: pll_cuda.phase_scan_target(targets, kp_s, ki_s, dth_s,
+                                           carry, span=SPAN),
+        plain_ms=start.elapsed_time(stop), where=where,
+        nbytes=_nbytes(targets, kp_s, ki_s, dth_s, carry, k_flat),
+        flops=B9_STEP_OPS * targets.numel(), chain_steps=targets.shape[-1])
+
+
 def _b2_row(label, x, kp, ki, dth, carry, where=f"C={C}",
             phase="phase 2") -> "_Row":
     """B2 against its plain scan on ``x`` [..., N] from ``carry``, bitwise
@@ -901,36 +974,13 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
 
     if cfg.mode in OPT_MODES:
         # B9: the span PLL's scan over the broadcast's span targets, with
-        # the span constants and a dead (NaN) span in every row
-        (kp_s, ki_s, dth_s), targets = _span_case(x, consts, dth, dev)
-        m = targets.shape[-1]
-        _distinct_rows("B9", torch.nan_to_num(targets, nan=9.0), *carry)
-        k_res = pll_cuda.phase_scan_target(targets, kp_s, ki_s, dth_s, carry,
-                                           span=SPAN)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        p_res = pll_cuda.phase_scan_target_plain(targets, kp_s, ki_s, dth_s,
-                                                 carry, span=SPAN)
-        stop.record()
-        torch.cuda.synchronize()
-        k_flat = (k_res[0], k_res[1], *k_res[2])
-        p_flat = (p_res[0], p_res[1], *p_res[2])
-        if not all(torch.equal(a, b) for a, b in zip(k_flat, p_flat)):
-            raise AssertionError(f"B9 {mode} span PLL is not bitwise equal "
-                                 f"to its plain version: max |dphi0| "
-                                 f"{_max_err(k_flat, p_flat)}")
-        rows.append(_Row(
-            "B9 pll_span", f"{mode} {list(targets.shape)} span {SPAN}",
-            "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:278",
-            pll_cuda.phase_scan_target, _max_err(k_flat, p_flat), 0.0,
-            lambda: pll_cuda.phase_scan_target(targets, kp_s, ki_s, dth_s,
-                                               carry, span=SPAN),
-            plain_ms=start.elapsed_time(stop),
-            nbytes=_nbytes(targets, kp_s, ki_s, dth_s, carry, k_flat),
-            flops=B9_STEP_OPS * targets.numel(), chain_steps=m))
-        del k_res, p_res, k_flat, p_flat
+        # the span constants and a dead (NaN) span in every row; then at
+        # a ragged geometry
+        eff, targets = _span_case(x, consts, dth, dev)
+        rows.append(_b9_row(mode, targets, eff, carry))
+        cut = _ragged_span(targets, eff, carry)[:3]
+        rows.append(_b9_row(f"{mode} ragged", *cut, where="streams"))
+        del targets
 
     nco_i2, nco_q2, _ = pll.pll(x, state, fs=cfg.if_fs, impl="kernel",
                                 **lanes)
@@ -1817,10 +1867,11 @@ def _run_cli(smi) -> None:
              f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
 
-def _profile(fn) -> tuple[float, int, int]:
+def _profile(fn, kernel: str = "") -> tuple[float, int, int, float]:
     """One call of ``fn`` under ``torch.profiler``: (device busy ms, the
     sum of the device events' durations; the number of device events;
-    the number of top-level torch ops the host issued)."""
+    the number of top-level torch ops the host issued; the ms of the
+    device events whose name holds ``kernel``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1833,11 +1884,13 @@ def _profile(fn) -> tuple[float, int, int]:
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     ops = sum(1 for e in events if e.name.startswith("aten::")
               and e.cpu_parent is None)
+    mine = sum(e.time_range.elapsed_us() for e in dev
+               if kernel and kernel in e.name)
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
-            ops)
+            ops, mine / 1e3)
 
 
-def _check_b8(cfg, params, blocks, halo_if, dev) -> "_Row":
+def _check_b8(cfg, params, blocks, halo_if, dev) -> list:
     """Phase 5's kernel check: B8 at the sharded path's shape, codes
     [SH_C, 2, halo_if + SH_S * N] of the broadcast's PLL inputs (the pilot
     and RDS carrier rows from B1 over the first blocks, every row its own
@@ -1846,7 +1899,8 @@ def _check_b8(cfg, params, blocks, halo_if, dev) -> "_Row":
     INVALID throughout (a padding row), from per-row carries, split where
     the receiver splits.  Held bitwise to its plain version, and on the
     valid samples to B2 run over the float32 samples the codes came from:
-    phases, the carry at the split and at the end.  Returns the row."""
+    phases, the carry at the split and at the end.  Then the ragged case
+    on the same inputs (``_check_b8_ragged``).  Returns the two rows."""
     import numpy as np
     import torch
     from dy4tpu_torch.ops import pll, pll_cuda
@@ -1916,7 +1970,7 @@ def _check_b8(cfg, params, blocks, halo_if, dev) -> "_Row":
          f"{int((live & prefix).sum())} after a {halo_if}-sample INVALID "
          f"prefix), phases and both carries; the INVALID row kept its "
          f"carry")
-    return _Row(
+    return [_Row(
         "B8 pll_coded", f"mode0 {list(codes.shape)}",
         "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:308",
         pll_cuda.phase_scan_coded, _max_err(k_flat, p_flat), 0.0,
@@ -1924,7 +1978,104 @@ def _check_b8(cfg, params, blocks, halo_if, dev) -> "_Row":
                                           split_at=split),
         plain_ms=start.elapsed_time(stop), where=f"C={SH_C}",
         nbytes=_nbytes(codes, kp, ki, dth, carry, k_flat),
-        flops=B2_STEP_OPS * x.numel(), chain_steps=m, phase="phase 5")
+        flops=B2_STEP_OPS * x.numel(), chain_steps=m, phase="phase 5"),
+        _check_b8_ragged(x, kp, ki, dth)]
+
+
+def _check_b8_ragged(x, kp, ki, dth) -> "_Row":
+    """B8 at B8_RAGGED, cut from phase 5's PLL inputs ``x`` [SH_C, 2, m]
+    (pilot rows), with the INVALID run B8_INVALID over two tile boundaries
+    in every third row from row 1 and row 2 INVALID throughout, from
+    per-row carries, at every split_at of B8_SPLITS: bitwise equal to its
+    plain version, and to B2 on the float32 samples the codes came from
+    (the rows without INVALID codes whole; the rows with the run before it,
+    then the frozen carry's phase across it, then after it), phases and
+    both carries.  Returns the row, timed at the split inside a tile."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.ops import pll, pll_cuda
+
+    (rows_n, n), (lo, hi), dead = B8_RAGGED, B8_INVALID, 2
+    xr = x[:rows_n, 0, :n].contiguous()
+    codes = pll.encode_sign(xr)
+    run = torch.arange(rows_n, device=x.device) % 3 == 1
+    clean = ~run
+    clean[dead] = False
+    codes[run, lo:hi] = pll.CODE_INVALID
+    codes[dead] = pll.CODE_INVALID
+    draw = np.random.default_rng(6)
+    carry = tuple(torch.from_numpy(draw.uniform(a, b, rows_n).astype(
+        np.float32)).to(x.device) for a, b in ((-1e-3, 1e-3), (0, 4 * np.pi),
+                                               (0, 4 * np.pi)))
+    kp, ki, dth = kp[0], ki[0], dth[0]
+    _distinct_rows("B8 ragged", codes, *carry)
+
+    def b2(sel, t0, t1, c):
+        return pll_cuda.phase_scan(xr[sel, t0:t1].contiguous(), kp, ki, dth,
+                                   c)
+
+    def rows_of(sel, c):
+        return tuple(a[sel].contiguous() for a in c)
+
+    c_clean, c_run = rows_of(clean, carry), rows_of(run, carry)
+    b_phi, b_end = b2(clean, 0, n, c_clean)
+    a_phi, at_lo = b2(run, 0, lo, c_run)            # the carry at the run
+    z_phi, z_end = b2(run, hi, n, at_lo)
+    held = (at_lo[2] + at_lo[1])[:, None].expand(-1, hi - lo)
+    want_run = torch.cat([a_phi, held, z_phi], -1)
+    for split in B8_SPLITS:
+        k_phi, k_mid, k_end = pll_cuda.phase_scan_coded(
+            codes, kp, ki, dth, carry, split_at=split)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p_phi, p_mid, p_end = pll_cuda.phase_scan_coded_plain(
+            codes, kp, ki, dth, carry, split_at=split)
+        stop.record()
+        torch.cuda.synchronize()
+        k_flat, p_flat = (k_phi, *k_mid, *k_end), (p_phi, *p_mid, *p_end)
+        label = f"B8 ragged {list(codes.shape)} split at {split}"
+        if not all(torch.equal(a, b) for a, b in zip(k_flat, p_flat)):
+            raise AssertionError(f"{label}: not bitwise equal to its plain "
+                                 f"version: max |dphi| "
+                                 f"{_max_err(k_flat, p_flat)}")
+        mid_clean = c_clean if split == 0 else b2(clean, 0, split, c_clean)[1]
+        mid_run = (c_run if split == 0 else b2(run, 0, split, c_run)[1]
+                   if split <= lo else at_lo if split <= hi
+                   else b2(run, hi, split, at_lo)[1])
+        torch.cuda.synchronize()
+        frozen = carry[2][dead] + carry[1][dead]
+        if not (torch.equal(k_phi[clean], b_phi)
+                and torch.equal(k_phi[run], want_run)
+                and all(torch.equal(a[clean], b) for a, b in
+                        zip(k_mid + k_end, mid_clean + b_end))
+                and all(torch.equal(a[run], b) for a, b in
+                        zip(k_mid + k_end, mid_run + z_end))
+                and all(torch.equal(a[dead], b[dead]) for a, b in
+                        zip(k_mid + k_end, carry + carry))
+                and bool((k_phi[dead] == frozen).all())):
+            raise AssertionError(f"{label}: departs from B2 on the samples "
+                                 f"its codes came from, or the INVALID "
+                                 f"codes moved the carry")
+        if split == B8_SPLITS[2]:
+            row = (k_flat, p_flat, start.elapsed_time(stop))
+    _say(f"phase 5: B8 ragged {list(codes.shape)}, split at "
+         f"{', '.join(map(str, B8_SPLITS))}: bitwise equal to its plain "
+         f"version, and to B2 on the float32 samples ({int(clean.sum())} "
+         f"rows whole, {int(run.sum())} around an INVALID run over "
+         f"[{lo}, {hi})), phases and both carries; the INVALID row kept "
+         f"its carry")
+    k_flat, p_flat, plain_ms = row
+    return _Row(
+        "B8 pll_coded", f"ragged {list(codes.shape)}",
+        "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:308",
+        pll_cuda.phase_scan_coded, _max_err(k_flat, p_flat), 0.0,
+        lambda: pll_cuda.phase_scan_coded(codes, kp, ki, dth, carry,
+                                          split_at=B8_SPLITS[2]),
+        plain_ms=plain_ms, where="pilot rows",
+        nbytes=_nbytes(codes, kp, ki, dth, carry, k_flat),
+        flops=B2_STEP_OPS * codes.numel(), chain_steps=n, phase="phase 5")
 
 
 def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
@@ -1935,7 +2086,9 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
     same blocks on the card, B8 launched once per step and B1, B3, B4
     once per block and once per warm-up, nothing else; channel 0 decoded;
     then sharded against plain ``run_blocks`` as ``bench.py``'s
-    ``_time_sharded`` times them.  Returns B8's JSON entry."""
+    ``_time_sharded`` times them, with B8's share of the sharded step's
+    device time.  Returns B8's JSON entries (the path's geometry and the
+    ragged one)."""
     import torch
     from dy4tpu_torch.config import get_mode
     from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, mix,
@@ -1957,8 +2110,8 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
     _say(f"setup phase 5: {N_BLOCKS} blocks x {SH_C} channels, "
          f"{SH_STEPS} chunks of {SH_S} blocks; halo {r.halo_if} IF "
          f"samples; {time.perf_counter() - t0:.1f} s")
-    row = _check_b8(cfg, params, blocks, r.halo_if, dev)
-    result = row.finish(smi, cfg.mode)
+    results = [row.finish(smi, cfg.mode)
+               for row in _check_b8(cfg, params, blocks, r.halo_if, dev)]
 
     def run():
         carry = r.init(SH_C)
@@ -1985,7 +2138,8 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
     _say("phase 5: launches over " + f"{SH_STEPS} steps: " + ", ".join(
         f"{w.__name__} {n}" for w, n in counts.items() if n)
          + f"; none of B2, B9 or the others ({secs:.2f} s, first run)")
-    result["launches"] = counts[pll_cuda.phase_scan_coded]
+    for result in results:
+        result["launches"] = counts[pll_cuda.phase_scan_coded]
 
     got = {f: torch.cat([getattr(o, f) for o in outs], -1)
            for f in outs[0]._fields if getattr(outs[0], f) is not None}
@@ -2059,13 +2213,21 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
             timed(side)
     med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
     eff = med["sharded"] / med["plain"]
+    b8 = _device_kernels()[pll_cuda.phase_scan_coded]
     prof = {"plain": _profile(lambda: rx.run_blocks(params, st, chunk_blocks,
                                                     cfg)),
-            "sharded": _profile(lambda: r.step(params, carry, chunks[0]))}
+            "sharded": _profile(lambda: r.step(params, carry, chunks[0]),
+                                b8)}
+    busy, b8_ms = prof["sharded"][0], prof["sharded"][3]
+    if not 0 < b8_ms < busy:
+        raise AssertionError(f"phase 5: B8 {b8_ms:.4f} ms of a sharded step's "
+                             f"{busy:.4f} ms device busy under the profiler")
     _say("phase 5: one warm call of each under torch.profiler, device busy "
          "(CUDA kernel and copy time), device events, top-level torch ops: "
          + "; ".join(f"{k} {v[0]:.3f} ms, {v[1]} events, {v[2]} ops"
                      for k, v in prof.items())
+         + f"; B8 {b8_ms:.4f} ms of the sharded step's device busy "
+         f"({b8_ms / busy:.1%})"
          + "; wall without the profiler (median): "
          + ", ".join(f"{k} {samples / med[k] / 1e3:.3f} ms" for k in med))
     _say(f"phase 5: exact time-sharded receiver on one card, C={SH_C}, "
@@ -2076,8 +2238,9 @@ def _run_sharded(dev, smi, all_wrappers) -> list[dict]:
          f"{', '.join(f'{v:.1f}' for v in rates['plain'])}); peak device "
          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 5 "
          f"{time.perf_counter() - t0:.1f} s on {smi}")
-    result["sharded_eff_1dev"] = eff
-    return [result]
+    results[0].update(sharded_eff_1dev=eff, sharded_step_device_ms=busy,
+                      b8_step_device_ms=b8_ms, b8_step_share=b8_ms / busy)
+    return results
 
 
 def _check_fft(blocks, dev) -> list:
@@ -2440,23 +2603,36 @@ def _check_ab_kernels(cfg, params, blocks, st, dev) -> list:
     return rows
 
 
-def _check_expand(cfg, params, blocks, st, dev) -> "_Row":
-    """B9-expand against B9 + ``pll._span_expand`` on the card and against
-    its plain version (B9's plain scan + the same expansion), bitwise, on
-    the span targets of block AB_BLOCK's pilot (and carrier) from the
-    state ``st``, with a dead span in every row.  Returns the row."""
-    import torch
-    from dy4tpu_torch.ops import pll, pll_cuda
+def _check_expand(cfg, params, blocks, st, dev) -> list:
+    """B9-expand on the span targets of block AB_BLOCK's pilot (and
+    carrier) from the state ``st``, with a dead span in every row, and at
+    the ragged geometry cut from them (``_ragged_span``).  Returns the two
+    rows."""
     from dy4tpu_torch.pipeline import receiver as rx
 
     _, fo = rx.front_step(params, rx.front_state_of(st), blocks[AB_BLOCK],
                           cfg, rds_enabled=cfg.supports_rds)
-    x, _, _, consts, (kp, ki, dth), carry = _pll_case(cfg, st, fo.pilot,
-                                                      fo.carrier, dev)
-    (kp_s, ki_s, dth_s), targets = _span_case(x, consts, dth, dev)
-    m = targets.shape[-1]
+    x, _, _, consts, per_sample, carry = _pll_case(cfg, st, fo.pilot,
+                                                   fo.carrier, dev)
+    eff, targets = _span_case(x, consts, per_sample[2], dev)
+    return [_expand_row(f"mode{cfg.mode}", targets, eff, carry, per_sample),
+            _expand_row(f"mode{cfg.mode} ragged",
+                        *_ragged_span(targets, eff, carry, per_sample),
+                        where="streams")]
+
+
+def _expand_row(label, targets, eff, carry, per_sample, where=f"C={C}"
+                ) -> "_Row":
+    """B9-expand against B9 + ``pll._span_expand`` on the card and against
+    its plain version (B9's plain scan + the same expansion), bitwise, on
+    ``targets`` with the span constants ``eff`` and the per-sample ones
+    ``per_sample``.  Returns the row."""
+    import torch
+    from dy4tpu_torch.ops import pll, pll_cuda
+
+    kp_s, ki_s, dth_s = eff
+    kp, ki, dth = per_sample
     _distinct_rows("B9-expand", torch.nan_to_num(targets, nan=9.0), *carry)
-    per_sample = (kp, ki, dth)
     scan = functools.partial(pll_cuda.phase_scan_target, targets, kp_s, ki_s,
                              dth_s, carry, span=SPAN)
     k_phis, k_carry = scan(expand=per_sample)
@@ -2471,7 +2647,7 @@ def _check_expand(cfg, params, blocks, st, dev) -> "_Row":
     stop.record()
     torch.cuda.synchronize()
     k_flat, p_flat = (k_phis, *k_carry), (p_phis, *p_carry)
-    label = f"B9-expand mode{cfg.mode} {list(targets.shape)} span {SPAN}"
+    label = f"B9-expand {label} {list(targets.shape)} span {SPAN}"
     if not (all(torch.equal(a, b) for a, b in zip(k_flat, p_flat))
             and all(torch.equal(a, b) for a, b in
                     zip(k_flat, (via_b9, *b9_carry)))):
@@ -2487,13 +2663,15 @@ def _check_expand(cfg, params, blocks, st, dev) -> "_Row":
     # per span step: B9's 18 operations, lin and quad (4), and per phase
     # two multiplies and two adds
     return _Row(
-        "B9x pll_span_expand", f"mode{cfg.mode} {list(targets.shape)} span "
-        f"{SPAN}", "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:131",
+        "B9x pll_span_expand", label.split(" ", 1)[1],
+        "dy4tpu_torch/csrc/pll.cu", "dy4tpu/ops/pll_pallas.py:131",
         pll_cuda.phase_scan_target.expand, _max_err(k_flat, p_flat), 0.0,
         lambda: scan(expand=per_sample), plain_ms=start.elapsed_time(stop),
+        where=where,
         nbytes=_nbytes(targets, kp_s, ki_s, dth_s, per_sample, carry, k_flat),
-        flops=(B9_STEP_OPS + 4 + 4 * SPAN) * targets.numel(), chain_steps=m,
-        phase="phase 7", extra=dict(b9_torch_expand_ms=b9_torch_ms))
+        flops=(B9_STEP_OPS + 4 + 4 * SPAN) * targets.numel(),
+        chain_steps=targets.shape[-1], phase="phase 7",
+        extra=dict(b9_torch_expand_ms=b9_torch_ms))
 
 
 def _run_ab_chains(cfg, params, blocks, dev, smi, all_wrappers) -> dict:
@@ -2709,7 +2887,7 @@ def _run_ab(dev, smi, all_wrappers) -> list[dict]:
         st, _ = rx.run_blocks(params, rx.init_state(cfg, (C,), device=dev),
                               blocks[:AB_BLOCK], cfg)
         rows = _check_ab_kernels(cfg, params, blocks, st, dev)
-        rows.append(_check_expand(cfg, params, blocks, st, dev))
+        rows += _check_expand(cfg, params, blocks, st, dev)
         entries = [r.finish(smi, mode) for r in rows]
         counts = _run_ab_chains(cfg, params, blocks, dev, smi, all_wrappers)
         if not direct:       # B13 and B14 at the first mode's geometry

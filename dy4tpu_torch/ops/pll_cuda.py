@@ -15,9 +15,11 @@ sign codes, INVALID codes freezing the carry, with a carry snapshot after
 ``split_at`` samples.  The recurrences are serial in time and parallel
 only over streams (C channels x 2 lanes at mode 0), so they are
 latency-bound: each kernel gives each stream one thread with the carry in
-registers; B2 scans 128-step tiles from shared memory while a second warp
-of its block copies the next tile in and stores the last one's phases
-(see the note in ``csrc/pll.cu``).  Kernel and plain version
+registers, and all four run one tile loop: a warp scans 128-step tiles
+from shared memory while data warps of its block copy the next tile in
+and store what the last one emitted (B9-expand's data warps also build
+its within-span phases; B8 cuts the tile that holds ``split_at`` into two
+runs; see the note in ``csrc/pll.cu``).  Kernel and plain version
 emit the same bits: the kernels are built without FMA contraction and
 perform ``pll._make_step``'s and ``pll._make_span_step``'s operations in
 the same order.

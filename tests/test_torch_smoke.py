@@ -3,10 +3,14 @@ machine without a GPU: it never imports JAX, a CPU tensor takes the plain
 versions without counting a launch (in every mode, through the IF entry
 and on the A/B front ends), any other non-CUDA tensor is refused by the kernel wrappers, the
 kernels are built for sm_90a (the PLL without FMA contraction), and
-chip_smoke.py fails instead of falling back.
+chip_smoke.py fails instead of falling back; chip_smoke.py's map of
+kernel names names ``__global__`` functions of ``csrc`` one each, and its
+ragged PLL rows reach the edges of the scans' tile loop.
 """
 
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -211,3 +215,47 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
                        timeout=300)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports no torch)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # for its dataclass
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_kernel_names_match_the_sources():
+    """Each wrapper's name in ``_device_kernels`` is a ``__global__``
+    function of ``csrc`` and part of no other one's name, as the profiler
+    split needs; every wrapper of WRAPPERS has one."""
+    src = "".join(p.read_text() for p in kernels.CSRC.glob("*.cu"))
+    defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                             r"[^)]*\)\s*)?(\w+)\s*\(", src))
+    names = _chip_smoke()._device_kernels()
+    assert set(WRAPPERS) <= set(names)
+    for wrapper, name in names.items():
+        assert [d for d in defined if name in d] == [name], wrapper.__name__
+
+
+def test_chip_smoke_pll_ragged_rows_reach_the_tile_edges():
+    """chip_smoke.py's ragged B8, B9 and B9-expand rows: 32 + 5 rows (a
+    block of 32 and one of 5), N and m no multiple of the 128-step tile or
+    of the 16-byte copies, B8's split_at at 0, a tile boundary, strictly
+    inside a tile and N, and the INVALID and NaN runs over tile
+    boundaries."""
+    cs = _chip_smoke()
+    tile = 128
+    crosses = lambda lo, hi: lo // tile != (hi - 1) // tile  # noqa: E731
+    for rows, n in (cs.B8_RAGGED, cs.B9_RAGGED):
+        assert rows > 32 and rows % 32
+        assert n % tile and n % 4
+    n = cs.B8_RAGGED[1]
+    zero, edge, inside, end = cs.B8_SPLITS
+    assert zero == 0 and end == n
+    assert 0 < edge < n and edge % tile == 0
+    assert 0 < inside < n and inside % tile
+    assert crosses(*cs.B8_INVALID) and cs.B8_INVALID[1] <= n
+    assert crosses(*cs.B9_NAN) and cs.B9_NAN[1] <= cs.B9_RAGGED[1]
