@@ -33,7 +33,16 @@ front-end routes and the kernels no receiver route runs:
    at a ragged [37, 3132] (the block cut to 3132 IF samples: two tiles of
    1536 and a last one of 60, shorter than the 100-sample band history)
    and at the CLI's one channel, and B1 / B6's tile plan and shared
-   memory per block are printed;
+   memory per block are printed; B4 (modes 0 and 2) and B5 (modes 2 and
+   3) also at a ragged 37 rows and at the CLI's C=1, B4 at mode 0 also at
+   the sharded step's mini warm-up of 1920 inputs (C=128), each with its
+   tile plan (``resample_cuda._tile_plan``) printed, and at 37 rows the
+   wrapper's plan held bitwise against a pinned plan of row groups of 2
+   (the last one short) whose last tile is shorter than the rest; at
+   each full geometry every plan the plan weighs is timed (CUDA events
+   around back-to-back launches of the C entry point), the plan's pick
+   printed beside the fastest, and after the four modes the plan's cost
+   model is fitted to them all;
 3. per mode, runs ``run_blocks`` over 24 blocks x 512 channels, checks
    that every kernel of the mode's path ran on every block (and no other
    kernel ran), decodes channel 0 (stereo separation, and RDS PI/PS in
@@ -216,6 +225,15 @@ B9_RAGGED, B9_NAN = (37, 383), (120, 136)
 # B1 / B6 at modes 0 and 1: 37 rows, n_out = two tiles + 60 (the last
 # tile shorter than the band filters' 100-sample history)
 FRONT_RAGGED_ROWS, FRONT_RAGGED_LAST = 37, 60
+# B4 / B5 also at 32 + 5 rows (a short last row group of a pinned
+# plan of row groups of 2, whose tiles of these many cycles leave a last
+# tile shorter than the rest), at C=1 and (B4) at the sharded step's mini
+# warm-up of SH_HALO_IF inputs
+RESAMPLE_RAGGED_ROWS = 37
+RESAMPLE_PINNED_CYCLES = {("B4", 0): 7, ("B4", 2): 4, ("B5", 2): 5,
+                          ("B5", 3): 3}
+SH_HALO_IF = 1920       # parallel/sharded.py's auto halo at mode 0
+_PLAN_SWEEP: list = []  # B4 / B5: every plan timed (_plan_sweep)
 PROFILE_REPS = 20       # calls under torch.profiler for the kernel alone
 U32 = 2.0 ** -24        # float32 unit roundoff
 MOM_TOL = 1e-5         # tracker moments, relative to E[|i|^p |q|^r]
@@ -833,6 +851,182 @@ def _b2_row(label, x, kp, ki, dth, carry, where=f"C={C}",
         flops=B2_STEP_OPS * x.numel(), chain_steps=x.shape[-1], phase=phase)
 
 
+def _rational_flops(which: str, args) -> float:
+    """Float operations of one B4 / B5 call on ``args`` (the wrapper's):
+    the mix, 2 x ceil(K/U) MACs an output of each leg, B4's RRC (2 x K2
+    MACs an output of each leg), B5's matrix."""
+    c, n = args[0].shape
+    up, down, k = args[-2], args[-1], args[3].numel()
+    m = n * up // down
+    per_out = -(-k // up)
+    if which == "B4":
+        return c * (2 * n + 2 * m * per_out * 2
+                    + 2 * m * args[4].numel() * 2)
+    return c * (2 * n + 2 * m * per_out * 2 + 2 * m)
+
+
+def _entry_ms(which: str, args, plan, reps: int = 20) -> float:
+    """Mean milliseconds of one B4 / B5 launch under ``plan`` on ``args``
+    (the wrapper's), by CUDA events around ``reps`` back-to-back calls of
+    the C entry point with its arguments built once: the host issues a
+    launch in well under the kernel's time, so the events time the card.
+    Raises when a launch is refused."""
+    import torch
+    from dy4tpu_torch.ops import resample_cuda as rc
+    from dy4tpu_torch.runtime import kernels
+    b4 = which == "B4"
+    c, n = args[0].shape
+    up, down = args[-2], args[-1]
+    k = args[3].numel()
+    s = (k - 1) // up
+    m = n * up // down
+    shapes = (((c, m),) * 2 + ((c, s),) * 2 + ((c, args[4].numel() - 1),) * 2
+              if b4 else ((c, m),) * 3 + ((c, s),) * 2)
+    outs = [torch.empty(sh, device=args[0].device) for sh in shapes]
+    geom = (c, n, up, down, k) + ((args[4].numel(),) if b4 else ())
+    fn = (kernels.entry("rds_backend", "dy4_rds_backend", rc._ARGS) if b4
+          else kernels.entry("audio_rational", "dy4_audio_rational",
+                             rc._AUDIO_ARGS))
+    call = (*(t.data_ptr() for t in args[:9 if b4 else 6]),
+            *(t.data_ptr() for t in outs), *geom,
+            *rc._plan_args(plan, up, down),
+            torch.cuda.current_stream().cuda_stream)
+    for _ in range(3):
+        kernels.check_launch(fn(*call), f"{which} {plan}")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    status = [fn(*call) for _ in range(reps)]
+    stop.record()
+    torch.cuda.synchronize()
+    for st in status:
+        kernels.check_launch(st, f"{which} {plan}")
+    return start.elapsed_time(stop) / reps
+
+
+def _plan_sweep(which: str, mode: int, args) -> None:
+    """Every plan ``resample_cuda._candidates`` weighs for B4 / B5 on
+    ``args`` (the mode's full geometry), each timed (_entry_ms); the rows
+    go to _PLAN_SWEEP for the fit of the plan's cost model, and the plan
+    the model picks is printed beside the fastest."""
+    from dy4tpu_torch.ops import resample_cuda as rc
+    c, n = args[0].shape
+    up, down = args[-2], args[-1]
+    k2 = args[4].numel() if which == "B4" else 0
+    rows = [dict(kernel=which, mode=mode, cost=cost, plan=plan,
+                 ms=_entry_ms(which, args, plan))
+            for cost, plan in rc._candidates(c, n, up, down, args[3].numel(),
+                                             k2, rc._sms(args[0].device))]
+    fastest = min(rows, key=lambda r: r["ms"])
+    picked = min(rows, key=lambda r: r["cost"].clocks())
+    _PLAN_SWEEP.extend(rows)
+    _say(f"phase 2: {which} mode{mode} plan sweep: {len(rows)} plans, each "
+         f"timed by CUDA events over 20 back-to-back launches; the plan's "
+         f"pick {picked['ms']:.4f} ms ({picked['plan'].rows} rows x "
+         f"{picked['plan'].cycles} cycles, {picked['plan'].phases} "
+         f"positions x {picked['plan'].chunk} cycles a thread), the fastest "
+         f"{fastest['ms']:.4f} ms ({fastest['plan'].rows} x "
+         f"{fastest['plan'].cycles}, {fastest['plan'].phases} x "
+         f"{fastest['plan'].chunk}): {picked['ms'] / fastest['ms']:.3f}x")
+
+
+def _plan_fit() -> None:
+    """The least-squares fit of the plan's cost model (its three
+    constants) to every plan _plan_sweep timed, and its correlation."""
+    import numpy as np
+    from dy4tpu_torch.ops import resample_cuda as rc
+    clocks = np.array([r["ms"] for r in _PLAN_SWEEP]) * 1e-3 * \
+        _max_sm_clock_hz()
+    terms = np.array([[r["cost"].rounds * r["cost"].wavefronts,
+                       r["cost"].rounds * r["cost"].rrc_fmas,
+                       r["cost"].rounds] for r in _PLAN_SWEEP])
+    coef, *_ = np.linalg.lstsq(terms, clocks, rcond=None)
+    model = np.array([r["cost"].clocks() for r in _PLAN_SWEEP])
+    _say(f"phase 2: the plan's cost model over {len(_PLAN_SWEEP)} plans: "
+         f"fitted _WF_CLK {coef[0]:.4g}, _RRC_CLK {coef[1]:.4g}, _ITEM_CLK "
+         f"{coef[2]:.4g} (correlation {np.corrcoef(terms @ coef, clocks)[0, 1]:.3f}"
+         f"); in use {rc._WF_CLK}, {rc._RRC_CLK}, {rc._ITEM_CLK} "
+         f"(correlation {np.corrcoef(model, clocks)[0, 1]:.3f})")
+
+
+def _rational_rows(which: str, cfg, args, k_out) -> list:
+    """B4 (``args`` as ``fused_rds_backend`` takes them, ``k_out`` its
+    output on them) or B5 at the mode's full geometry, then at a ragged
+    37 rows (a short last row group under a pinned plan of row groups of
+    2), at the CLI's C=1 and (B4 at mode 0) at the sharded step's mini
+    warm-up of 1920 inputs: each within 1e-5 of the plain version with
+    the input tails bit-equal, its plan printed; and, at 37 rows, the
+    wrapper's plan and the pinned one bitwise equal.  Returns the rows."""
+    import torch
+    from dy4tpu_torch.ops import resample_cuda as rc
+    b4 = which == "B4"
+    wrap = rc.fused_rds_backend if b4 else rc.fused_audio_backend_rational
+    plain = (rc.fused_rds_backend_plain if b4
+             else rc.fused_audio_backend_rational_plain)
+    launch = rc._rds_launch if b4 else rc._audio_launch
+    exact = (2, 3) if b4 else (3, 4)
+    n_t = 9 if b4 else 6                       # tensors before up, down
+    up, down = args[-2], args[-1]
+    k, k2 = args[3].numel(), (args[4].numel() if b4 else 0)
+    name = (("B4 rds_backend", "dy4tpu_torch/csrc/rds_backend.cu",
+             "dy4tpu/ops/resample_pallas.py:275") if b4 else
+            ("B5 audio_rational", "dy4tpu_torch/csrc/audio_rational.cu",
+             "dy4tpu/ops/resample_pallas.py:173"))
+    mode = f"mode{cfg.mode}"
+    sms = rc._sms(args[0].device)
+    rows_out = []
+    cuts = [("", C, None), (" ragged", RESAMPLE_RAGGED_ROWS, None),
+            (" CLI", 1, None)]
+    if b4 and cfg.mode == 0:
+        cuts.append((" warm-up", SH_C, SH_HALO_IF))
+    for label, c, n_in in cuts:
+        n = args[0].shape[1] if n_in is None else n_in
+        cut = tuple(t if t.dim() == 1 else
+                    (t[:c, :n] if t.shape[1] == args[0].shape[1] else t[:c])
+                    .contiguous() for t in args[:n_t]) + (up, down)
+        got = k_out if not label else wrap(*cut)
+        want = plain(*cut)
+        torch.cuda.synchronize()
+        if not all(torch.equal(got[i], want[i]) for i in exact):
+            raise AssertionError(f"{which} {mode}{label}: input tails differ "
+                                 f"from the plain version")
+        plan = rc._tile_plan(c, n, up, down, k, k2, sms=sms)
+        geometry = f"{mode} {up}/{down}{label}"
+        _say(f"phase 2: {which} {geometry} [{c}, {n}] plan: {plan.items} "
+             f"items of {plan.rows} rows x {plan.n_tiles} tiles of "
+             f"{plan.cycles} cycles ({plan.tile} outputs, halo "
+             f"{plan.halo}), {plan.phases} positions x {plan.chunk} cycles "
+             f"a thread, {plan.compute_threads} of {plan.threads} threads "
+             f"computing, {plan.ctas} blocks, {plan.smem} bytes of shared "
+             f"memory a block")
+        extra = dict(plan=plan._asdict())
+        if not label:
+            _plan_sweep(which, cfg.mode, cut)
+        if label == " ragged":
+            other = rc._tile_plan(c, n, up, down, k, k2, sms=sms, rows=2,
+                                  cycles=RESAMPLE_PINNED_CYCLES[which,
+                                                                cfg.mode])
+            alt = launch(cut[:n_t], up, down, other)
+            torch.cuda.synchronize()
+            if other == plan or not all(torch.equal(a, b)
+                                        for a, b in zip(got, alt)):
+                raise AssertionError(f"{which} {geometry}: the plans "
+                                     f"{plan} and {other} do not give the "
+                                     f"same bits")
+            _say(f"phase 2: {which} {geometry}: the wrapper's plan and a "
+                 f"plan of row groups of 2 (the last one short) and tiles "
+                 f"of {other.cycles} cycles give bitwise-equal outputs and "
+                 f"tails")
+            extra["two_plans_bitwise"] = True
+        rows_out.append(_Row(
+            name[0], geometry, *name[1:], wrap, _max_err(got, want), 1e-5,
+            lambda cut=cut: wrap(*cut), lambda cut=cut: plain(*cut),
+            where=f"C={c}", nbytes=_nbytes(cut[:n_t], got),
+            flops=_rational_flops(which, cut), extra=extra))
+    return rows_out
+
+
 def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     """Phase 2 at one mode: every kernel of the mode's path against its
     plain version on block 1, mid-stream, at C=512.  Returns the JSON
@@ -1019,11 +1213,14 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
                              f"plain version")
     n, n_out = cfg.if_per_block, cfg.audio_per_block
     per_out = -(-params.audio_coeff.numel() // cfg.audio_up)  # taps visited
-    rows.append(_Row(*name, wrap, _max_err(k_out, p_out), 1e-5,
-                     lambda: wrap(*aargs), lambda: plain(*aargs),
-                     nbytes=_nbytes(aargs[:6], k_out),
-                     flops=C * (2 * n + 2 * n_out * per_out * 2
-                                + 2 * n_out)))
+    if cfg.audio_up > 1:
+        rows += _rational_rows("B5", cfg, aargs, k_out)
+    else:
+        rows.append(_Row(*name, wrap, _max_err(k_out, p_out), 1e-5,
+                         lambda: wrap(*aargs), lambda: plain(*aargs),
+                         nbytes=_nbytes(aargs[:6], k_out),
+                         flops=C * (2 * n + 2 * n_out * per_out * 2
+                                    + 2 * n_out)))
     del k_out, p_out
 
     if rds:
@@ -1039,18 +1236,8 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
                                                      p_out[2:4])):
             raise AssertionError(f"B4 {mode}: LPF tails differ from the "
                                  f"plain version")
-        n_rds = cfg.rds_per_block
-        per_out = -(-params.rds_lpf_coeff.numel() // cfg.rds_up)
-        rows.append(_Row(
-            "B4 rds_backend", f"{mode} {cfg.rds_up}/{cfg.rds_down}",
-            "dy4tpu_torch/csrc/rds_backend.cu",
-            "dy4tpu/ops/resample_pallas.py:275",
-            resample_cuda.fused_rds_backend, _max_err(k_out, p_out), 1e-5,
-            lambda: resample_cuda.fused_rds_backend(*rargs),
-            lambda: resample_cuda.fused_rds_backend_plain(*rargs),
-            nbytes=_nbytes(rargs[:9], k_out),
-            flops=C * (2 * cfg.if_per_block + 2 * n_rds * per_out * 2
-                       + 2 * n_rds * params.rds_rrc_coeff.numel() * 2)))
+        rows += _rational_rows("B4", cfg, rargs, k_out)
+        del k_out, p_out
 
     return [r.finish(smi, cfg.mode) for r in rows]
 
@@ -2957,6 +3144,7 @@ def main() -> None:
     for mode in (0, 1, 2, 3):
         results += _run_mode(mode, dev, smi, all_wrappers)
         torch.cuda.empty_cache()
+    _plan_fit()
     results += _run_wideband(dev, smi, all_wrappers)
     torch.cuda.empty_cache()
     _run_cli(smi)

@@ -1,104 +1,241 @@
-// RDS back end: quadrature mix, rational U/D resampler, RRC matched
-// filter; one thread block per (channel, I/Q leg).
+// RDS back end: quadrature mix, rational U/D resampler with its 3 kHz LPF,
+// RRC matched filter, for the I and Q legs of C rows with four tails
+// carried; the polyphase tile resampler of rational.cuh.
 //
 // Replaces dy4tpu/ops/resample_pallas.py :: fused_rds_backend
 // (_rds_kernel).  Per row and leg:
 //   1. x_ext = [lpf_tail || nco * rds_delayed]           (S + N samples)
-//   2. y[m] = sum_w x_ext[w] * h[(K-1) - (w*U + pad_lo - m*D)] over the
-//      taps in [0, K), pad_lo = (K-1) - S*U    (dy4tpu/ops/fir.py:76-121)
+//   2. y[m] = the rational resampler of rational.cuh over x_ext
 //   3. bb[m] = sum_j h_rrc[j] * [rrc_tail || y][m + S2 - j], S2 = K2-1
-// S = (K-1)//U input samples of history, in input-sample units.  The new
-// LPF tail is the last S mixed samples, the new RRC tail the last S2
-// resampled ones.
+// The new LPF tail is the last S mixed samples, the new RRC tail the last
+// S2 resampled ones.
 //
-// What bounds it on the card: at mode 0 (U/D = 19/120, K = 1919) the
-// resampler needs only about K/U = 101 MACs per output, and the block's
-// 7680 input samples give 1216 outputs, so the work per row is small
-// and the input read dominates.  The design keeps the mixed stream and
-// the resampled stream in shared memory (they never touch device
-// memory), visits only the valid taps of each output (no zero-stuffed
-// samples, no banded matrix), and spreads the C x 2 independent legs
-// over the card's SMs.  1216 outputs is not a multiple of the thread
-// count; every loop masks its ragged end.
+// What bounds it on the card: bytes.  A block of C = 512 reads three
+// IF-rate rows a channel and writes the baseband, 0.0161 ms at mode 0
+// (19/120, K = 1919, 7680 -> 1216) and 0.0213 ms at mode 2 (171/640,
+// K = 17271, 9600 -> 2565) over 3.35 TB/s; its 2 x 101 FMAs an output
+// twice (resampler, RRC) come to less.
 //
-// Numerics: the sums match the plain torch version to float32
-// tolerance; the LPF tail is the mixed stream itself and is exact.
+// What held the first design (one block per (row, leg), 256 threads, the
+// whole row in shared memory) to 0.1132 / 0.3760 ms: at mode 2 a block
+// took about 119 KB, so one block of 8 warps an SM in about 7.8 waves;
+// every block staged all 69 KB of taps again (71 MB of L2 reads for 59 MB
+// of input); the I and Q legs of a row were two blocks that each read rds
+// again; the flipped tap index strided by U within a thread and differed
+// from thread to thread (bank conflicts); and the RRC ran only after the
+// whole row's resampler, behind a __syncthreads.
+//
+// The design (rational.cuh): persistent blocks, one an SM, stage the taps
+// once; copy warps load rds, nco_i and nco_q once and store the I and Q
+// legs mixed and interleaved, so one 8-byte read feeds both legs; a
+// compute thread owns a tuple of P consecutive positions, whose tap rows
+// are shifted to share each input read, and accumulates `chunk` cycles
+// of both legs at once (resample_cuda._tile_plan picks P and chunk: 4 x 1
+// at mode 0, 3 x 2 at mode 2).  The RRC runs on the item's tile in shared
+// memory right after the resampler: tile 0 of a row reads the carried RRC
+// tail, every other tile recomputes a halo of whole cycles (at least
+// K2 - 1 outputs) before its first output, and since an output's sum
+// does not depend on the plan the halo equals what its own tile computes,
+// bit for bit.  A thread takes kRrcGroup = 9 consecutive outputs of one
+// leg (odd, so the warp's reads fall on distinct banks) in a register
+// window, the RRC taps a shared-memory broadcast; each output's sum is
+// two chains, taps [0, 54) and [54, 101), on threads of different warps
+// (twice the threads a latency-bound loop had with one chain), added
+// after a barrier; the outputs go through a staged tile to coalesced
+// stores.
+//
+// Numerics: nco_i * rds and nco_q * rds are the plain version's products,
+// so the LPF tails are exact; each half of the RRC sum runs its taps in
+// order as one chain of fmaf, and the halves are added in one order, so
+// the baseband and the RRC tails do not depend on the plan either.  All
+// match the plain torch version to float32 tolerance.
 
-#include <cuda_runtime.h>
+#include "rational.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using rational::Item;
+using rational::kRrcGroup;
+using rational::Plan;
 
-__global__ void __launch_bounds__(kThreads) rds_backend_kernel(
-    const float* __restrict__ rds, const float* __restrict__ nco_i,
-    const float* __restrict__ nco_q, const float* __restrict__ h_lpf,
-    const float* __restrict__ h_rrc, const float* __restrict__ lpf_tail_i,
-    const float* __restrict__ lpf_tail_q,
-    const float* __restrict__ rrc_tail_i,
-    const float* __restrict__ rrc_tail_q, float* __restrict__ bb_i,
-    float* __restrict__ bb_q, float* __restrict__ lpf_tail_i_out,
-    float* __restrict__ lpf_tail_q_out, float* __restrict__ rrc_tail_i_out,
-    float* __restrict__ rrc_tail_q_out, int n_in, int m_out, int up,
-    int down, int k, int k2) {
-  extern __shared__ float smem[];
-  const int s = (k - 1) / up;
-  const int pad_lo = (k - 1) - s * up;
-  const int s2 = k2 - 1;
-  float* hl = smem;            // [k]
-  float* hr = hl + k;          // [k2]
-  float* xe = hr + k2;         // [s + n_in]
-  float* ye = xe + s + n_in;   // [s2 + m_out]
-
-  const int leg = blockIdx.x;  // 0: I, 1: Q
-  const long long row = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float* nco = (leg ? nco_q : nco_i) + row * n_in;
-  const float* x = rds + row * n_in;
-  const float* ltail = (leg ? lpf_tail_q : lpf_tail_i) + row * s;
-  const float* rtail = (leg ? rrc_tail_q : rrc_tail_i) + row * s2;
-  float* bb = (leg ? bb_q : bb_i) + row * m_out;
-  float* ltail_out = (leg ? lpf_tail_q_out : lpf_tail_i_out) + row * s;
-  float* rtail_out = (leg ? rrc_tail_q_out : rrc_tail_i_out) + row * s2;
-
-  // ---- 1. taps, the mixed stream and the carried histories
-  for (int j = tid; j < k; j += kThreads) hl[j] = h_lpf[j];
-  for (int j = tid; j < k2; j += kThreads) hr[j] = h_rrc[j];
-  for (int w = tid; w < s; w += kThreads) xe[w] = ltail[w];
-  for (int n = tid; n < n_in; n += kThreads) xe[s + n] = nco[n] * x[n];
-  for (int w = tid; w < s2; w += kThreads) ye[w] = rtail[w];
-  __syncthreads();
-  for (int j = tid; j < s; j += kThreads) ltail_out[j] = xe[n_in + j];
-
-  // ---- 2. polyphase resampler over the valid taps only
-  const int last_w = s + n_in - 1;
-  for (int m = tid; m < m_out; m += kThreads) {
-    const int lo = m * down - pad_lo;    // w*up - lo is the flipped tap
-    const int w_min = lo <= 0 ? 0 : (lo + up - 1) / up;
-    int w_max = (lo + k - 1) / up;
-    if (w_max > last_w) w_max = last_w;
-    float acc = 0.0f;
-    for (int w = w_min; w <= w_max; ++w)
-      acc += xe[w] * hl[(k - 1) - (w * up - lo)];
-    ye[s2 + m] = acc;
+// The RRC sum of kRrcGroup consecutive outputs y[g], g < G, over the taps
+// [j_begin, j_end) (j_begin a multiple of G), each output one chain of
+// fmaf in tap order from +0.  win[(g - j) mod G] holds y[g - j] at tap j;
+// whole turns of G taps read theirs before their FMAs, the last one tap
+// by tap.
+__device__ __forceinline__ void rrc_chain(const float* y, const float* hr,
+                                          int j_begin, int j_end,
+                                          float (&acc)[kRrcGroup]) {
+  constexpr int G = kRrcGroup;
+  float win[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    acc[g] = 0.0f;
+    win[g] = y[g - j_begin];
   }
-  __syncthreads();
-  for (int j = tid; j < s2; j += kThreads) rtail_out[j] = ye[m_out + j];
-
-  // ---- 3. RRC matched filter
-  for (int m = tid; m < m_out; m += kThreads) {
-    float acc = 0.0f;
-    const float* y = ye + s2 + m;
-    for (int j = 0; j < k2; ++j) acc += hr[j] * y[-j];
-    bb[m] = acc;
+  int j0 = j_begin;
+  for (; j0 + G < j_end; j0 += G) {
+    float hv[G], yn[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      hv[u] = hr[j0 + u];
+      yn[u] = y[-(j0 + u) - 1];
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        acc[g] = __fmaf_rn(hv[u], win[(g - u + G) % G], acc[g]);
+      win[(G - 1 - u) % G] = yn[u];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    if (j0 + u < j_end) {
+      const float hv = hr[j0 + u];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        acc[g] = __fmaf_rn(hv, win[(g - u + G) % G], acc[g]);
+      if (j0 + u + 1 < j_end) win[(G - 1 - u) % G] = y[-(j0 + u) - 1];
+    }
   }
 }
+
+// Where an output's RRC sum splits into two chains (on two threads, added
+// after): the whole turns of G taps nearest half the taps, at most all.
+__device__ __forceinline__ int rrc_split(int k2) {
+  const int s = ((k2 + 1) / 2 + kRrcGroup - 1) / kRrcGroup * kRrcGroup;
+  return s < k2 ? s : k2;
+}
+
+struct RdsIo {
+  const float *h, *h2;                     // h_lpf [k], h_rrc [k2]
+  const float *rds, *nco_i, *nco_q;        // [c, n_in]
+  const float *lpf_i, *lpf_q;              // [c, s]
+  const float *rrc_i, *rrc_q;              // [c, k2 - 1]
+  float *bb_i, *bb_q;                      // [c, m_out]
+  float *lpf_i_out, *lpf_q_out, *rrc_i_out, *rrc_q_out;
+
+  __device__ __forceinline__ float2 tail(long long row, int w, int s) const {
+    return make_float2(lpf_i[row * s + w], lpf_q[row * s + w]);
+  }
+  __device__ __forceinline__ void fetch(long long i, float& a, float& b,
+                                        float& c) const {
+    a = rds[i];
+    b = nco_i[i];
+    c = nco_q[i];
+  }
+  __device__ __forceinline__ void fetch4(long long i, float4& a, float4& b,
+                                         float4& c) const {
+    a = *reinterpret_cast<const float4*>(rds + i);
+    b = *reinterpret_cast<const float4*>(nco_i + i);
+    c = *reinterpret_cast<const float4*>(nco_q + i);
+  }
+  __device__ __forceinline__ bool aligned(long long i) const {
+    return ((reinterpret_cast<uintptr_t>(rds + i) |
+             reinterpret_cast<uintptr_t>(nco_i + i) |
+             reinterpret_cast<uintptr_t>(nco_q + i)) & 15) == 0;
+  }
+  __device__ __forceinline__ float2 mix(float a, float b, float c) const {
+    return make_float2(__fmul_rn(b, a), __fmul_rn(c, a));
+  }
+
+  // tile 0 of a row: the carried RRC tail before the tile
+  __device__ __forceinline__ void prologue(const Plan& p, const Item& it,
+                                           float* ye, int ctid) const {
+    if (it.tile) return;
+    const int s2 = p.k2 - 1;
+    for (int i = ctid; i < 2 * it.nrows * s2; i += p.compute_threads) {
+      const int st = i / s2;
+      const int j = i - st * s2;
+      const long long row = it.row0 + (st >> 1);
+      ye[st * p.ystride + p.yhead - s2 + j] =
+          (st & 1 ? rrc_q : rrc_i)[row * s2 + j];
+    }
+  }
+
+  __device__ __forceinline__ void epilogue(const Plan& p, const Item& it,
+                                           const float2* xw, const float* hr,
+                                           const float* ye, float* bb,
+                                           int ctid) const {
+    constexpr int G = kRrcGroup;
+    const int n = it.m1 - it.m0;
+    const int ng = (n + G - 1) / G;
+    const int tstride = rational::r4(p.cycles * p.up);
+    const int split = rrc_split(p.k2);
+    const int half = 2 * it.nrows * ng;    // groups of one half
+    float* bb2 = bb + 2 * p.rows * tstride;
+    for (int f = ctid; f < 2 * half; f += p.compute_threads) {
+      const bool second = f >= half;
+      const int g0 = second ? f - half : f;
+      const int st = g0 / ng;
+      const int o0 = (g0 - st * ng) * G;
+      const float* y = ye + st * p.ystride + p.yhead + o0;
+      float acc[G];
+      if (second)
+        rrc_chain(y, hr, split, p.k2, acc);
+      else
+        rrc_chain(y, hr, 0, split, acc);
+      float* out = (second ? bb2 : bb) + st * tstride + o0;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (o0 + g < n) out[g] = acc[g];
+    }
+    rational::sync_compute(p.compute_threads);
+
+    for (int i = ctid; i < 2 * it.nrows * n; i += p.compute_threads) {
+      const int st = i / n;
+      const int o = i - st * n;
+      const long long row = it.row0 + (st >> 1);
+      (st & 1 ? bb_q : bb_i)[row * p.m_out + it.m0 + o] =
+          __fadd_rn(bb[st * tstride + o], bb2[st * tstride + o]);
+    }
+    // the new RRC tail: this tile's outputs among the row's last s2
+    const int s2 = p.k2 - 1;
+    const int lo = it.m0 > p.m_out - s2 ? it.m0 : p.m_out - s2;
+    for (int i = ctid; i < 2 * it.nrows * (it.m1 - lo);
+         i += p.compute_threads) {
+      const int st = i / (it.m1 - lo);
+      const int m = lo + i - st * (it.m1 - lo);
+      const long long row = it.row0 + (st >> 1);
+      (st & 1 ? rrc_q_out : rrc_i_out)[row * s2 + m - (p.m_out - s2)] =
+          ye[st * p.ystride + p.yhead + m - it.m0];
+    }
+    // the new LPF tail: the row's last s mixed samples, in the last tile
+    if (it.c_hi * p.down == p.n_in) {
+      const int w0 = p.n_in - it.c_lo * p.down;   // window slot of x_ext[n]
+      for (int i = ctid; i < it.nrows * p.s; i += p.compute_threads) {
+        const int r = i / p.s;
+        const int j = i - r * p.s;
+        const float2 v = xw[r * (p.guard + p.window) + w0 + j];
+        lpf_i_out[(it.row0 + r) * p.s + j] = v.x;
+        lpf_q_out[(it.row0 + r) * p.s + j] = v.y;
+      }
+    }
+  }
+};
+
+// The kernel: a persistent block of the tile resampler (rational.cuh).
+template <int P, int QT>
+__global__ void __launch_bounds__(rational::kMaxThreads, 1)
+    rds_backend_kernel(RdsIo io, Plan p) {
+  rational::run<RdsIo, P, QT>(io, p);
+}
+
+struct Kernel {
+  template <int P, int QT>
+  static auto fn() {
+    return rds_backend_kernel<P, QT>;
+  }
+};
 
 }  // namespace
 
 // rds, nco_i, nco_q: [c, n_in]; h_lpf [k]; h_rrc [k2]; lpf tails
 // [c, (k-1)/up]; rrc tails [c, k2-1]; bb_i/bb_q [c, n_in*up/down] and the
-// new tails.  Returns cudaGetLastError() after the launch.
+// new tails; then resample_cuda._tile_plan's plan.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue, launching
+// nothing, for a plan the kernel cannot run).
 extern "C" int dy4_rds_backend(
     const float* rds, const float* nco_i, const float* nco_q,
     const float* h_lpf, const float* h_rrc, const float* lpf_tail_i,
@@ -106,22 +243,19 @@ extern "C" int dy4_rds_backend(
     const float* rrc_tail_q, float* bb_i, float* bb_q,
     float* lpf_tail_i_out, float* lpf_tail_q_out, float* rrc_tail_i_out,
     float* rrc_tail_q_out, long long c, int n_in, int up, int down, int k,
-    int k2, void* stream) {
-  if (c <= 0) return 0;
-  const int m_out = static_cast<int>(static_cast<long long>(n_in) * up /
-                                     down);
-  const int s = (k - 1) / up;
-  const size_t smem = (static_cast<size_t>(k) + k2 + s + n_in +
-                       (k2 - 1) + m_out) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rds_backend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(2, static_cast<unsigned>(c));
-  rds_backend_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      rds, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i, lpf_tail_q, rrc_tail_i,
-      rrc_tail_q, bb_i, bb_q, lpf_tail_i_out, lpf_tail_q_out,
-      rrc_tail_i_out, rrc_tail_q_out, n_in, m_out, up, down, k, k2);
-  return static_cast<int>(cudaGetLastError());
+    int k2, int dinv, int phases, int tmul, int tinv, int lx, int guard,
+    int rows, int cycles, int n_tiles, int halo_cycles, int window,
+    int ystride, int yhead, int chunk, int groups, int compute_threads,
+    int threads, int ctas, int items, int smem, void* stream) {
+  const Plan p = rational::make_plan(
+      c, n_in, up, down, k, k2, dinv, phases, tmul, tinv, lx, guard, rows,
+      cycles, n_tiles, halo_cycles, window, ystride, yhead, chunk, groups,
+      compute_threads, threads, ctas, items, smem);
+  if (k2 < 1 || p.m_out < k2 - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RdsIo io{h_lpf,          h_rrc,          rds,        nco_i,
+                 nco_q,          lpf_tail_i,     lpf_tail_q, rrc_tail_i,
+                 rrc_tail_q,     bb_i,           bb_q,       lpf_tail_i_out,
+                 lpf_tail_q_out, rrc_tail_i_out, rrc_tail_q_out};
+  return rational::launch<Kernel>(io, p, stream);
 }

@@ -6,9 +6,7 @@ torch versions.
 of the delayed RDS band with the RDS NCO pair, the rational U/D resampler
 with its 3 kHz LPF (19/120 with 1919 taps at mode 0, 171/640 with 17271
 taps at mode 2), and the RRC matched filter, for the I and Q legs with
-four tails carried.  The kernel keeps the mixed and resampled streams of a
-leg in shared memory and visits only the valid polyphase taps (see the
-note in ``csrc/rds_backend.cu``).
+four tails carried.
 
 ``fused_audio_backend_rational`` (``csrc/audio_rational.cu``) replaces
 ``resample_pallas.fused_audio_backend_rational``: the audio back end of
@@ -16,13 +14,22 @@ the U>1 modes 2 and 3 (147/800 and 147/1280 with 14847 taps), the
 ``2 * nco * stereo_band`` mix, the mono and stereo rational resamplers and
 the L/R matrix.
 
-Both match their plain versions to float32 tolerance; the carried
-resampler tails are exact.
+Both kernels are one polyphase tile resampler (``csrc/rational.cuh``):
+persistent blocks stage the taps once in polyphase order and walk work
+items of (row group, tile of whole phase cycles), copy warps prefetching
+the next item's mixed input windows; B4 runs its RRC on the tile in
+shared memory over a recomputed halo.  ``_tile_plan`` sizes it.  An
+output's sum runs in one order whatever the plan, so every plan gives the
+same bits.  Both match their plain versions to float32 tolerance; the
+carried resampler tails are exact.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import typing
 
 import torch
 
@@ -31,8 +38,271 @@ from dy4tpu_torch.runtime import kernels
 
 Tensor = torch.Tensor
 
+# csrc/rational.cuh's constants: threads a block may hold (one block an
+# SM, 128 registers a thread), outputs of one thread's RRC register window,
+# the (positions a thread, cycles a thread) shapes it is instantiated for,
+# and the fewest copy warps a block keeps
+MAX_THREADS = 512
+RRC_GROUP = 9
+SHAPES = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2), (2, 3), (3, 1),
+          (3, 2), (4, 1), (4, 2))
+MIN_COPY_WARPS = 4
+# the H100's SMs (the default; the wrappers ask the device)
+SMS = 132
+# The plan's cost model, in SM clocks (``chip_smoke.py`` phase 2 times
+# every plan of the four geometries of modes 0-3 on the card and fits
+# these to it): an item costs _WF_CLK a shared-memory wavefront of its
+# resampler (_wavefronts, where a turn with fewer than _FULL_WARPS warps
+# at work counts as if it had that many), _RRC_CLK an RRC FMA, and
+# _ITEM_CLK besides (its barriers, its epilogue's stores, the wait for its
+# windows); a block takes its items in turn.
+_WF_CLK, _FULL_WARPS, _RRC_CLK, _ITEM_CLK = 0.95, 6, 0.052, 4400
+
+
+class TilePlan(typing.NamedTuple):
+    """The polyphase tile resampler's launch (``csrc/rational.cuh``).
+
+    A work item is ``rows`` rows times one tile of ``cycles`` whole phase
+    cycles (``tile`` = cycles * up outputs; the last tile of a row may be
+    shorter), ``items`` of them in all, walked by ``ctas`` persistent
+    blocks.  B4 recomputes ``halo`` outputs (whole cycles, at least
+    k2 - 1) before every tile but the first; its resampled tile sits at
+    ``yhead`` in a stream's ``ystride`` floats of shared memory.  A
+    stream's input window holds ``window`` samples behind ``guard`` zero
+    ones.  A compute thread owns a tuple of ``phases`` consecutive
+    positions, whose tap rows are shifted onto the tuple's newest input
+    (``lx`` steps a loop), and accumulates ``chunk`` cycles of a row's two
+    streams at once; lane l takes tuple (l * ``tmul``) mod tuples, and
+    ``groups`` threads share a tuple.  ``compute_threads`` of the block's
+    ``threads`` compute, the rest copy.  ``smem``: bytes of dynamic shared
+    memory a block takes."""
+    rows: int
+    cycles: int
+    tile: int
+    n_tiles: int
+    halo: int
+    window: int
+    ystride: int
+    yhead: int
+    phases: int
+    tmul: int
+    lx: int
+    guard: int
+    chunk: int
+    groups: int
+    compute_threads: int
+    threads: int
+    ctas: int
+    items: int
+    smem: int
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _tap_stride(n: int) -> int:
+    """Floats a shifted tap row of ``n`` steps takes: padded to 4 x an
+    odd number (``rational.cuh`` tap_stride)."""
+    q = -(-n // 4)
+    return 4 * (q if q % 2 else q + 1)
+
+
+def _bases(up: int, down: int, phases: int) -> list[int]:
+    """Each tuple's newest input: b_p of its last position."""
+    return [(min((k + 1) * phases, up) - 1) * down // up
+            for k in range(-(-up // phases))]
+
+
+def _tuples(up: int, down: int, s: int, phases: int) -> tuple[int, int, int]:
+    """``(tuples, lx, guard)``: the tuples of ``phases`` positions, the
+    steps of a tuple's loop (S + 1 + its widest shift) and the zero float2
+    a window row needs before it (the widest shift, made even)."""
+    n = -(-up // phases)
+    shift = max(b - k * phases * down // up
+                for k, b in enumerate(_bases(up, down, phases)))
+    return n, s + 1 + shift, shift + shift % 2
+
+
+def _half_warp_wavefronts(slots: list[int]) -> int:
+    """Shared-memory wavefronts of one warp's 8-byte reads of these float2
+    slots: the two half-warps go apart, each as many as its most loaded
+    bank pair holds distinct slots."""
+    n = 0
+    for half in (slots[:16], slots[16:]):
+        if half:
+            pairs: dict[int, set] = {}
+            for a in half:
+                pairs.setdefault(a % 16, set()).add(a)
+            n += max(len(v) for v in pairs.values())
+    return n
+
+
+@functools.lru_cache(maxsize=64)
+def _tuple_order(up: int, down: int, phases: int) -> int:
+    """``tmul``: lane l takes tuple (l * tmul) mod tuples.  Of the
+    multipliers prime to the tuples, the one whose warps read the window
+    in the fewest wavefronts (``_half_warp_wavefronts``)."""
+    bases = _bases(up, down, phases)
+    n = len(bases)
+    best = (math.inf, 0 if n == 1 else 1)
+    for m in range(1, n):
+        if math.gcd(m, n) == 1:
+            wf = sum(_half_warp_wavefronts([bases[lane * m % n] for lane in
+                                            range(w, min(w + 32, n))])
+                     for w in range(0, n, 32))
+            best = min(best, (wf, m))
+    return best[1]
+
+
+def _layout(up: int, down: int, s: int, k2: int, rows: int, cycles: int,
+            halo_cycles: int, phases: int) -> tuple[int, int, int, int]:
+    """``(window, ystride, yhead, smem)``: csrc/rational.cuh's shared
+    memory, in this order: the shifted tap rows [phases][tuples], the RRC
+    taps, two input windows of ``rows`` rows x (guard + ``window``)
+    float2, ``2 * rows`` resampled streams of ``ystride`` floats, and (B4)
+    ``2 * rows`` RRC output rows of a tile for each half of the RRC sum;
+    each region padded to 16 bytes."""
+    tuples, lx, guard = _tuples(up, down, s, phases)
+    tile = cycles * up
+    window = _r4(s + (cycles + halo_cycles) * down)
+    yhead = max(halo_cycles * up, k2 - 1) if k2 else 0
+    ystride = _r4(yhead + tile + (RRC_GROUP if k2 else 0))
+    floats = (phases * tuples * _tap_stride(lx) + _r4(k2)
+              + 2 * rows * (guard + window) * 2 + 2 * rows * ystride
+              + (4 * rows * _r4(tile) if k2 else 0))
+    return window, ystride, yhead, 4 * floats
+
+
+def _wavefronts(up: int, down: int, s: int, rows: int, nci: int,
+                phases: int, chunk: int, groups: int, window: int) -> float:
+    """Shared-memory wavefronts of one item's resampler over its
+    occupancy: in each turn of the threads, per step, each warp with a
+    thread at work takes its ``phases`` 16-byte tap reads (four steps a
+    read, four wavefronts a warp: one a step) and its ``chunk`` 8-byte
+    window reads (at least two wavefronts a warp, more where its lanes'
+    slots share a bank); a turn with fewer than _FULL_WARPS warps at work
+    counts as if it had that many."""
+    tuples, lx, guard = _tuples(up, down, s, phases)
+    bases = _bases(up, down, phases)
+    tmul = _tuple_order(up, down, phases)
+    nch = -(-nci // chunk)
+    units = rows * nch
+    total = 0.0
+    for turn in range(-(-units // groups)):
+        busy = min(groups, units - turn * groups)
+        slots = []
+        for ctid in range(tuples * busy):
+            lane, j = ctid % tuples, ctid // tuples
+            row, c0 = divmod(j + turn * groups, nch)
+            slots.append(row * (guard + window) + s
+                         + bases[lane * tmul % tuples] + c0 * chunk * down)
+        per_step, warps = 0.0, 0
+        for w0 in range(0, len(slots), 32):
+            warp = slots[w0:w0 + 32]
+            warps += 1
+            per_step += phases + sum(max(2, _half_warp_wavefronts(
+                [x + q * down for x in warp])) for q in range(chunk))
+        total += lx * per_step / min(1.0, warps / _FULL_WARPS)
+    return total
+
+
+class _Cost(typing.NamedTuple):
+    """A plan's terms in the cost model: the rounds of items a block
+    takes, an item's resampler wavefronts over its occupancy
+    (_wavefronts), and its RRC FMAs."""
+    rounds: int
+    wavefronts: float
+    rrc_fmas: int
+
+    def clocks(self) -> float:
+        return self.rounds * (_WF_CLK * self.wavefronts
+                              + _RRC_CLK * self.rrc_fmas + _ITEM_CLK)
+
+
+def _candidates(c: int, n_in: int, up: int, down: int, k: int, k2: int,
+                sms: int, rows: typing.Optional[int] = None,
+                cycles: typing.Optional[int] = None,
+                shape: typing.Optional[tuple[int, int]] = None):
+    """Every plan ``_tile_plan`` weighs, with its cost terms: row groups
+    of 1, 2 or 4 rows, the smallest tile of each tile count (a tile of B4
+    at least its halo), each shape in SHAPES, the threads a tuple as many
+    as the item's units allow; those that fit ``kernels.SMEM_MAX``."""
+    if c < 1 or up < 1 or math.gcd(up, down) != 1 or (n_in * up) % down:
+        raise ValueError(f"{c} rows of {n_in} do not resample by "
+                         f"{up}/{down} in whole phase cycles")
+    s = fir.state_len(k, up)
+    nc = n_in // down                       # phase cycles a row holds
+    tiles = [cycles] if cycles else sorted({-(-nc // n) for n in
+                                            range(1, nc + 1)})
+    for r in ([rows] if rows else [v for v in (1, 2, 4) if v <= c] or [1]):
+        for q in tiles:
+            n_tiles = -(-nc // q)
+            hc = -(-(k2 - 1) // up) if k2 and n_tiles > 1 else 0
+            if q < hc or q > nc:
+                continue
+            items = -(-c // r) * n_tiles
+            ctas = min(items, sms)
+            for phases, chunk in [shape] if shape else SHAPES:
+                window, ystride, yhead, smem = _layout(up, down, s, k2, r, q,
+                                                       hc, phases)
+                if smem > kernels.SMEM_MAX:
+                    continue
+                tuples, lx, guard = _tuples(up, down, s, phases)
+                jmax = max(1, (MAX_THREADS - 32 * MIN_COPY_WARPS) // tuples)
+                groups = min(r * -(-(q + hc) // chunk), jmax)
+                cost = _Cost(-(-items // ctas), _wavefronts(
+                    up, down, s, r, q + hc, phases, chunk, groups, window),
+                    2 * r * q * up * k2)
+                yield cost, TilePlan(
+                    r, q, q * up, n_tiles, hc * up, window, ystride, yhead,
+                    phases, _tuple_order(up, down, phases), lx, guard, chunk,
+                    groups, -(-tuples * groups // 32) * 32, MAX_THREADS, ctas,
+                    items, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(c: int, n_in: int, up: int, down: int, k: int, k2: int, *,
+               sms: int = SMS, rows: typing.Optional[int] = None,
+               cycles: typing.Optional[int] = None,
+               shape: typing.Optional[tuple[int, int]] = None) -> TilePlan:
+    """The plan for ``c`` rows of ``n_in`` inputs resampled by up/down
+    with ``k`` taps, then (``k2`` > 0, B4) an RRC of ``k2`` taps, on a
+    card of ``sms`` SMs, one block an SM: of ``_candidates``, the one the
+    cost model finishes first.  ``rows``, ``cycles`` and ``shape``
+    (positions, cycles a thread) pin the row group, the tile and the
+    thread's outputs.  Raises ``ValueError`` when nothing fits the
+    block's shared memory (``kernels.SMEM_MAX``)."""
+    best = min(_candidates(c, n_in, up, down, k, k2, sms, rows, cycles,
+                           shape), key=lambda cp: cp[0].clocks(),
+               default=None)
+    if best is None:
+        raise ValueError(f"no tile of {up}/{down} with {k} taps fits "
+                         f"{kernels.SMEM_MAX} bytes of shared memory a "
+                         f"block (rows={rows}, cycles={cycles}, "
+                         f"shape={shape})")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _plan_args(plan: TilePlan, up: int, down: int) -> tuple[int, ...]:
+    """The plan as the C entry points take it after the geometry."""
+    tuples = -(-up // plan.phases)
+    return (pow(down, -1, up) if up > 1 else 0, plan.phases, plan.tmul,
+            pow(plan.tmul, -1, tuples) if tuples > 1 else 0, plan.lx,
+            plan.guard, plan.rows, plan.cycles, plan.n_tiles,
+            plan.halo // up, plan.window, plan.ystride, plan.yhead,
+            plan.chunk, plan.groups, plan.compute_threads, plan.threads,
+            plan.ctas, plan.items, plan.smem)
+
+
+_PLAN_INTS = [ctypes.c_int] * 20
 _ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-         + [ctypes.c_void_p])
+         + _PLAN_INTS + [ctypes.c_void_p])
 
 
 def fused_rds_backend_plain(rds_delayed, nco_i, nco_q, h_lpf, h_rrc,
@@ -67,22 +337,31 @@ def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
             rrc_tail_i, rrc_tail_q)
     if rds_delayed.device.type == "cpu":
         return fused_rds_backend_plain(*args, up, down)
+    return _rds_launch(args, up, down)
+
+
+def _rds_launch(args, up: int, down: int,
+                plan: typing.Optional[TilePlan] = None):
+    """B4 on CUDA tensors ``args`` (``fused_rds_backend``'s first nine)
+    under ``plan`` (``_tile_plan``'s own by default): one launch."""
+    rds_delayed, _, _, h_lpf, h_rrc = args[:5]
     c, n = rds_delayed.shape
     k, k2 = h_lpf.shape[0], h_rrc.shape[0]
     s = fir.state_len(k, up)
     m = n * up // down
-    if (n * up) % down or n < s or m < k2 - 1:
+    if (n * up) % down or n < s or m < k2 - 1 or k2 < 1:
         raise ValueError(f"block of {n} samples does not resample by "
                          f"{up}/{down} into at least {k2 - 1} outputs")
     dev = rds_delayed.device
-    for t, name, shape in ((rds_delayed, "rds_delayed", (c, n)),
-                           (nco_i, "nco_i", (c, n)), (nco_q, "nco_q", (c, n)),
-                           (h_lpf, "h_lpf", (k,)), (h_rrc, "h_rrc", (k2,)),
-                           (lpf_tail_i, "lpf_tail_i", (c, s)),
-                           (lpf_tail_q, "lpf_tail_q", (c, s)),
-                           (rrc_tail_i, "rrc_tail_i", (c, k2 - 1)),
-                           (rrc_tail_q, "rrc_tail_q", (c, k2 - 1))):
+    for t, name, shape in zip(args, ("rds_delayed", "nco_i", "nco_q",
+                                     "h_lpf", "h_rrc", "lpf_tail_i",
+                                     "lpf_tail_q", "rrc_tail_i",
+                                     "rrc_tail_q"),
+                              ((c, n),) * 3 + ((k,), (k2,)) + ((c, s),) * 2
+                              + ((c, k2 - 1),) * 2):
         kernels.require(t, name, shape, device=dev)
+    if plan is None:
+        plan = _tile_plan(max(c, 1), n, up, down, k, k2, sms=_sms(dev))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     outs = [new(c, m), new(c, m), new(c, s), new(c, s), new(c, k2 - 1),
@@ -91,6 +370,7 @@ def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
     with torch.cuda.device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     *(t.data_ptr() for t in outs), c, n, up, down, k, k2,
+                    *_plan_args(plan, up, down),
                     kernels.stream_of(rds_delayed))
     kernels.check_launch(status, "rds_backend fused_rds_backend")
     fused_rds_backend.launches += 1
@@ -100,7 +380,7 @@ def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
 fused_rds_backend.launches = 0
 
 _AUDIO_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
-               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+               + [ctypes.c_int] * 4 + _PLAN_INTS + [ctypes.c_void_p])
 
 
 def fused_audio_backend_rational_plain(fm_delayed, stereo_band, nco,
@@ -132,6 +412,15 @@ def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
     args = (fm_delayed, stereo_band, nco, h_audio, mono_tail, stereo_tail)
     if fm_delayed.device.type == "cpu":
         return fused_audio_backend_rational_plain(*args, up, down)
+    return _audio_launch(args, up, down)
+
+
+def _audio_launch(args, up: int, down: int,
+                  plan: typing.Optional[TilePlan] = None):
+    """B5 on CUDA tensors ``args`` (``fused_audio_backend_rational``'s
+    first six) under ``plan`` (``_tile_plan``'s own by default): one
+    launch."""
+    fm_delayed, h_audio = args[0], args[3]
     c, n = fm_delayed.shape
     k = h_audio.shape[0]
     s = fir.state_len(k, up)
@@ -140,14 +429,12 @@ def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
                          f"{up}/{down} or is shorter than the {s}-sample "
                          f"tail")
     dev = fm_delayed.device
-    for t, name, shape in ((fm_delayed, "fm_delayed", (c, n)),
-                           (stereo_band, "stereo_band", (c, n)),
-                           (nco, "nco", (c, n)), (h_audio, "h_audio", (k,)),
-                           (mono_tail, "mono_tail", (c, s)),
-                           (stereo_tail, "stereo_tail", (c, s))):
+    for t, name, shape in zip(args, ("fm_delayed", "stereo_band", "nco",
+                                     "h_audio", "mono_tail", "stereo_tail"),
+                              ((c, n),) * 3 + ((k,),) + ((c, s),) * 2):
         kernels.require(t, name, shape, device=dev)
-    kernels.check_smem("audio_rational", "dy4_audio_rational_smem",
-                       "fused_audio_backend_rational", n, up, down, k)
+    if plan is None:
+        plan = _tile_plan(max(c, 1), n, up, down, k, 0, sms=_sms(dev))
     m = n * up // down
     outs = ([torch.empty(c, m, dtype=torch.float32, device=dev)
              for _ in range(3)]
@@ -157,6 +444,7 @@ def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
     with torch.cuda.device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     *(t.data_ptr() for t in outs), c, n, up, down, k,
+                    *_plan_args(plan, up, down),
                     kernels.stream_of(fm_delayed))
     kernels.check_launch(status, "audio_rational "
                                  "fused_audio_backend_rational")

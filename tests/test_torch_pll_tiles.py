@@ -35,10 +35,8 @@ B9-expand, each also at a ragged geometry).  Here:
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
 
+import cuda_host
 import numpy as np
 import pytest
 
@@ -196,60 +194,6 @@ def test_span_plain_matches_dy4tpu_and_chains(expand, m, rows):
 
 # ---- csrc/pll.cu on the host ----
 
-_SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __shared__
-#define __align__(x)
-struct float4 { float x, y, z, w; };
-struct int4 { int x, y, z, w; };
-inline float4 make_float4(float a, float b, float c, float d) {
-  return {a, b, c, d};
-}
-inline float __fadd_rn(float a, float b) { return a + b; }
-inline float __fsub_rn(float a, float b) { return a - b; }
-inline float __fmul_rn(float a, float b) { return a * b; }
-struct dim3 { unsigned x, y, z; };
-inline thread_local dim3 threadIdx, blockIdx;
-inline thread_local unsigned char* g_smem;
-inline thread_local std::barrier<>* g_bar;
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 1 };
-template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) {
-  return 0;
-}
-inline cudaError_t cudaGetLastError() { return 0; }
-// blocks one after another, each with a thread per CUDA thread
-template <class K, class A>
-void emulate(K kernel, unsigned blocks, int threads, int smem, const A& a) {
-  if (smem > 232448) abort();
-  for (unsigned b = 0; b < blocks; ++b) {
-    std::vector<unsigned char> buf(smem);
-    std::barrier<> bar(threads);
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, b, t] {
-        threadIdx = {unsigned(t), 0, 0};
-        blockIdx = {b, 0, 0};
-        g_smem = buf.data();
-        g_bar = &bar;
-        kernel(a);
-      });
-    for (auto& t : ts) t.join();
-  }
-}
-"""
-
 # (pattern, replacement) applied to csrc/pll.cu, each of which must match
 _REWRITES = (
     (r"#include <cuda_runtime\.h>", '#include "shim.h"'),
@@ -268,25 +212,13 @@ _REWRITES = (
 
 @pytest.fixture(scope="module")
 def host_pll(tmp_path_factory):
-    """``csrc/pll.cu`` built for the host through the shim: the library
-    with its four C entry points (their argument types set)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build csrc/pll.cu for the host")
-    src = (kernels.CSRC / "pll.cu").read_text()
-    for pattern, repl in _REWRITES:
-        src, count = re.subn(pattern, repl, src, flags=re.S)
-        assert count, f"csrc/pll.cu no longer holds {pattern!r}"
-    assert "asm" not in src and "<<<" not in src
-    out = tmp_path_factory.mktemp("pll_host")
-    (out / "shim.h").write_text(_SHIM)
-    (out / "pll.cpp").write_text(src)
-    lib = out / "libpll_host.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-Wno-unknown-pragmas", "-o",
-                    str(lib), str(out / "pll.cpp")], check=True,
-                   capture_output=True, text=True)
-    so = ctypes.CDLL(str(lib))
+    """``csrc/pll.cu`` built for the host through the shim
+    (``cuda_host.py``): the library with its four C entry points (their
+    argument types set)."""
+    src = cuda_host.rewrite((kernels.CSRC / "pll.cu").read_text(),
+                            "csrc/pll.cu", _REWRITES)
+    so = cuda_host.build(tmp_path_factory.mktemp("pll_host"),
+                         "libpll_host.so", {"pll.cpp": src})
     fns = {}
     for name, args in (("dy4_pll_phase_scan", pll_cuda._ARGS),
                        ("dy4_pll_span_scan", pll_cuda._TARGET_ARGS),
