@@ -33,16 +33,18 @@ front-end routes and the kernels no receiver route runs:
    at a ragged [37, 3132] (the block cut to 3132 IF samples: two tiles of
    1536 and a last one of 60, shorter than the 100-sample band history)
    and at the CLI's one channel, and B1 / B6's tile plan and shared
-   memory per block are printed; B4 (modes 0 and 2) and B5 (modes 2 and
-   3) also at a ragged 37 rows and at the CLI's C=1, B4 at mode 0 also at
-   the sharded step's mini warm-up of 1920 inputs (C=128), each with its
-   tile plan (``resample_cuda._tile_plan``) printed, and at 37 rows the
-   wrapper's plan held bitwise against a pinned plan of row groups of 2
-   (the last one short) whose last tile is shorter than the rest; at
-   each full geometry every plan the plan weighs is timed (CUDA events
-   around back-to-back launches of the C entry point), the plan's pick
-   printed beside the fastest, and after the four modes the plan's cost
-   model is fitted to them all;
+   memory per block are printed; B3 (modes 0 and 1: the tile resampler
+   of B5 at U = 1), B4 (modes 0 and 2) and B5 (modes 2 and 3) also at a
+   ragged 37 rows and at the CLI's C=1, B4 at mode 0 also at the sharded
+   step's mini warm-up of 1920 inputs (C=128), each with its tile plan
+   (``resample_cuda._tile_plan``) printed, and at 37 rows the wrapper's
+   plan held bitwise against a pinned plan of row groups of 2 (the last
+   one short) whose last tile is shorter than the rest; at each full
+   geometry every plan the plan weighs is timed (CUDA events around
+   back-to-back launches of the C entry point), the plan's pick printed
+   beside the fastest (B3 also beside the fastest plan of one output a
+   thread and a cycle of one output), and after the four modes the plan's
+   cost model is fitted to them all;
 3. per mode, runs ``run_blocks`` over 24 blocks x 512 channels, checks
    that every kernel of the mode's path ran on every block (and no other
    kernel ran), decodes channel 0 (stereo separation, and RDS PI/PS in
@@ -225,15 +227,18 @@ B9_RAGGED, B9_NAN = (37, 383), (120, 136)
 # B1 / B6 at modes 0 and 1: 37 rows, n_out = two tiles + 60 (the last
 # tile shorter than the band filters' 100-sample history)
 FRONT_RAGGED_ROWS, FRONT_RAGGED_LAST = 37, 60
-# B4 / B5 also at 32 + 5 rows (a short last row group of a pinned
+# B3 / B4 / B5 also at 32 + 5 rows (a short last row group of a pinned
 # plan of row groups of 2, whose tiles of these many cycles leave a last
-# tile shorter than the rest), at C=1 and (B4) at the sharded step's mini
-# warm-up of SH_HALO_IF inputs
+# tile shorter than the rest; B3 at one output a thread, two cycles of 16
+# outputs, the leads at work at D = 8), at C=1 and (B4) at the sharded
+# step's mini warm-up of SH_HALO_IF inputs
 RESAMPLE_RAGGED_ROWS = 37
-RESAMPLE_PINNED_CYCLES = {("B4", 0): 7, ("B4", 2): 4, ("B5", 2): 5,
-                          ("B5", 3): 3}
+RESAMPLE_PINNED = {("B4", 0): dict(cycles=7), ("B4", 2): dict(cycles=4),
+                   ("B5", 2): dict(cycles=5), ("B5", 3): dict(cycles=3),
+                   ("B3", 0): dict(cycles=7, shape=(1, 2)),
+                   ("B3", 1): dict(cycles=7, shape=(1, 2))}
 SH_HALO_IF = 1920       # parallel/sharded.py's auto halo at mode 0
-_PLAN_SWEEP: list = []  # B4 / B5: every plan timed (_plan_sweep)
+_PLAN_SWEEP: list = []  # B3 / B4 / B5: every plan timed (_plan_sweep)
 PROFILE_REPS = 20       # calls under torch.profiler for the kernel alone
 U32 = 2.0 ** -24        # float32 unit roundoff
 MOM_TOL = 1e-5         # tracker moments, relative to E[|i|^p |q|^r]
@@ -336,7 +341,7 @@ def _device_kernels() -> dict:
         pll_cuda.phase_scan_target: "pll_span_scan_kernel",
         pll_cuda.phase_scan_target.expand: "pll_span_expand_kernel",
         pll_cuda.phase_scan_coded: "pll_phase_scan_coded_kernel",
-        backend_cuda.fused_audio_backend: "audio_backend_kernel",
+        backend_cuda.fused_audio_backend: "audio_rational_kernel",
         resample_cuda.fused_audio_backend_rational: "audio_rational_kernel",
         resample_cuda.fused_rds_backend: "rds_backend_kernel",
         channelizer_cuda.channelize_branches: "channelizer_kernel",
@@ -851,12 +856,18 @@ def _b2_row(label, x, kp, ki, dth, carry, where=f"C={C}",
         flops=B2_STEP_OPS * x.numel(), chain_steps=x.shape[-1], phase=phase)
 
 
+def _rate(which: str, args) -> tuple[int, int]:
+    """``(U, D)`` of a B3 / B4 / B5 call on ``args`` (the wrapper's; B3's
+    end with D alone)."""
+    return (1, args[-1]) if which == "B3" else (args[-2], args[-1])
+
+
 def _rational_flops(which: str, args) -> float:
-    """Float operations of one B4 / B5 call on ``args`` (the wrapper's):
-    the mix, 2 x ceil(K/U) MACs an output of each leg, B4's RRC (2 x K2
-    MACs an output of each leg), B5's matrix."""
+    """Float operations of one B3 / B4 / B5 call on ``args`` (the
+    wrapper's): the mix, 2 x ceil(K/U) MACs an output of each leg, B4's
+    RRC (2 x K2 MACs an output of each leg), B3's and B5's matrix."""
     c, n = args[0].shape
-    up, down, k = args[-2], args[-1], args[3].numel()
+    (up, down), k = _rate(which, args), args[3].numel()
     m = n * up // down
     per_out = -(-k // up)
     if which == "B4":
@@ -866,17 +877,17 @@ def _rational_flops(which: str, args) -> float:
 
 
 def _entry_ms(which: str, args, plan, reps: int = 20) -> float:
-    """Mean milliseconds of one B4 / B5 launch under ``plan`` on ``args``
-    (the wrapper's), by CUDA events around ``reps`` back-to-back calls of
-    the C entry point with its arguments built once: the host issues a
-    launch in well under the kernel's time, so the events time the card.
-    Raises when a launch is refused."""
+    """Mean milliseconds of one B3 / B4 / B5 launch under ``plan`` on
+    ``args`` (the wrapper's), by CUDA events around ``reps`` back-to-back
+    calls of the C entry point with its arguments built once: the host
+    issues a launch in well under the kernel's time, so the events time
+    the card.  Raises when a launch is refused."""
     import torch
     from dy4tpu_torch.ops import resample_cuda as rc
     from dy4tpu_torch.runtime import kernels
     b4 = which == "B4"
     c, n = args[0].shape
-    up, down = args[-2], args[-1]
+    up, down = _rate(which, args)
     k = args[3].numel()
     s = (k - 1) // up
     m = n * up // down
@@ -906,13 +917,16 @@ def _entry_ms(which: str, args, plan, reps: int = 20) -> float:
 
 
 def _plan_sweep(which: str, mode: int, args) -> None:
-    """Every plan ``resample_cuda._candidates`` weighs for B4 / B5 on
+    """Every plan ``resample_cuda._candidates`` weighs for B3 / B4 / B5 on
     ``args`` (the mode's full geometry), each timed (_entry_ms); the rows
     go to _PLAN_SWEEP for the fit of the plan's cost model, and the plan
-    the model picks is printed beside the fastest."""
+    the model picks is printed beside the fastest (B3: and beside the
+    fastest plan of one output a thread and one tuple a cycle, the first
+    design's shape, which B5's kernel took at U = 1 before it learnt
+    cycles of several tuples)."""
     from dy4tpu_torch.ops import resample_cuda as rc
     c, n = args[0].shape
-    up, down = args[-2], args[-1]
+    up, down = _rate(which, args)
     k2 = args[4].numel() if which == "B4" else 0
     rows = [dict(kernel=which, mode=mode, cost=cost, plan=plan,
                  ms=_entry_ms(which, args, plan))
@@ -921,6 +935,13 @@ def _plan_sweep(which: str, mode: int, args) -> None:
     fastest = min(rows, key=lambda r: r["ms"])
     picked = min(rows, key=lambda r: r["cost"].clocks())
     _PLAN_SWEEP.extend(rows)
+    if which == "B3":
+        first = min((r for r in rows if r["plan"].span == 1),
+                    key=lambda r: r["ms"])
+        _say(f"phase 2: B3 mode{mode}: the fastest plan of one output a "
+             f"thread and a cycle of one output {first['ms']:.4f} ms "
+             f"({first['plan'].rows} rows x {first['plan'].cycles} cycles, "
+             f"chunk {first['plan'].chunk})")
     _say(f"phase 2: {which} mode{mode} plan sweep: {len(rows)} plans, each "
          f"timed by CUDA events over 20 back-to-back launches; the plan's "
          f"pick {picked['ms']:.4f} ms ({picked['plan'].rows} rows x "
@@ -928,51 +949,81 @@ def _plan_sweep(which: str, mode: int, args) -> None:
          f"positions x {picked['plan'].chunk} cycles a thread), the fastest "
          f"{fastest['ms']:.4f} ms ({fastest['plan'].rows} x "
          f"{fastest['plan'].cycles}, {fastest['plan'].phases} x "
-         f"{fastest['plan'].chunk}): {picked['ms'] / fastest['ms']:.3f}x")
+         f"{fastest['plan'].chunk}, span {fastest['plan'].span}): "
+         f"{picked['ms'] / fastest['ms']:.3f}x")
 
 
 def _plan_fit() -> None:
-    """The least-squares fit of the plan's cost model (its three
-    constants) to every plan _plan_sweep timed, and its correlation."""
+    """The fit of the plan's cost model (its four clock constants,
+    ``resample_cuda._Cost``) to every plan _plan_sweep timed, by least
+    squares of the log of the time; the fit's correlation and the one of
+    the constants in use, and at each geometry swept the plan each picks,
+    against the fastest."""
     import numpy as np
+    from scipy.optimize import least_squares
     from dy4tpu_torch.ops import resample_cuda as rc
     clocks = np.array([r["ms"] for r in _PLAN_SWEEP]) * 1e-3 * \
         _max_sm_clock_hz()
-    terms = np.array([[r["cost"].rounds * r["cost"].wavefronts,
-                       r["cost"].rounds * r["cost"].rrc_fmas,
-                       r["cost"].rounds] for r in _PLAN_SWEEP])
-    coef, *_ = np.linalg.lstsq(terms, clocks, rcond=None)
-    model = np.array([r["cost"].clocks() for r in _PLAN_SWEEP])
+    rounds, wf, rrc, copy = (np.array([getattr(r["cost"], f) for r in
+                                       _PLAN_SWEEP], float)
+                             for f in rc._Cost._fields)
+
+    def model(x):
+        return (rounds * np.maximum(x[0] * wf + x[1] * rrc + x[2],
+                                    x[3] * copy) + x[3] * copy)
+
+    in_use = [rc._WF_CLK, rc._RRC_CLK, rc._ITEM_CLK, rc._COPY_CLK]
+    fit = least_squares(lambda x: np.log(model(x)) - np.log(clocks),
+                        in_use, bounds=(0, np.inf)).x
+    picks = []
+    for key in dict.fromkeys((r["kernel"], r["mode"]) for r in _PLAN_SWEEP):
+        at = [i for i, r in enumerate(_PLAN_SWEEP)
+              if (r["kernel"], r["mode"]) == key]
+        fastest = min(clocks[i] for i in at)
+        picks.append(f"{key[0]} mode{key[1]} " + " / ".join(
+            f"{clocks[min(at, key=lambda i: m[i])] / fastest:.3f}x"
+            for m in (model(np.array(in_use)), model(fit))))
     _say(f"phase 2: the plan's cost model over {len(_PLAN_SWEEP)} plans: "
-         f"fitted _WF_CLK {coef[0]:.4g}, _RRC_CLK {coef[1]:.4g}, _ITEM_CLK "
-         f"{coef[2]:.4g} (correlation {np.corrcoef(terms @ coef, clocks)[0, 1]:.3f}"
-         f"); in use {rc._WF_CLK}, {rc._RRC_CLK}, {rc._ITEM_CLK} "
-         f"(correlation {np.corrcoef(model, clocks)[0, 1]:.3f})")
+         f"fitted _WF_CLK {fit[0]:.4g}, _RRC_CLK {fit[1]:.4g}, _ITEM_CLK "
+         f"{fit[2]:.4g}, _COPY_CLK {fit[3]:.4g} (correlation "
+         f"{np.corrcoef(model(fit), clocks)[0, 1]:.3f}); in use "
+         f"{', '.join(map(str, in_use))} (correlation "
+         f"{np.corrcoef(model(np.array(in_use)), clocks)[0, 1]:.3f}); each "
+         f"geometry's pick against its fastest plan, constants in use / "
+         f"fitted: {'; '.join(picks)}")
 
 
 def _rational_rows(which: str, cfg, args, k_out) -> list:
     """B4 (``args`` as ``fused_rds_backend`` takes them, ``k_out`` its
-    output on them) or B5 at the mode's full geometry, then at a ragged
-    37 rows (a short last row group under a pinned plan of row groups of
-    2), at the CLI's C=1 and (B4 at mode 0) at the sharded step's mini
-    warm-up of 1920 inputs: each within 1e-5 of the plain version with
-    the input tails bit-equal, its plan printed; and, at 37 rows, the
-    wrapper's plan and the pinned one bitwise equal.  Returns the rows."""
+    output on them), B5 or B3 at the mode's full geometry, then at a
+    ragged 37 rows (a short last row group under a pinned plan of row
+    groups of 2), at the CLI's C=1 and (B4 at mode 0) at the sharded
+    step's mini warm-up of 1920 inputs: each within 1e-5 of the plain
+    version with the input tails bit-equal, its plan printed; and, at 37
+    rows, the wrapper's plan and the pinned one bitwise equal.  Returns
+    the rows."""
     import torch
+    from dy4tpu_torch.ops import backend_cuda
     from dy4tpu_torch.ops import resample_cuda as rc
     b4 = which == "B4"
-    wrap = rc.fused_rds_backend if b4 else rc.fused_audio_backend_rational
-    plain = (rc.fused_rds_backend_plain if b4
-             else rc.fused_audio_backend_rational_plain)
-    launch = rc._rds_launch if b4 else rc._audio_launch
+    wrap, plain, launch, name = {
+        "B4": (rc.fused_rds_backend, rc.fused_rds_backend_plain,
+               rc._rds_launch, ("B4 rds_backend",
+                                "dy4tpu_torch/csrc/rds_backend.cu",
+                                "dy4tpu/ops/resample_pallas.py:275")),
+        "B5": (rc.fused_audio_backend_rational,
+               rc.fused_audio_backend_rational_plain, rc._audio_launch,
+               ("B5 audio_rational", "dy4tpu_torch/csrc/audio_rational.cu",
+                "dy4tpu/ops/resample_pallas.py:173")),
+        "B3": (backend_cuda.fused_audio_backend,
+               backend_cuda.fused_audio_backend_plain, rc._audio_launch,
+               ("B3 audio_backend", "dy4tpu_torch/csrc/audio_rational.cu",
+                "dy4tpu/ops/backend_pallas.py:93"))}[which]
     exact = (2, 3) if b4 else (3, 4)
-    n_t = 9 if b4 else 6                       # tensors before up, down
-    up, down = args[-2], args[-1]
+    n_t = 9 if b4 else 6                       # tensors before the rate
+    up, down = _rate(which, args)
+    rate = (down,) if which == "B3" else (up, down)
     k, k2 = args[3].numel(), (args[4].numel() if b4 else 0)
-    name = (("B4 rds_backend", "dy4tpu_torch/csrc/rds_backend.cu",
-             "dy4tpu/ops/resample_pallas.py:275") if b4 else
-            ("B5 audio_rational", "dy4tpu_torch/csrc/audio_rational.cu",
-             "dy4tpu/ops/resample_pallas.py:173"))
     mode = f"mode{cfg.mode}"
     sms = rc._sms(args[0].device)
     rows_out = []
@@ -984,7 +1035,7 @@ def _rational_rows(which: str, cfg, args, k_out) -> list:
         n = args[0].shape[1] if n_in is None else n_in
         cut = tuple(t if t.dim() == 1 else
                     (t[:c, :n] if t.shape[1] == args[0].shape[1] else t[:c])
-                    .contiguous() for t in args[:n_t]) + (up, down)
+                    .contiguous() for t in args[:n_t]) + rate
         got = k_out if not label else wrap(*cut)
         want = plain(*cut)
         torch.cuda.synchronize()
@@ -992,21 +1043,22 @@ def _rational_rows(which: str, cfg, args, k_out) -> list:
             raise AssertionError(f"{which} {mode}{label}: input tails differ "
                                  f"from the plain version")
         plan = rc._tile_plan(c, n, up, down, k, k2, sms=sms)
-        geometry = f"{mode} {up}/{down}{label}"
+        geometry = (f"{mode} D={down}{label}" if which == "B3" else
+                    f"{mode} {up}/{down}{label}")
         _say(f"phase 2: {which} {geometry} [{c}, {n}] plan: {plan.items} "
              f"items of {plan.rows} rows x {plan.n_tiles} tiles of "
-             f"{plan.cycles} cycles ({plan.tile} outputs, halo "
-             f"{plan.halo}), {plan.phases} positions x {plan.chunk} cycles "
-             f"a thread, {plan.compute_threads} of {plan.threads} threads "
-             f"computing, {plan.ctas} blocks, {plan.smem} bytes of shared "
-             f"memory a block")
+             f"{plan.cycles} cycles of {plan.span} ({plan.tile} outputs, "
+             f"halo {plan.halo}), {plan.phases} positions x {plan.chunk} "
+             f"cycles a thread, leads (k // {plan.lead_group}) % "
+             f"{plan.lead_mod}, {plan.compute_threads} of {plan.threads} "
+             f"threads computing, {plan.ctas} blocks, {plan.smem} bytes of "
+             f"shared memory a block")
         extra = dict(plan=plan._asdict())
         if not label:
             _plan_sweep(which, cfg.mode, cut)
         if label == " ragged":
             other = rc._tile_plan(c, n, up, down, k, k2, sms=sms, rows=2,
-                                  cycles=RESAMPLE_PINNED_CYCLES[which,
-                                                                cfg.mode])
+                                  **RESAMPLE_PINNED[which, cfg.mode])
             alt = launch(cut[:n_t], up, down, other)
             torch.cuda.synchronize()
             if other == plan or not all(torch.equal(a, b)
@@ -1016,7 +1068,8 @@ def _rational_rows(which: str, cfg, args, k_out) -> list:
                                      f"same bits")
             _say(f"phase 2: {which} {geometry}: the wrapper's plan and a "
                  f"plan of row groups of 2 (the last one short) and tiles "
-                 f"of {other.cycles} cycles give bitwise-equal outputs and "
+                 f"of {other.cycles} cycles of {other.span} ({other.phases} "
+                 f"x {other.chunk} a thread) give bitwise-equal outputs and "
                  f"tails")
             extra["two_plans_bitwise"] = True
         rows_out.append(_Row(
@@ -1185,42 +1238,26 @@ def _check_kernels(cfg, params, blocks, dev, smi) -> list[dict]:
     else:
         nco = nco_i2.contiguous()
     bs = rx.back_state_of(st)
+    aargs = (fmd, stereo, nco, params.audio_coeff, bs.mono_tail.contiguous(),
+             bs.stereo_tail.contiguous())
     if cfg.audio_up == 1:
-        aargs = (fmd, stereo, nco, params.audio_coeff,
-                 bs.mono_tail.contiguous(), bs.stereo_tail.contiguous(),
-                 cfg.audio_down)
+        aargs += (cfg.audio_down,)
         wrap = backend_cuda.fused_audio_backend
         plain = backend_cuda.fused_audio_backend_plain
-        name = ("B3 audio_backend", f"{mode} D={cfg.audio_down}",
-                "dy4tpu_torch/csrc/audio_backend.cu",
-                "dy4tpu/ops/backend_pallas.py:93")
+        name = "B3"
     else:
-        aargs = (fmd, stereo, nco, params.audio_coeff,
-                 bs.mono_tail.contiguous(), bs.stereo_tail.contiguous(),
-                 cfg.audio_up, cfg.audio_down)
+        aargs += (cfg.audio_up, cfg.audio_down)
         wrap = resample_cuda.fused_audio_backend_rational
         plain = resample_cuda.fused_audio_backend_rational_plain
-        name = ("B5 audio_rational",
-                f"{mode} {cfg.audio_up}/{cfg.audio_down}",
-                "dy4tpu_torch/csrc/audio_rational.cu",
-                "dy4tpu/ops/resample_pallas.py:173")
-    _distinct_rows(name[0], *aargs[:3], *aargs[4:6])
+        name = "B5"
+    _distinct_rows(name, *aargs[:3], *aargs[4:6])
     k_out = wrap(*aargs)
     p_out = plain(*aargs)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k_out[3:], p_out[3:])):
-        raise AssertionError(f"{name[0]} {mode}: tails differ from the "
-                             f"plain version")
-    n, n_out = cfg.if_per_block, cfg.audio_per_block
-    per_out = -(-params.audio_coeff.numel() // cfg.audio_up)  # taps visited
-    if cfg.audio_up > 1:
-        rows += _rational_rows("B5", cfg, aargs, k_out)
-    else:
-        rows.append(_Row(*name, wrap, _max_err(k_out, p_out), 1e-5,
-                         lambda: wrap(*aargs), lambda: plain(*aargs),
-                         nbytes=_nbytes(aargs[:6], k_out),
-                         flops=C * (2 * n + 2 * n_out * per_out * 2
-                                    + 2 * n_out)))
+        raise AssertionError(f"{name} {mode}: tails differ from the plain "
+                             f"version")
+    rows += _rational_rows(name, cfg, aargs, k_out)
     del k_out, p_out
 
     if rds:

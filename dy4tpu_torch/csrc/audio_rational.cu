@@ -1,40 +1,48 @@
-// Audio back end of the rational modes (U > 1): stereo mix, the mono and
-// stereo rational resamplers, and the L/R matrix, in one pass; the
-// polyphase tile resampler of rational.cuh.
+// Audio back end of every mode: stereo mix, the mono and stereo
+// resamplers, and the L/R matrix, in one pass; the polyphase tile
+// resampler of rational.cuh.  The rational modes 2 and 3 (U > 1, B5) and
+// the decimating modes 0 and 1 (U = 1, B3) run this one kernel.
 //
 // Replaces dy4tpu/ops/resample_pallas.py :: fused_audio_backend_rational
-// (_audio_kernel).  The mono leg is fm_delayed, the stereo leg
-// 2 * nco * stereo_band formed on chip; both run the rational resampler of
-// rational.cuh with their carried tails; left = mono + stereo, right =
-// mono - stereo.  The new tails are the last S samples of each input leg.
+// (_audio_kernel) and dy4tpu/ops/backend_pallas.py :: fused_audio_backend
+// (_kernel).  The mono leg is fm_delayed, the stereo leg 2 * nco *
+// stereo_band formed on chip; both run the resampler of rational.cuh with
+// their carried tails; left = mono + stereo, right = mono - stereo.  The
+// new tails are the last S samples of each input leg.
 //
-// What bounds it on the card: bytes.  At modes 2 and 3 (147/800 and
-// 147/1280 with K = 14847) a block of C = 512 reads three IF-rate rows a
-// channel and writes three audio rows, 0.0211 / 0.0264 ms over 3.35 TB/s;
-// 2 x 101 FMAs an output come to less.
+// What bounds it on the card: bytes.  A block of C = 512 reads three
+// IF-rate rows a channel and writes three audio rows: 0.0211 / 0.0264 ms
+// over 3.35 TB/s at modes 2 and 3 (147/800 and 147/1280 with K = 14847),
+// 0.0171 / 0.0193 ms at modes 0 and 1 (D = 5 and 8, K = 101); 2 x 101
+// FMAs an output come to less.
 //
-// What held the first design (a block per (row, tile of 512 outputs), one
-// output a thread, 0.1415 / 0.1577 ms) back: every block gathered its
-// 59 KB of taps with h[r + t*U], a stride-147 read in which each 4-byte
-// load took its own 32-byte sector (about 0.97 GB of L2 sector traffic at
-// mode 2 for 59 MB of input), and with one output a thread each tap read
-// from shared memory fed only 2 FMAs.
+// What held the first designs back.  B5 (a block per (row, tile of 512
+// outputs), one output a thread, 0.1415 / 0.1577 ms): every block
+// gathered its 59 KB of taps with h[r + t*U], a stride-147 read in which
+// each 4-byte load took its own 32-byte sector, and each tap read from
+// shared memory fed only 2 FMAs.  B3 (a block per 256 outputs of a row,
+// one output a thread, 0.0582 / 0.1482 ms at D = 5 / 8): a thread's
+// D-strided window reads put lanes 4 apart on one bank at D = 8 (an 8-way
+// conflict), three shared-memory reads fed each FMA pair, and each block
+// staged its taps and window and waited at a barrier before any FMA.
 //
 // The design (rational.cuh): persistent blocks, one an SM, read the taps
-// once, in natural order, and scatter them into shifted polyphase rows;
-// copy warps load fm_delayed, nco and stereo_band once and store the mono
-// and mixed stereo legs interleaved, so one 8-byte read feeds both legs;
-// a compute thread owns a tuple of P consecutive positions, which share
+// once, in natural order, and scatter them into shifted rows; copy warps
+// load fm_delayed, nco and stereo_band once and store the mono and mixed
+// stereo legs interleaved, so one 8-byte read feeds both legs, while the
+// compute warps work on the item before; a compute thread owns a tuple of
+// P consecutive positions (at U = 1, P consecutive outputs), which share
 // each input read, and accumulates `chunk` cycles of both legs at once
-// (resample_cuda._tile_plan picks 3 x 2 at mode 2, 3 x 1 at mode 3).
-// Tiles are whole phase cycles with no halo (no filter follows); the
+// (resample_cuda._tile_plan picks P, chunk and, at U = 1, the cycle's
+// tuples and their leads, which spread a warp's reads over the banks at
+// even D).  Tiles are whole cycles with no halo (no filter follows); the
 // resampled tile is staged in shared memory and the three outputs are
 // stored coalesced.
 //
 // Numerics: nco * sb * 2 is the plain version's product in its order, so
 // the stereo tail is exact (the mono tail is a copy); every output is one
-// chain of fmaf in one order whatever the plan; all match the plain torch
-// version to float32 tolerance.
+// chain of fmaf over its taps in order from +0, whatever the plan; all
+// match the plain torch version to float32 tolerance.
 
 #include "rational.cuh"
 
@@ -93,8 +101,8 @@ struct AudioIo {
       right[at] = __fsub_rn(vm, vs);
     }
     // the new tails: the row's last s samples of each leg, in the last tile
-    if (it.c_hi * p.down == p.n_in) {
-      const int w0 = p.n_in - it.c_lo * p.down;   // window slot of x_ext[n]
+    if (it.c_hi * p.step == p.n_in) {
+      const int w0 = p.n_in - it.c_lo * p.step;   // window slot of x_ext[n]
       for (int i = ctid; i < it.nrows * p.s; i += p.compute_threads) {
         const int r = i / p.s;
         const int j = i - r * p.s;
@@ -131,15 +139,17 @@ extern "C" int dy4_audio_rational(
     const float* fmd, const float* sb, const float* nco, const float* h,
     const float* mono_tail, const float* stereo_tail, float* mono,
     float* left, float* right, float* mono_tail_out, float* stereo_tail_out,
-    long long c, int n_in, int up, int down, int k, int dinv, int phases,
-    int tmul, int tinv, int lx, int guard, int rows, int cycles,
-    int n_tiles, int halo_cycles, int window, int ystride, int yhead,
-    int chunk, int groups, int compute_threads, int threads, int ctas,
-    int items, int smem, void* stream) {
+    long long c, int n_in, int up, int down, int k, int span, int dinv,
+    int phases, int tmul, int tinv, int lead_group, int lead_mod, int lx,
+    int guard, int rows, int cycles, int n_tiles, int halo_cycles,
+    int window, int ystride, int yhead, int chunk, int groups,
+    int compute_threads, int threads, int ctas, int items, int smem,
+    void* stream) {
   const Plan p = rational::make_plan(
-      c, n_in, up, down, k, 0, dinv, phases, tmul, tinv, lx, guard, rows,
-      cycles, n_tiles, halo_cycles, window, ystride, yhead, chunk, groups,
-      compute_threads, threads, ctas, items, smem);
+      c, n_in, up, down, k, 0, span, dinv, phases, tmul, tinv, lead_group,
+      lead_mod, lx, guard, rows, cycles, n_tiles, halo_cycles, window,
+      ystride, yhead, chunk, groups, compute_threads, threads, ctas, items,
+      smem);
   const AudioIo io{h,    nullptr, fmd,   sb,    nco,           mono_tail,
                    stereo_tail, mono, left, right, mono_tail_out,
                    stereo_tail_out};

@@ -1,6 +1,7 @@
-// The polyphase tile resampler shared by B4 (rds_backend.cu) and B5
-// (audio_rational.cu): the rational U/D resampler with carried tails over
-// C rows, each kernel adding its own input mix and epilogue (an Io class).
+// The polyphase tile resampler shared by B4 (rds_backend.cu), B5
+// (audio_rational.cu) and, as its decimating case U = 1, B3 (the same
+// entry as B5): the rational U/D resampler with carried tails over C rows,
+// each kernel adding its own input mix and epilogue (an Io class).
 //
 // The resampler.  With x_ext = [tail || x] (S + N samples), S = (K-1)//U,
 // output m of a row is (dy4tpu/ops/fir.py, the port's fir.py)
@@ -10,6 +11,11 @@
 // m = c*U + p (cycle c, position p) takes phase r_p = (p*D) % U and its
 // newest input is S + c*D + b_p, b_p = (p*D)//U.  Each position occurs
 // once a cycle, and its outputs step through the input by exactly D.
+//
+// The walk's cycle is `span` outputs and `step` inputs: one phase cycle
+// (U, D) where U > 1.  With U = 1 a phase cycle is one output, so the walk
+// takes `span` consecutive outputs as its cycle (step = span * D): output
+// p of it is position p, b_p = p * D, and every position takes all of h.
 //
 // The launch (resample_cuda._tile_plan sizes it; Plan below), one block
 // an SM:
@@ -27,10 +33,17 @@
 //     streams at once, units j, j + groups, ... of the item.  The P
 //     positions' newest inputs lie within a few samples of one another,
 //     so each tap row is stored shifted (zero taps before and after) to
-//     line all P up on the tuple's newest input: at step tau every
-//     position reads the same input.  One 8-byte read of the window then
-//     feeds 2 x P FMAs, one 16-byte read of a tap row four steps of one
-//     position, and a step of a thread 2 x P x QT FMAs;
+//     line all P up on the tuple's anchor, its newest input: at step tau
+//     every position reads the same input.  One 8-byte read of the window
+//     then feeds 2 x P FMAs, one 16-byte read of a tap row four steps of
+//     one position, and a step of a thread 2 x P x QT FMAs;
+//   * at U = 1 every tuple's newest input sits at the same place mod D,
+//     so at even D a warp's window reads would share a few banks: tuple k
+//     reads lead(k) = (k / lead_group) % lead_mod steps ahead of its
+//     newest input (lead_mod <= D, so never past the window's end), its
+//     rows shifted that much further, which puts the warp's reads on
+//     distinct banks (the plan picks lead_group and lead_mod; B4 and B5
+//     take no lead);
 //   * the taps are staged once a block: h read in natural order and
 //     scattered to its (position, tuple) row while the copy warps load
 //     the first item.  Lane l of a warp takes tuple (l * tmul) mod tuples
@@ -38,7 +51,10 @@
 //     distinct banks; consecutive phases in the first design were the
 //     case P = 1, tmul = D^-1 mod U), and the tap rows are stored in lane
 //     order with a stride of 4 x an odd number of floats, so the 16-byte
-//     tap reads of a quarter-warp never share a bank;
+//     tap reads of a quarter-warp never share a bank.  At U = 1 the
+//     tuples of one lead have the same rows, so they share them: `hrows`
+//     rows a position, one a lead, and a warp's tap reads are broadcasts
+//     of at most lead_mod rows;
 //   * the epilogue (Io::epilogue) runs on the compute threads after a
 //     named barrier of theirs; one __syncthreads of the whole block ends
 //     an item and hands the buffers over.
@@ -69,13 +85,16 @@ struct Plan {
   long long c;        // rows
   int n_in, m_out;    // inputs and outputs a row
   int up, down, k;    // U, D, taps
+  int span, step;     // outputs and inputs a cycle of the walk (the note)
   int s, taps;        // tail length S = (K-1)//U; taps a phase = S + 1
   int k2;             // RRC taps (B4), 0 for B5
   int dinv;           // D^-1 mod U: the position of phase r
   int phases;         // P: positions a tuple holds
-  int tuples;         // ceil(U / P)
+  int tuples;         // ceil(span / P)
   int tmul, tinv;     // lane l takes tuple (l * tmul) mod tuples; its
                       // inverse mod tuples
+  int lead_group, lead_mod;   // tuple k's lead (the note)
+  int hrows;          // tap rows a position: tuples, or at U = 1 leads
   int lx, lxs;        // steps a tuple's loop takes (S + 1 + the widest
                       // shift); floats a shifted tap row takes
   int guard;          // zero float2 before each window row (>= the shift)
@@ -95,7 +114,7 @@ __host__ __device__ inline int tap_stride(int n) {
 }
 
 // Shared memory, in floats (resample_cuda._layout): the shifted tap rows
-// [P][tuples], the RRC taps, two input windows (each row behind its
+// [P][hrows], the RRC taps, two input windows (each row behind its
 // guard), the staged streams, B4's RRC outputs (its two half sums).
 struct Layout {
   int hp, hr, xw, ye, bb, total;
@@ -104,31 +123,67 @@ struct Layout {
 __host__ __device__ inline Layout layout(const Plan& p) {
   Layout l;
   l.hp = 0;
-  l.hr = p.phases * p.tuples * p.lxs;
+  l.hr = p.phases * p.hrows * p.lxs;
   l.xw = l.hr + r4(p.k2);
   l.ye = l.xw + 2 * p.rows * (p.guard + p.window) * 2;
   l.bb = l.ye + 2 * p.rows * p.ystride;
-  l.total = l.bb + (p.k2 ? 4 * p.rows * r4(p.cycles * p.up) : 0);
+  l.total = l.bb + (p.k2 ? 4 * p.rows * r4(p.cycles * p.span) : 0);
   return l;
+}
+
+__host__ __device__ inline int lead(const Plan& p, int k) {
+  return k / p.lead_group % p.lead_mod;
+}
+
+// Tuple k's tap row among a position's hrows: its lane (U > 1), its lead
+// (U = 1).
+__host__ __device__ inline int tap_slot(const Plan& p, int k) {
+  return p.up > 1 ? static_cast<int>(static_cast<long long>(k) * p.tinv %
+                                     p.tuples)
+                  : lead(p, k);
+}
+
+// Tuple k's anchor: b_p of its last position, plus its lead.
+__host__ __device__ inline int tuple_anchor(const Plan& p, int k) {
+  int last = (k + 1) * p.phases - 1;
+  if (last > p.span - 1) last = p.span - 1;
+  return static_cast<int>(static_cast<long long>(last) * p.step / p.span) +
+         lead(p, k);
+}
+
+// The widest shift of a tap row: its tuple's anchor less b_p of its first
+// position (lx must hold it after the S + 1 taps).
+inline int widest_shift(const Plan& p) {
+  int w = 0;
+  for (int k = 0; k < p.tuples; ++k) {
+    const int first = static_cast<int>(static_cast<long long>(k) *
+                                       p.phases * p.step / p.span);
+    if (tuple_anchor(p, k) - first > w) w = tuple_anchor(p, k) - first;
+  }
+  return w;
 }
 
 // A plan the kernel cannot run is refused before the launch.
 inline bool plan_ok(const Plan& p) {
-  const int cycles_row = p.down >= 1 ? p.n_in / p.down : 0;
-  return p.up >= 1 && p.down >= 1 && p.n_in % p.down == 0 &&
+  if (!(p.up >= 1 && p.down >= 1 && p.phases >= 1 && p.phases <= 4 &&
+        p.span >= 1 && (p.span == p.up || p.up == 1) &&
+        p.lead_group >= 1 && p.lead_mod >= 1 &&
+        (p.lead_mod == 1 || (p.up == 1 && p.lead_mod <= p.down)) &&
+        p.tuples == (p.span + p.phases - 1) / p.phases))
+    return false;
+  const int cycles_row = p.n_in / p.step;
+  return p.n_in % p.step == 0 &&
          p.rows >= 1 && p.cycles >= 1 && p.cycles <= cycles_row &&
          p.n_tiles == (cycles_row + p.cycles - 1) / p.cycles &&
          p.items == (p.c + p.rows - 1) / p.rows * p.n_tiles &&
          (p.n_tiles == 1 || p.k2 == 0 ||
-          (p.halo_cycles * p.up >= p.k2 - 1 &&
+          (p.halo_cycles * p.span >= p.k2 - 1 &&
            p.cycles >= p.halo_cycles)) &&
-         p.phases >= 1 && p.phases <= 4 &&
-         p.tuples == (p.up + p.phases - 1) / p.phases &&
          p.tmul >= 0 && p.tmul < p.tuples && p.tinv >= 0 &&
          p.tinv < p.tuples &&
          (static_cast<long long>(p.tmul) * p.tinv) % p.tuples ==
              (p.tuples > 1 ? 1 : 0) &&
-         p.lx >= p.taps && p.lxs == tap_stride(p.lx) &&
+         p.lx >= p.taps + widest_shift(p) && p.lxs == tap_stride(p.lx) &&
          p.guard % 2 == 0 && p.guard >= p.lx - p.taps &&
          p.chunk >= 1 && p.chunk <= 4 && p.groups >= 1 &&
          p.compute_threads % 32 == 0 &&
@@ -136,10 +191,10 @@ inline bool plan_ok(const Plan& p) {
          p.threads > p.compute_threads && p.threads % 32 == 0 &&
          p.threads <= kMaxThreads && p.ctas >= 1 && p.ctas <= p.items &&
          p.window % 2 == 0 &&
-         p.window >= p.s + (p.cycles + p.halo_cycles) * p.down &&
-         p.yhead >= p.halo_cycles * p.up &&
+         p.window >= p.s + (p.cycles + p.halo_cycles) * p.step &&
+         p.yhead >= p.halo_cycles * p.span &&
          (p.k2 == 0 || p.yhead >= p.k2 - 1) &&
-         p.ystride >= p.yhead + p.cycles * p.up + (p.k2 ? kRrcGroup : 0) &&
+         p.ystride >= p.yhead + p.cycles * p.span + (p.k2 ? kRrcGroup : 0) &&
          4 * layout(p).total == p.smem;
 }
 
@@ -157,11 +212,11 @@ __device__ __forceinline__ Item item_of(const Plan& p, int it) {
   i.row0 = static_cast<long long>(g) * p.rows;
   const long long left = p.c - i.row0;
   i.nrows = left < p.rows ? static_cast<int>(left) : p.rows;
-  i.m0 = i.tile * p.cycles * p.up;
-  const int m1 = i.m0 + p.cycles * p.up;
+  i.m0 = i.tile * p.cycles * p.span;
+  const int m1 = i.m0 + p.cycles * p.span;
   i.m1 = m1 < p.m_out ? m1 : p.m_out;
   i.c_lo = i.tile * p.cycles - (i.tile ? p.halo_cycles : 0);
-  i.c_hi = i.m1 / p.up;
+  i.c_hi = i.m1 / p.span;
   return i;
 }
 
@@ -170,29 +225,25 @@ __device__ __forceinline__ void sync_compute(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
-// b_p of the last position of tuple k: the tuple's newest input.
-__device__ __forceinline__ int tuple_base(const Plan& p, int k) {
-  int last = (k + 1) * p.phases - 1;
-  if (last > p.up - 1) last = p.up - 1;
-  return static_cast<int>(static_cast<long long>(last) * p.down / p.up);
-}
-
 // Copy thread `lane` of `n`: the input windows of item `it` into `xw` (a
 // buffer's first row, after its guard): window slot u of a row is
-// x_ext[c_lo*D + u], both streams mixed.  The body (slots from u0 on, the
-// row's own samples) goes 16 bytes a load where the three inputs and the
-// slot are 16-byte aligned, else 4.
+// x_ext[c_lo*step + u], both streams mixed.  The slots before u0 come from
+// the carried tail (a tile that starts less than S samples into the row:
+// tile 0, and at U = 1 a short tile after it); the body (slots from u0
+// on, the row's own samples) goes 16 bytes a load where the three inputs
+// and the slot are 16-byte aligned, else 4.
 template <class Io>
 __device__ __forceinline__ void load_window(const Io& io, const Plan& p,
                                             const Item& it, float2* xw,
                                             int lane, int n) {
-  const int len = p.s + (it.c_hi - it.c_lo) * p.down;
-  const long long wx0 = static_cast<long long>(it.c_lo) * p.down;
-  const int u0 = wx0 < p.s ? p.s : 0;   // tile 0: the tail first
+  const int len = p.s + (it.c_hi - it.c_lo) * p.step;
+  const long long wx0 = static_cast<long long>(it.c_lo) * p.step;
+  const int u0 = wx0 < p.s ? p.s - static_cast<int>(wx0) : 0;
   for (int r = 0; r < it.nrows; ++r) {
     const long long row = it.row0 + r;
     float2* dst = xw + r * (p.guard + p.window);
-    for (int u = lane; u < u0; u += n) dst[u] = io.tail(row, u, p.s);
+    for (int u = lane; u < u0; u += n)
+      dst[u] = io.tail(row, static_cast<int>(wx0) + u, p.s);
     const long long xb = row * p.n_in + wx0 - p.s;
     int u = u0;
     if (u0 % 4 == 0 && io.aligned(xb + u0)) {
@@ -236,29 +287,31 @@ __device__ __forceinline__ void load_window(const Io& io, const Plan& p,
   }
 }
 
-// Compute thread `ctid`: the zeroed tap rows and window guards, each
-// phase's shifted row (in `scratch`, which the first item overwrites), and
-// then the taps of h, read in natural order, each into its phase's row.
+// Compute thread `ctid`: the zeroed tap rows and window guards, where
+// each position's shifted row starts (in `scratch`, which the first item
+// overwrites; entry c * U + r for the c-th position of phase r, which is
+// r itself where span = U), and then the taps of h, read in natural
+// order, each into its phase's rows.
 template <class Io>
 __device__ __forceinline__ void stage_taps(const Io& io, const Plan& p,
                                            float* hp, float* hr, float2* xw,
                                            int* scratch, int ctid) {
   const int nct = p.compute_threads;
-  for (int j = ctid; j < p.phases * p.tuples * p.lxs; j += nct) hp[j] = 0.0f;
+  for (int j = ctid; j < p.phases * p.hrows * p.lxs; j += nct) hp[j] = 0.0f;
   for (int j = ctid; j < 2 * p.rows * p.guard; j += nct) {
     const int r = j / p.guard;
     xw[r * (p.guard + p.window) + j - r * p.guard] = make_float2(0.0f, 0.0f);
   }
   for (int j = ctid; j < p.k2; j += nct) hr[j] = io.h2[j];
-  for (int r = ctid; r < p.up; r += nct) {
+  for (int q = ctid; q < p.span; q += nct) {
+    const int r = q % p.up;
     const int pos = static_cast<int>(static_cast<long long>(r) * p.dinv %
-                                     p.up);
+                                     p.up) + q - r;
     const int k = pos / p.phases;
-    const int shift = tuple_base(p, k) -
-        static_cast<int>(static_cast<long long>(pos) * p.down / p.up);
-    const int lane = static_cast<int>(static_cast<long long>(k) * p.tinv %
-                                      p.tuples);
-    scratch[r] = ((pos - k * p.phases) * p.tuples + lane) * p.lxs + shift;
+    const int shift = tuple_anchor(p, k) -
+        static_cast<int>(static_cast<long long>(pos) * p.step / p.span);
+    scratch[q] = ((pos - k * p.phases) * p.hrows + tap_slot(p, k)) * p.lxs +
+                 shift;
   }
   sync_compute(nct);
   // tap j = r + t*U, 16 bytes a load where h is 16-byte aligned: (r, t)
@@ -290,7 +343,8 @@ __device__ __forceinline__ void stage_taps(const Io& io, const Plan& p,
   }
   for (int j = j0 + ctid; j < p.k; j += nct) {
     const int t = j / p.up;
-    hp[scratch[j - t * p.up] + t] = io.h[j];
+    for (int q = j - t * p.up; q < p.span; q += p.up)
+      hp[scratch[q] + t] = io.h[j];
   }
 }
 
@@ -305,13 +359,14 @@ __device__ __forceinline__ void resample(const Plan& p, const Item& it,
   if (j >= p.groups) return;
   const int k = static_cast<int>(static_cast<long long>(lane) * p.tmul %
                                  p.tuples);
-  const float* h = hp + lane * p.lxs;
-  const int rstride = p.tuples * p.lxs;    // one position's row to the next
+  const float* h = hp + tap_slot(p, k) * p.lxs;
+  const int rstride = p.hrows * p.lxs;     // one position's row to the next
   const int nci = it.c_hi - it.c_lo;
   const int nch = (nci + QT - 1) / QT;
   const int units = it.nrows * nch;
-  const int ybase = p.yhead + (it.c_lo - it.tile * p.cycles) * p.up + k * P;
-  const int newest = p.s + tuple_base(p, k);
+  const int ybase =
+      p.yhead + (it.c_lo - it.tile * p.cycles) * p.span + k * P;
+  const int newest = p.s + tuple_anchor(p, k);
   for (int u = j; u < units; u += p.groups) {
     const int row = u / nch;
     const int c0 = (u - row * nch) * QT;
@@ -321,7 +376,7 @@ __device__ __forceinline__ void resample(const Plan& p, const Item& it,
     for (int q = 0; q < QT; ++q) {
       // a unit past the item's last cycle repeats it and stores nothing
       const int cq = c0 + q < nci ? c0 + q : nci - 1;
-      xq[q] = x + cq * p.down;
+      xq[q] = x + cq * p.step;
     }
     float a0[P][QT], a1[P][QT];
 #pragma unroll
@@ -372,12 +427,12 @@ __device__ __forceinline__ void resample(const Plan& p, const Item& it,
     float* y1 = y0 + p.ystride;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      if (k * P + i < p.up) {
+      if (k * P + i < p.span) {
 #pragma unroll
         for (int q = 0; q < QT; ++q) {
           if (c0 + q < nci) {
-            y0[(c0 + q) * p.up + i] = a0[i][q];
-            y1[(c0 + q) * p.up + i] = a1[i][q];
+            y0[(c0 + q) * p.span + i] = a0[i][q];
+            y1[(c0 + q) * p.span + i] = a1[i][q];
           }
         }
       }
@@ -466,7 +521,8 @@ int launch(const Io& io, const Plan& p, void* stream) {
 
 // The entry points' geometry and plan arguments, in resample_cuda's order.
 inline Plan make_plan(long long c, int n_in, int up, int down, int k, int k2,
-                      int dinv, int phases, int tmul, int tinv, int lx,
+                      int span, int dinv, int phases, int tmul, int tinv,
+                      int lead_group, int lead_mod, int lx,
                       int guard, int rows, int cycles, int n_tiles,
                       int halo_cycles, int window, int ystride, int yhead,
                       int chunk, int groups, int compute_threads,
@@ -478,14 +534,19 @@ inline Plan make_plan(long long c, int n_in, int up, int down, int k, int k2,
   p.up = up;
   p.down = down;
   p.k = k;
+  p.span = span;
+  p.step = up >= 1 && span % up == 0 ? span / up * down : 0;
   p.s = (k - 1) / up;
   p.taps = p.s + 1;
   p.k2 = k2;
   p.dinv = dinv;
   p.phases = phases;
-  p.tuples = phases >= 1 ? (up + phases - 1) / phases : 0;
+  p.tuples = phases >= 1 ? (span + phases - 1) / phases : 0;
   p.tmul = tmul;
   p.tinv = tinv;
+  p.lead_group = lead_group;
+  p.lead_mod = lead_mod;
+  p.hrows = up > 1 ? p.tuples : lead_mod;
   p.lx = lx;
   p.lxs = tap_stride(lx);
   p.guard = guard;

@@ -161,7 +161,7 @@ struct RdsIo {
     constexpr int G = kRrcGroup;
     const int n = it.m1 - it.m0;
     const int ng = (n + G - 1) / G;
-    const int tstride = rational::r4(p.cycles * p.up);
+    const int tstride = rational::r4(p.cycles * p.span);
     const int split = rrc_split(p.k2);
     const int half = 2 * it.nrows * ng;    // groups of one half
     float* bb2 = bb + 2 * p.rows * tstride;
@@ -202,8 +202,8 @@ struct RdsIo {
           ye[st * p.ystride + p.yhead + m - it.m0];
     }
     // the new LPF tail: the row's last s mixed samples, in the last tile
-    if (it.c_hi * p.down == p.n_in) {
-      const int w0 = p.n_in - it.c_lo * p.down;   // window slot of x_ext[n]
+    if (it.c_hi * p.step == p.n_in) {
+      const int w0 = p.n_in - it.c_lo * p.step;   // window slot of x_ext[n]
       for (int i = ctid; i < it.nrows * p.s; i += p.compute_threads) {
         const int r = i / p.s;
         const int j = i - r * p.s;
@@ -243,14 +243,16 @@ extern "C" int dy4_rds_backend(
     const float* rrc_tail_q, float* bb_i, float* bb_q,
     float* lpf_tail_i_out, float* lpf_tail_q_out, float* rrc_tail_i_out,
     float* rrc_tail_q_out, long long c, int n_in, int up, int down, int k,
-    int k2, int dinv, int phases, int tmul, int tinv, int lx, int guard,
-    int rows, int cycles, int n_tiles, int halo_cycles, int window,
-    int ystride, int yhead, int chunk, int groups, int compute_threads,
-    int threads, int ctas, int items, int smem, void* stream) {
+    int k2, int span, int dinv, int phases, int tmul, int tinv,
+    int lead_group, int lead_mod, int lx, int guard, int rows, int cycles,
+    int n_tiles, int halo_cycles, int window, int ystride, int yhead,
+    int chunk, int groups, int compute_threads, int threads, int ctas,
+    int items, int smem, void* stream) {
   const Plan p = rational::make_plan(
-      c, n_in, up, down, k, k2, dinv, phases, tmul, tinv, lx, guard, rows,
-      cycles, n_tiles, halo_cycles, window, ystride, yhead, chunk, groups,
-      compute_threads, threads, ctas, items, smem);
+      c, n_in, up, down, k, k2, span, dinv, phases, tmul, tinv, lead_group,
+      lead_mod, lx, guard, rows, cycles, n_tiles, halo_cycles, window,
+      ystride, yhead, chunk, groups, compute_threads, threads, ctas, items,
+      smem);
   if (k2 < 1 || p.m_out < k2 - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const RdsIo io{h_lpf,          h_rrc,          rds,        nco_i,

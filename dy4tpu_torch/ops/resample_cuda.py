@@ -14,14 +14,18 @@ the U>1 modes 2 and 3 (147/800 and 147/1280 with 14847 taps), the
 ``2 * nco * stereo_band`` mix, the mono and stereo rational resamplers and
 the L/R matrix.
 
-Both kernels are one polyphase tile resampler (``csrc/rational.cuh``):
+B3, the audio back end of the U=1 modes 0 and 1
+(``backend_cuda.fused_audio_backend``), is B5's kernel at U = 1: it
+launches through ``_audio_launch`` with ``up=1``.
+
+The kernels are one polyphase tile resampler (``csrc/rational.cuh``):
 persistent blocks stage the taps once in polyphase order and walk work
-items of (row group, tile of whole phase cycles), copy warps prefetching
-the next item's mixed input windows; B4 runs its RRC on the tile in
-shared memory over a recomputed halo.  ``_tile_plan`` sizes it.  An
-output's sum runs in one order whatever the plan, so every plan gives the
-same bits.  Both match their plain versions to float32 tolerance; the
-carried resampler tails are exact.
+items of (row group, tile of whole cycles), copy warps prefetching the
+next item's mixed input windows; B4 runs its RRC on the tile in shared
+memory over a recomputed halo.  ``_tile_plan`` sizes it.  An output's sum
+runs in one order whatever the plan, so every plan gives the same bits.
+All match their plain versions to float32 tolerance; the carried
+resampler tails are exact.
 """
 
 from __future__ import annotations
@@ -40,44 +44,56 @@ Tensor = torch.Tensor
 
 # csrc/rational.cuh's constants: threads a block may hold (one block an
 # SM, 128 registers a thread), outputs of one thread's RRC register window,
-# the (positions a thread, cycles a thread) shapes it is instantiated for,
+# the 16-byte loads of an input a copy thread keeps in flight, the
+# (positions a thread, cycles a thread) shapes it is instantiated for,
 # and the fewest copy warps a block keeps
 MAX_THREADS = 512
 RRC_GROUP = 9
+VEC_UNROLL = 4
 SHAPES = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2), (2, 3), (3, 1),
           (3, 2), (4, 1), (4, 2))
 MIN_COPY_WARPS = 4
+# the most tuples a cycle takes at U = 1 (a power of two): a half-warp's
+# worth, whose window reads the tuples' leads spread over the 16 bank pairs
+U1_TUPLES = 16
 # the H100's SMs (the default; the wrappers ask the device)
 SMS = 132
 # The plan's cost model, in SM clocks (``chip_smoke.py`` phase 2 times
-# every plan of the four geometries of modes 0-3 on the card and fits
-# these to it): an item costs _WF_CLK a shared-memory wavefront of its
-# resampler (_wavefronts, where a turn with fewer than _FULL_WARPS warps
-# at work counts as if it had that many), _RRC_CLK an RRC FMA, and
-# _ITEM_CLK besides (its barriers, its epilogue's stores, the wait for its
-# windows); a block takes its items in turn.
-_WF_CLK, _FULL_WARPS, _RRC_CLK, _ITEM_CLK = 0.95, 6, 0.052, 4400
+# every plan of B3, B4 and B5 at modes 0-3 on the card and fits these to
+# it).  A block takes its items in turn, each in the longer of two times:
+# its compute warps' (_WF_CLK a shared-memory wavefront of its resampler,
+# _wavefronts, where a turn with fewer than _FULL_WARPS warps at work
+# counts as if it had that many; _RRC_CLK an RRC FMA; _ITEM_CLK besides:
+# its barriers, its epilogue's stores) and its copy warps' loading of the
+# next item's windows (_COPY_CLK a round of loads a copy thread waits on,
+# _copy_rounds); the first item's windows load before any compute.
+_WF_CLK, _FULL_WARPS, _RRC_CLK, _ITEM_CLK, _COPY_CLK = (0.4, 8, 0.097, 4560,
+                                                        2640)
 
 
 class TilePlan(typing.NamedTuple):
     """The polyphase tile resampler's launch (``csrc/rational.cuh``).
 
-    A work item is ``rows`` rows times one tile of ``cycles`` whole phase
-    cycles (``tile`` = cycles * up outputs; the last tile of a row may be
-    shorter), ``items`` of them in all, walked by ``ctas`` persistent
-    blocks.  B4 recomputes ``halo`` outputs (whole cycles, at least
-    k2 - 1) before every tile but the first; its resampled tile sits at
-    ``yhead`` in a stream's ``ystride`` floats of shared memory.  A
-    stream's input window holds ``window`` samples behind ``guard`` zero
-    ones.  A compute thread owns a tuple of ``phases`` consecutive
-    positions, whose tap rows are shifted onto the tuple's newest input
-    (``lx`` steps a loop), and accumulates ``chunk`` cycles of a row's two
-    streams at once; lane l takes tuple (l * ``tmul``) mod tuples, and
+    A cycle of the walk is ``span`` outputs: one phase cycle of U where
+    U > 1, ``span`` consecutive outputs at U = 1.  A work item is ``rows``
+    rows times one tile of ``cycles`` whole cycles (``tile`` = cycles *
+    span outputs; the last tile of a row may be shorter), ``items`` of
+    them in all, walked by ``ctas`` persistent blocks.  B4 recomputes
+    ``halo`` outputs (whole cycles, at least k2 - 1) before every tile but
+    the first; its resampled tile sits at ``yhead`` in a stream's
+    ``ystride`` floats of shared memory.  A stream's input window holds
+    ``window`` samples behind ``guard`` zero ones.  A compute thread owns
+    a tuple of ``phases`` consecutive positions, whose tap rows are
+    shifted onto the tuple's anchor (``lx`` steps a loop), and accumulates
+    ``chunk`` cycles of a row's two streams at once; lane l takes tuple
+    (l * ``tmul``) mod tuples, tuple k reads (k // ``lead_group``) %
+    ``lead_mod`` steps ahead of its newest input (U = 1 only), and
     ``groups`` threads share a tuple.  ``compute_threads`` of the block's
     ``threads`` compute, the rest copy.  ``smem``: bytes of dynamic shared
     memory a block takes."""
     rows: int
     cycles: int
+    span: int
     tile: int
     n_tiles: int
     halo: int
@@ -86,6 +102,8 @@ class TilePlan(typing.NamedTuple):
     yhead: int
     phases: int
     tmul: int
+    lead_group: int
+    lead_mod: int
     lx: int
     guard: int
     chunk: int
@@ -108,20 +126,41 @@ def _tap_stride(n: int) -> int:
     return 4 * (q if q % 2 else q + 1)
 
 
-def _bases(up: int, down: int, phases: int) -> list[int]:
-    """Each tuple's newest input: b_p of its last position."""
-    return [(min((k + 1) * phases, up) - 1) * down // up
-            for k in range(-(-up // phases))]
+def _anchors(up: int, down: int, span: int, phases: int,
+             lead: tuple[int, int] = (1, 1)) -> list[int]:
+    """Each tuple's anchor, the input its loop starts from: b_p of its
+    last position, plus its lead (k // lead_group) % lead_mod."""
+    step = span // up * down
+    group, mod = lead
+    return [(min((k + 1) * phases, span) - 1) * step // span
+            + k // group % mod for k in range(-(-span // phases))]
 
 
-def _tuples(up: int, down: int, s: int, phases: int) -> tuple[int, int, int]:
+def _tuples(up: int, down: int, s: int, span: int, phases: int,
+            lead: tuple[int, int] = (1, 1)) -> tuple[int, int, int]:
     """``(tuples, lx, guard)``: the tuples of ``phases`` positions, the
     steps of a tuple's loop (S + 1 + its widest shift) and the zero float2
     a window row needs before it (the widest shift, made even)."""
-    n = -(-up // phases)
-    shift = max(b - k * phases * down // up
-                for k, b in enumerate(_bases(up, down, phases)))
-    return n, s + 1 + shift, shift + shift % 2
+    step = span // up * down
+    anchors = _anchors(up, down, span, phases, lead)
+    shift = max(a - k * phases * step // span for k, a in enumerate(anchors))
+    return len(anchors), s + 1 + shift, shift + shift % 2
+
+
+def _spans(up: int, down: int, n_in: int, phases: int) -> list[int]:
+    """Outputs a cycle of the walk may take: U where U > 1; at U = 1 one
+    tuple of ``phases`` outputs (at P = 1 the first design's one output a
+    thread) and the most tuples, a power of two up to U1_TUPLES, whose
+    cycle divides the row (none where ``phases`` does not divide it)."""
+    if up > 1:
+        return [up]
+    m_out = n_in // down
+    if m_out % phases:
+        return []
+    t = U1_TUPLES
+    while m_out % (t * phases):
+        t //= 2
+    return sorted({phases, t * phases})
 
 
 def _half_warp_wavefronts(slots: list[int]) -> int:
@@ -139,12 +178,29 @@ def _half_warp_wavefronts(slots: list[int]) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _tuple_order(up: int, down: int, phases: int) -> int:
-    """``tmul``: lane l takes tuple (l * tmul) mod tuples.  Of the
-    multipliers prime to the tuples, the one whose warps read the window
-    in the fewest wavefronts (``_half_warp_wavefronts``)."""
-    bases = _bases(up, down, phases)
-    n = len(bases)
+def _tuple_order(up: int, down: int, span: int, phases: int,
+                 chunk: int) -> tuple[int, tuple[int, int]]:
+    """``(tmul, (lead_group, lead_mod))``: lane l takes tuple (l * tmul)
+    mod tuples, tuple k leads by (k // lead_group) % lead_mod.  U > 1: of
+    the multipliers prime to the tuples, the one whose warps read the
+    window in the fewest wavefronts (``_half_warp_wavefronts``), no lead.
+    U = 1: tmul 1, and of the leads (lead_mod at most D), the one whose
+    first warp (its tuples, then its units ``chunk`` cycles apart) reads
+    in the fewest wavefronts, then the one with the shortest loop."""
+    n = -(-span // phases)
+    if up == 1:
+        step = span * down
+        best = (math.inf, math.inf, (1, 1))
+        for group in (1, 2, 4, 8, 16):
+            for mod in range(1, down + 1):
+                anchors = _anchors(up, down, span, phases, (group, mod))
+                wf = _half_warp_wavefronts(
+                    [anchors[lane % n] + lane // n * chunk * step
+                     for lane in range(32)])
+                lx = _tuples(up, down, 0, span, phases, (group, mod))[1]
+                best = min(best, (wf, lx, (group, mod)))
+        return (1 if n > 1 else 0), best[2]
+    bases = _anchors(up, down, span, phases)
     best = (math.inf, 0 if n == 1 else 1)
     for m in range(1, n):
         if math.gcd(m, n) == 1:
@@ -152,72 +208,91 @@ def _tuple_order(up: int, down: int, phases: int) -> int:
                                             range(w, min(w + 32, n))])
                      for w in range(0, n, 32))
             best = min(best, (wf, m))
-    return best[1]
+    return best[1], (1, 1)
 
 
 def _layout(up: int, down: int, s: int, k2: int, rows: int, cycles: int,
-            halo_cycles: int, phases: int) -> tuple[int, int, int, int]:
+            halo_cycles: int, span: int, phases: int,
+            lead: tuple[int, int] = (1, 1)) -> tuple[int, int, int, int]:
     """``(window, ystride, yhead, smem)``: csrc/rational.cuh's shared
-    memory, in this order: the shifted tap rows [phases][tuples], the RRC
-    taps, two input windows of ``rows`` rows x (guard + ``window``)
+    memory, in this order: the shifted tap rows [phases][hrows] (hrows:
+    the tuples, at U = 1 the leads, whose tuples share their rows), the
+    RRC taps, two input windows of ``rows`` rows x (guard + ``window``)
     float2, ``2 * rows`` resampled streams of ``ystride`` floats, and (B4)
     ``2 * rows`` RRC output rows of a tile for each half of the RRC sum;
     each region padded to 16 bytes."""
-    tuples, lx, guard = _tuples(up, down, s, phases)
-    tile = cycles * up
-    window = _r4(s + (cycles + halo_cycles) * down)
-    yhead = max(halo_cycles * up, k2 - 1) if k2 else 0
+    tuples, lx, guard = _tuples(up, down, s, span, phases, lead)
+    tile = cycles * span
+    window = _r4(s + (cycles + halo_cycles) * span // up * down)
+    yhead = max(halo_cycles * span, k2 - 1) if k2 else 0
     ystride = _r4(yhead + tile + (RRC_GROUP if k2 else 0))
-    floats = (phases * tuples * _tap_stride(lx) + _r4(k2)
+    hrows = tuples if up > 1 else lead[1]
+    floats = (phases * hrows * _tap_stride(lx) + _r4(k2)
               + 2 * rows * (guard + window) * 2 + 2 * rows * ystride
               + (4 * rows * _r4(tile) if k2 else 0))
     return window, ystride, yhead, 4 * floats
 
 
-def _wavefronts(up: int, down: int, s: int, rows: int, nci: int,
+def _wavefronts(up: int, down: int, s: int, span: int, rows: int, nci: int,
                 phases: int, chunk: int, groups: int, window: int) -> float:
     """Shared-memory wavefronts of one item's resampler over its
     occupancy: in each turn of the threads, per step, each warp with a
     thread at work takes its ``phases`` 16-byte tap reads (four steps a
-    read, four wavefronts a warp: one a step) and its ``chunk`` 8-byte
-    window reads (at least two wavefronts a warp, more where its lanes'
-    slots share a bank); a turn with fewer than _FULL_WARPS warps at work
-    counts as if it had that many."""
-    tuples, lx, guard = _tuples(up, down, s, phases)
-    bases = _bases(up, down, phases)
-    tmul = _tuple_order(up, down, phases)
+    read; a wavefront a read for every 8 distinct tap rows its lanes read,
+    which are up to 32 at U > 1 and at most one a lead at U = 1) and its
+    ``chunk`` 8-byte window reads (at least two wavefronts a warp, more
+    where its lanes' slots share a bank); a turn with fewer than
+    _FULL_WARPS warps at work counts as if it had that many."""
+    tmul, lead = _tuple_order(up, down, span, phases, chunk)
+    tuples, lx, guard = _tuples(up, down, s, span, phases, lead)
+    bases = _anchors(up, down, span, phases, lead)
+    step = span // up * down
     nch = -(-nci // chunk)
     units = rows * nch
     total = 0.0
     for turn in range(-(-units // groups)):
         busy = min(groups, units - turn * groups)
-        slots = []
+        slots, taps = [], []
         for ctid in range(tuples * busy):
             lane, j = ctid % tuples, ctid // tuples
             row, c0 = divmod(j + turn * groups, nch)
-            slots.append(row * (guard + window) + s
-                         + bases[lane * tmul % tuples] + c0 * chunk * down)
+            k = lane * tmul % tuples
+            slots.append(row * (guard + window) + s + bases[k]
+                         + c0 * chunk * step)
+            taps.append(lane if up > 1 else k // lead[0] % lead[1])
         per_step, warps = 0.0, 0
         for w0 in range(0, len(slots), 32):
             warp = slots[w0:w0 + 32]
             warps += 1
-            per_step += phases + sum(max(2, _half_warp_wavefronts(
-                [x + q * down for x in warp])) for q in range(chunk))
+            per_step += phases / 4 * -(-len(set(taps[w0:w0 + 32])) // 8)
+            per_step += sum(max(2, _half_warp_wavefronts(
+                [x + q * step for x in warp])) for q in range(chunk))
         total += lx * per_step / min(1.0, warps / _FULL_WARPS)
     return total
+
+
+def _copy_rounds(rows: int, window: int, copy_threads: int) -> int:
+    """Rounds of loads a copy thread waits on for an item: each row's
+    window in turn, ``copy_threads`` x VEC_UNROLL 16-byte loads of each
+    input at a time."""
+    return rows * -(-window // (4 * copy_threads * VEC_UNROLL))
 
 
 class _Cost(typing.NamedTuple):
     """A plan's terms in the cost model: the rounds of items a block
     takes, an item's resampler wavefronts over its occupancy
-    (_wavefronts), and its RRC FMAs."""
+    (_wavefronts), its RRC FMAs, and its copy warps' rounds of loads
+    (_copy_rounds)."""
     rounds: int
     wavefronts: float
     rrc_fmas: int
+    copy_rounds: int
 
     def clocks(self) -> float:
-        return self.rounds * (_WF_CLK * self.wavefronts
-                              + _RRC_CLK * self.rrc_fmas + _ITEM_CLK)
+        compute = (_WF_CLK * self.wavefronts + _RRC_CLK * self.rrc_fmas
+                   + _ITEM_CLK)
+        copy = _COPY_CLK * self.copy_rounds
+        return self.rounds * max(compute, copy) + copy
 
 
 def _candidates(c: int, n_in: int, up: int, down: int, k: int, k2: int,
@@ -225,40 +300,44 @@ def _candidates(c: int, n_in: int, up: int, down: int, k: int, k2: int,
                 cycles: typing.Optional[int] = None,
                 shape: typing.Optional[tuple[int, int]] = None):
     """Every plan ``_tile_plan`` weighs, with its cost terms: row groups
-    of 1, 2 or 4 rows, the smallest tile of each tile count (a tile of B4
-    at least its halo), each shape in SHAPES, the threads a tuple as many
-    as the item's units allow; those that fit ``kernels.SMEM_MAX``."""
+    of 1, 2 or 4 rows, each shape in SHAPES (at U = 1 with each of its
+    spans, ``_spans``), the smallest tile of each tile count (a tile of B4 at
+    least its halo), the threads a tuple as many as the item's units
+    allow; those that fit ``kernels.SMEM_MAX``."""
     if c < 1 or up < 1 or math.gcd(up, down) != 1 or (n_in * up) % down:
         raise ValueError(f"{c} rows of {n_in} do not resample by "
                          f"{up}/{down} in whole phase cycles")
     s = fir.state_len(k, up)
-    nc = n_in // down                       # phase cycles a row holds
-    tiles = [cycles] if cycles else sorted({-(-nc // n) for n in
-                                            range(1, nc + 1)})
     for r in ([rows] if rows else [v for v in (1, 2, 4) if v <= c] or [1]):
-        for q in tiles:
-            n_tiles = -(-nc // q)
-            hc = -(-(k2 - 1) // up) if k2 and n_tiles > 1 else 0
-            if q < hc or q > nc:
-                continue
-            items = -(-c // r) * n_tiles
-            ctas = min(items, sms)
-            for phases, chunk in [shape] if shape else SHAPES:
-                window, ystride, yhead, smem = _layout(up, down, s, k2, r, q,
-                                                       hc, phases)
+        for (phases, chunk), span in [
+                (sh, span) for sh in ([shape] if shape else SHAPES)
+                for span in _spans(up, down, n_in, sh[0])]:
+            nc = n_in // (span // up * down)    # cycles a row holds
+            tmul, lead = _tuple_order(up, down, span, phases, chunk)
+            tuples, lx, guard = _tuples(up, down, s, span, phases, lead)
+            jmax = max(1, (MAX_THREADS - 32 * MIN_COPY_WARPS) // tuples)
+            for q in [cycles] if cycles else sorted({-(-nc // n) for n in
+                                                     range(1, nc + 1)}):
+                n_tiles = -(-nc // q)
+                hc = -(-(k2 - 1) // span) if k2 and n_tiles > 1 else 0
+                if q < hc or q > nc:
+                    continue
+                window, ystride, yhead, smem = _layout(
+                    up, down, s, k2, r, q, hc, span, phases, lead)
                 if smem > kernels.SMEM_MAX:
                     continue
-                tuples, lx, guard = _tuples(up, down, s, phases)
-                jmax = max(1, (MAX_THREADS - 32 * MIN_COPY_WARPS) // tuples)
+                items = -(-c // r) * n_tiles
+                ctas = min(items, sms)
                 groups = min(r * -(-(q + hc) // chunk), jmax)
+                compute_threads = -(-tuples * groups // 32) * 32
                 cost = _Cost(-(-items // ctas), _wavefronts(
-                    up, down, s, r, q + hc, phases, chunk, groups, window),
-                    2 * r * q * up * k2)
+                    up, down, s, span, r, q + hc, phases, chunk, groups,
+                    window), 2 * r * q * span * k2, _copy_rounds(
+                        r, window, MAX_THREADS - compute_threads))
                 yield cost, TilePlan(
-                    r, q, q * up, n_tiles, hc * up, window, ystride, yhead,
-                    phases, _tuple_order(up, down, phases), lx, guard, chunk,
-                    groups, -(-tuples * groups // 32) * 32, MAX_THREADS, ctas,
-                    items, smem)
+                    r, q, span, q * span, n_tiles, hc * span, window,
+                    ystride, yhead, phases, tmul, *lead, lx, guard, chunk,
+                    groups, compute_threads, MAX_THREADS, ctas, items, smem)
 
 
 @functools.lru_cache(maxsize=256)
@@ -291,16 +370,17 @@ def _sms(dev: torch.device) -> int:
 
 def _plan_args(plan: TilePlan, up: int, down: int) -> tuple[int, ...]:
     """The plan as the C entry points take it after the geometry."""
-    tuples = -(-up // plan.phases)
-    return (pow(down, -1, up) if up > 1 else 0, plan.phases, plan.tmul,
-            pow(plan.tmul, -1, tuples) if tuples > 1 else 0, plan.lx,
-            plan.guard, plan.rows, plan.cycles, plan.n_tiles,
-            plan.halo // up, plan.window, plan.ystride, plan.yhead,
-            plan.chunk, plan.groups, plan.compute_threads, plan.threads,
-            plan.ctas, plan.items, plan.smem)
+    tuples = -(-plan.span // plan.phases)
+    return (plan.span, pow(down, -1, up) if up > 1 else 0, plan.phases,
+            plan.tmul, pow(plan.tmul, -1, tuples) if tuples > 1 else 0,
+            plan.lead_group, plan.lead_mod, plan.lx, plan.guard, plan.rows,
+            plan.cycles, plan.n_tiles, plan.halo // plan.span, plan.window,
+            plan.ystride, plan.yhead, plan.chunk, plan.groups,
+            plan.compute_threads, plan.threads, plan.ctas, plan.items,
+            plan.smem)
 
 
-_PLAN_INTS = [ctypes.c_int] * 20
+_PLAN_INTS = [ctypes.c_int] * 23
 _ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
          + _PLAN_INTS + [ctypes.c_void_p])
 
@@ -412,14 +492,17 @@ def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
     args = (fm_delayed, stereo_band, nco, h_audio, mono_tail, stereo_tail)
     if fm_delayed.device.type == "cpu":
         return fused_audio_backend_rational_plain(*args, up, down)
-    return _audio_launch(args, up, down)
+    outs = _audio_launch(args, up, down)
+    fused_audio_backend_rational.launches += 1
+    return outs
 
 
 def _audio_launch(args, up: int, down: int,
                   plan: typing.Optional[TilePlan] = None):
-    """B5 on CUDA tensors ``args`` (``fused_audio_backend_rational``'s
-    first six) under ``plan`` (``_tile_plan``'s own by default): one
-    launch."""
+    """B5, or B3 at ``up`` = 1, on CUDA tensors ``args``
+    (``fused_audio_backend_rational``'s first six) under ``plan``
+    (``_tile_plan``'s own by default): one launch, which the calling
+    wrapper counts."""
     fm_delayed, h_audio = args[0], args[3]
     c, n = fm_delayed.shape
     k = h_audio.shape[0]
@@ -446,9 +529,7 @@ def _audio_launch(args, up: int, down: int,
                     *(t.data_ptr() for t in outs), c, n, up, down, k,
                     *_plan_args(plan, up, down),
                     kernels.stream_of(fm_delayed))
-    kernels.check_launch(status, "audio_rational "
-                                 "fused_audio_backend_rational")
-    fused_audio_backend_rational.launches += 1
+    kernels.check_launch(status, f"audio_rational at {up}/{down}")
     return tuple(outs)
 
 

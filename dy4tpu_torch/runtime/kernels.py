@@ -33,7 +33,6 @@ KERNELS: dict[str, tuple[str, ...]] = {
     "frontend": (),
     "frontend_rf": (),
     "pll": ("-fmad=false",),
-    "audio_backend": (),
     "rds_backend": (),
     "audio_rational": (),
     "channelizer": (),

@@ -148,3 +148,26 @@ def build(out: Path, lib: str, sources: dict[str, str]) -> ctypes.CDLL:
         capture_output=True, text=True)
     assert done.returncode == 0, done.stderr
     return ctypes.CDLL(str(path))
+
+
+# csrc/rational.cuh's named barrier, dynamic shared memory and launch
+RATIONAL_REWRITES = (
+    (r"#include <cuda_runtime\.h>", '#include "shim.h"'),
+    (r'asm volatile\("bar\.sync 1, %0;\\n" ::"r"\(n\) : "memory"\);',
+     "named_sync(1, n);"),
+    (r"extern __shared__ __align__\(16\) float smem\[\];",
+     "float* smem = reinterpret_cast<float*>(g_smem);"),
+    LAUNCH,
+)
+
+
+def build_rational(out: Path, lib: str, names) -> ctypes.CDLL:
+    """The ``csrc/<name>.cu`` files of ``names`` (kernels over
+    ``rational.cuh``) built for the host into ``out``/``lib``."""
+    csrc = Path(__file__).resolve().parents[1] / "dy4tpu_torch" / "csrc"
+    sources = {"rational.cuh": rewrite(
+        (csrc / "rational.cuh").read_text(), "csrc/rational.cuh",
+        RATIONAL_REWRITES)}
+    for name in names:
+        sources[f"{name}.cpp"] = (csrc / f"{name}.cu").read_text()
+    return build(out, lib, sources)

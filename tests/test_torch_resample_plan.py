@@ -110,6 +110,7 @@ def test_plan_covers_every_output_once(label, c, geom, pin):
     m_out = n_in * up // down
     s = (k - 1) // up
     assert m_out % up == 0 and plan.tile == plan.cycles * up
+    assert plan.span == up and (plan.lead_group, plan.lead_mod) == (1, 1)
     seen = np.zeros((c, m_out), np.int32)
     lengths = set()
     for rows, tile, m0, m1, c_lo, c_hi in _items(plan, c, n_in, up, down,
@@ -127,11 +128,12 @@ def test_plan_covers_every_output_once(label, c, geom, pin):
     assert (seen == 1).all(), f"{label}: outputs covered other than once"
     assert max(lengths) == plan.tile
     window, ystride, yhead, smem = rc._layout(
-        up, down, s, k2, plan.rows, plan.cycles, plan.halo // up, plan.phases)
+        up, down, s, k2, plan.rows, plan.cycles, plan.halo // up, plan.span,
+        plan.phases)
     assert (window, ystride, yhead, smem) == (plan.window, plan.ystride,
                                               plan.yhead, plan.smem)
     assert plan.smem <= kernels.SMEM_MAX
-    tuples, lx, guard = rc._tuples(up, down, s, plan.phases)
+    tuples, lx, guard = rc._tuples(up, down, s, plan.span, plan.phases)
     assert (plan.lx, plan.guard) == (lx, guard) and guard >= lx - s - 1
     assert math.gcd(plan.tmul, tuples) == 1 or tuples == 1
     assert plan.compute_threads >= tuples * plan.groups
@@ -321,27 +323,13 @@ def test_tiled_model_matches_pallas():
 
 # ---- the .cu files on the host ----
 
-_REWRITES = (
-    (r"#include <cuda_runtime\.h>", '#include "shim.h"'),
-    (r'asm volatile\("bar\.sync 1, %0;\\n" ::"r"\(n\) : "memory"\);',
-     "named_sync(1, n);"),
-    (r"extern __shared__ __align__\(16\) float smem\[\];",
-     "float* smem = reinterpret_cast<float*>(g_smem);"),
-    cuda_host.LAUNCH,
-)
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """``csrc/rds_backend.cu`` and ``csrc/audio_rational.cu`` with
     ``rational.cuh`` built for the host: their entry points."""
-    sources = {"rational.cuh": cuda_host.rewrite(
-        (kernels.CSRC / "rational.cuh").read_text(), "csrc/rational.cuh",
-        _REWRITES)}
-    for name in ("rds_backend", "audio_rational"):
-        sources[f"{name}.cpp"] = (kernels.CSRC / f"{name}.cu").read_text()
-    so = cuda_host.build(tmp_path_factory.mktemp("rational_host"),
-                         "librational_host.so", sources)
+    so = cuda_host.build_rational(tmp_path_factory.mktemp("rational_host"),
+                                  "librational_host.so",
+                                  ("rds_backend", "audio_rational"))
     fns = {}
     for which, name, argtypes in (("B4", "dy4_rds_backend", rc._ARGS),
                                   ("B5", "dy4_audio_rational",
