@@ -63,7 +63,14 @@ front-end routes and the kernels no receiver route runs:
    against span 1 (medians of 5);
 4. the wideband front door at mode 0: phase 2 holds the channelizer kernel
    (B7) against its plain version at six bank geometries on 32 distinct
-   band rows, ``channelize_block_u8``'s kernel route (folded IQ
+   band rows, at the wideband tool's one band (C=8), at 37 ragged bands,
+   at the tool's band at C=25, at T=24 taps and at C=128 T=32 (no stage
+   head), each bitwise under a
+   second plan (each plan printed) and also alone from a cold L2, with a
+   sweep of its plans at two of them (the plan's pick beside the
+   fastest), the wrapper's host time at the tool's band and each
+   geometry's wrapper against conv1d by CUDA events (met or missed),
+   ``channelize_block_u8``'s kernel route (folded IQ
    correction) against its plain route (post-bank correction), and B2
    bitwise on the wideband step's own PLL input [512, 2, 7680]; phase 3
    runs ``run_wideband_blocks`` over 32 bands x 16 channels x 32 steps of
@@ -161,6 +168,16 @@ WB_BANDS, WB_STEPS = 32, 32          # ... x 32 bands (512 stations) x 32
 WB_STATION = 3                       # the live channel of every band
 WB_ROWS = [0, WB_BANDS - 1]          # bands decoded and held to all-plain
 WB_GEOMS = ((16, 12), (8, 12), (32, 12), (4, 16), (64, 12), (128, 12))
+# B7 also at the wideband tool's one band of WB_TOOL_C channels and at
+# 32 + 5 bands of a row no tile divides (C=16); its plan swept at these
+# (bands, C, T), its wrapper's host time taken at the tool's band
+WB_TOOL_C = 8
+B7_RAGGED = (37, 1531)
+B7_SWEEP = ((WB_BANDS, 16, 12), (1, WB_TOOL_C, 12))
+# (C, T, bands) the first design also served: an odd C (the tool at
+# --channels 25), T > 16 (two groups of taps) and a bank whose tail takes
+# no stage head (read from device memory)
+B7_MORE = ((25, 12, 1), (16, 24, WB_BANDS), (128, 32, 1))
 WB_OPT_BANDS, WB_OPT_STEPS = 4, 8    # AFC + IQ tracker, kernel vs plain
 AFC_TOL_HZ = 1000.0                  # on-grid station: |AFC estimate|
 OPT_MODES = (0, 1)                   # span PLL (B9) and IQ tracker (B1 corr)
@@ -423,7 +440,12 @@ class _Row:
                     else _time_ms(self.plain, 5))
         library_ms = (None if self.library is None
                       else _time_ms(self.library, 20))
-        kernel_ms = _kernel_device_ms(self.kern, self.wrapper)
+        # a profiler session now and then records no device time: up to
+        # three
+        for _ in range(3):
+            kernel_ms = _kernel_device_ms(self.kern, self.wrapper)
+            if kernel_ms is not None:
+                break
         by_bytes = self.nbytes / HBM_BYTES_S * 1e3
         by_ops = self.flops / FP32_FLOP_S * 1e3
         bound_ms = max(by_bytes, by_ops)
@@ -1701,57 +1723,268 @@ def _branch_conv1d(x, p, ti, tq):
     return lambda: F.conv1d(seg, weight.contiguous(), groups=2 * c)
 
 
+def _b7_other_plan(bands: int, m: int, c: int, t: int, sms: int):
+    """A second plan of B7, unlike the wrapper's own: units of another R,
+    blocks of another size, tiles about half as long and about half the
+    SMs' blocks."""
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    own = chc._tile_plan(bands, m, c, t, sms)
+    tile = min(m, own.tile // 2 + 3)
+    items = bands * -(-m // tile)
+    other = chc._tile_plan(bands, m, c, t, sms,
+                           rows=8 if own.rows != 8 else 16, tile=tile,
+                           threads=128 if own.threads != 128 else 512,
+                           ctas=max(1, min(items, sms // 2 + 1)))
+    assert other != own
+    return own, other
+
+
+def _b7_outputs(args):
+    """Fresh outputs of B7 on ``args`` (the wrapper's): w and the two
+    tails."""
+    import torch
+    x, p, ti, tq = args
+    (bands, n2), c = x.shape, p.shape[0]
+    return (torch.empty(bands, n2 // (2 * c), 2 * c, device=x.device),
+            torch.empty_like(ti), torch.empty_like(tq))
+
+
+def _b7_entry(args, outs, plan) -> int:
+    """One launch of B7's C entry point under ``plan`` on ``args`` into
+    ``outs``; its status."""
+    import torch
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    x, p = args[:2]
+    return chc._entry()(*(a.data_ptr() for a in args),
+                        *(o.data_ptr() for o in outs),
+                        chc._launch_array(*x.shape, *p.shape, plan),
+                        torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=1)
+def _l2_flush():
+    """A buffer of twice the card's L2 cache: reading it before a launch
+    leaves none of the launch's inputs in L2, and no dirty line for the
+    launch to write back."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    n = 2 * getattr(props, "L2_cache_size", 50 * 2 ** 20)
+    return torch.empty(n, dtype=torch.uint8, device="cuda")
+
+
+def _b7_cold_ms(args, plan=None):
+    """B7 alone from a cold L2: mean device milliseconds of its kernel
+    under ``torch.profiler``, each launch after a read of ``_l2_flush()``
+    (whose own time is left out), under ``plan`` (through the C entry
+    point) or the wrapper's.  Up to three profiler sessions; None where
+    none shows device time."""
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    from dy4tpu_torch.runtime import kernels
+    flush = _l2_flush()
+    outs = _b7_outputs(args)
+
+    def launch():
+        flush.sum()
+        if plan is None:
+            chc.channelize_branches(*args)
+        else:
+            kernels.check_launch(_b7_entry(args, outs, plan), f"B7 {plan}")
+    for _ in range(3):
+        ms = _kernel_device_ms(launch, chc.channelize_branches)
+        if ms is not None:
+            return ms
+    return None
+
+
+def _b7_sweep(label: str, args) -> dict:
+    """A short sweep of B7's plans on ``args`` (the wrapper's): the plan's
+    pick and the plan at each R of ``ROWS`` and block of 128, 256 and 512
+    threads, each alone from a cold L2 (``_b7_cold_ms``); the pick beside
+    the fastest.  Returns the JSON keys of the geometry's row."""
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    x, p = args[:2]
+    (bands, n2), (c, t) = x.shape, p.shape
+    m, sms = n2 // (2 * c), chc._sms(x.device)
+    pick = chc._tile_plan(bands, m, c, t, sms)
+    plans = [pick] + [chc._tile_plan(bands, m, c, t, sms, rows=r, threads=nt)
+                      for r in chc.ROWS for nt in (128, 256, 512)]
+    plans = list(dict.fromkeys(plans))
+    timed = [(plan, _b7_cold_ms(args, plan)) for plan in plans]
+    measured = [(plan, ms) for plan, ms in timed if ms is not None]
+    pick_ms = timed[0][1]
+    fastest = min(measured, key=lambda r: r[1], default=(None, None))
+    _say(f"phase 2: B7 {label} plan sweep: {len(plans)} plans, each alone "
+         f"from a cold L2 under torch.profiler ({len(plans) - len(measured)}"
+         f" not measured); the plan's pick "
+         + ("not measured" if pick_ms is None else f"{pick_ms:.4f} ms")
+         + f" ({_b7_plan_text(pick)}), the fastest "
+         + ("none" if fastest[0] is None else
+            f"{fastest[1]:.4f} ms ({_b7_plan_text(fastest[0])})")
+         + ("" if pick_ms is None or fastest[0] is None
+            else f": {pick_ms / fastest[1]:.3f}x"))
+    return dict(sweep_plans=len(plans),
+                sweep_pick_ms=("not measured" if pick_ms is None
+                               else pick_ms),
+                sweep_fastest_ms=("not measured" if fastest[0] is None
+                                  else fastest[1]),
+                sweep_fastest_plan=(None if fastest[0] is None
+                                    else fastest[0]._asdict()))
+
+
+def _b7_host_us(args, calls: int = 200) -> dict:
+    """The wrapper's host time and its parts: mean microseconds of a call
+    over ``calls`` calls issued back to back (the kernel, a few
+    microseconds, never holds the queue); of its three output
+    allocations, and of one allocation with the three as views of it; of
+    its checks of the four inputs; of the C entry through ctypes (the
+    pointers read, the launch); of reading the stream through PyTorch's
+    public ``current_stream`` and through the raw getter
+    ``kernels.stream_of`` uses.  The JSON keys of the geometry's row."""
+    import torch
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    from dy4tpu_torch.runtime import kernels
+    x, p, ti, tq = args
+    (bands, n2), (c, t) = x.shape, p.shape
+    m, k1, dev, f32 = n2 // (2 * c), c * t - 1, x.device, torch.float32
+    outs = _b7_outputs(args)
+    launch = chc._launch_args(bands, n2, c, t, chc._sms(dev))
+    stream = kernels.stream_of(x)
+
+    def mean_us(fn, n=calls):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def one_alloc():
+        buf = torch.empty(bands * (m * 2 * c + 2 * k1), dtype=f32,
+                          device=dev)
+        w, a, b = buf.split_with_sizes([bands * m * 2 * c, bands * k1,
+                                        bands * k1])
+        return w.view(bands, m, 2 * c), a.view(bands, k1), b.view(bands, k1)
+    return dict(
+        host_us=mean_us(lambda: chc.channelize_branches(*args)),
+        alloc_us=mean_us(lambda: (
+            torch.empty(bands, m, 2 * c, dtype=f32, device=dev),
+            torch.empty(bands, k1, dtype=f32, device=dev),
+            torch.empty(bands, k1, dtype=f32, device=dev))),
+        one_alloc_us=mean_us(one_alloc),
+        checks_us=mean_us(lambda: x.is_cuda and all(
+            chc._takes(a, s, d, dev) for a, s, d in (
+                (x, (bands, n2), torch.uint8), (p, (c, t), f32),
+                (ti, (bands, k1), f32), (tq, (bands, k1), f32)))),
+        entry_us=mean_us(lambda: chc._entry()(
+            *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+            launch, stream)),
+        stream_public_us=mean_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream, 10000),
+        stream_raw_us=mean_us(lambda: kernels.stream_of(x), 10000))
+
+
+def _b7_plan_text(plan) -> str:
+    return (f"R={plan.rows}, tiles of {plan.tile} rows x {plan.n_tiles} a "
+            f"band, {plan.items} items, {plan.ctas} blocks of "
+            f"{plan.threads}, {plan.smem} B shared")
+
+
 def _check_channelizer(cfg, dev, smi) -> list[dict]:
     """Phase 2 of the wideband front door: B7 against its plain version at
-    every geometry of ``WB_GEOMS`` on 32 band rows of mode 0's block,
-    mid-stream (random u8 rows and tails from a seed), and the kernel
-    route of ``channelize_block_u8`` against its plain route with a
-    per-band IQ correction.  Returns the JSON entries."""
+    every geometry of ``WB_GEOMS`` on 32 band rows of mode 0's block, at
+    the wideband tool's one band (C=8) and at 37 ragged bands, mid-stream
+    (random u8 rows and tails from a seed), at B7_MORE, bitwise equal
+    under a second plan, each also alone from a cold L2, with a plan sweep
+    at B7_SWEEP, the wrapper's host time at the tool's band, and by CUDA
+    events against conv1d, met or missed; and the kernel route of
+    ``channelize_block_u8`` against its plain route with a per-band IQ
+    correction.  Returns the JSON entries."""
     import torch
     from dy4tpu_torch.ops import channelizer as chz
     from dy4tpu_torch.ops import channelizer_cuda as chc
     from dy4tpu_torch.ops import iqcorr
+    from dy4tpu_torch.runtime import kernels
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
-    for c, t in WB_GEOMS:
+    geoms = ([(c, t, WB_BANDS, cfg.if_per_block, "") for c, t in WB_GEOMS]
+             + [(WB_TOOL_C, WB_T, 1, cfg.if_per_block, ", 1 band (the tool)"),
+                (WB_C, WB_T, *B7_RAGGED, f", {B7_RAGGED[0]} x "
+                 f"{B7_RAGGED[1]} rows")]
+             + [(c, t, bands, cfg.if_per_block, f", {bands} band"
+                 + "s" * (bands > 1)) for c, t, bands in B7_MORE])
+    for c, t, bands, m, label in geoms:
         p = chz.make_channelizer(c, cfg.if_fs, taps_per_branch=t,
                                  device=dev).p
-        n2 = 2 * c * cfg.if_per_block
-        x = torch.randint(0, 256, (WB_BANDS, n2), generator=gen,
+        n2 = 2 * c * m
+        x = torch.randint(0, 256, (bands, n2), generator=gen,
                           device=dev, dtype=torch.uint8)
-        ti, tq = (torch.randn(WB_BANDS, c * t - 1, generator=gen,
+        ti, tq = (torch.randn(bands, c * t - 1, generator=gen,
                               device=dev) for _ in range(2))
         args = (x, p, ti, tq)
+        geometry = f"C={c} T={t}{label}"
         _distinct_rows("B7", x, ti, tq)
+        own, other = _b7_other_plan(bands, m, c, t, chc._sms(dev))
         k_out = chc.channelize_branches(*args)
+        o_out = _b7_outputs(args)
+        kernels.check_launch(_b7_entry(args, o_out, other), f"B7 {other}")
         p_out = chc.channelize_branches_plain(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(k_out[1:], p_out[1:])):
-            raise AssertionError(f"B7 C={c} T={t}: tails differ from the "
+            raise AssertionError(f"B7 {geometry}: tails differ from the "
                                  f"plain version")
+        if not all(torch.equal(a, b) for a, b in zip(k_out, o_out)):
+            raise AssertionError(f"B7 {geometry}: two plans give other bits")
+        _say(f"phase 2: B7 {geometry}: plan {_b7_plan_text(own)}; a second "
+             f"plan ({_b7_plan_text(other)}) gives the same bits")
+        del o_out
         # 1e-5: T float32 products summed in the same order, maybe fused
         conv = _branch_conv1d(*args[:1], p, ti, tq)
         w_conv = conv().transpose(1, 2)
         conv_err = _max_err([w_conv], [p_out[0]])
         if not conv_err <= 1e-5:
-            raise AssertionError(f"B7 C={c} T={t}: the conv1d yardstick "
+            raise AssertionError(f"B7 {geometry}: the conv1d yardstick "
                                  f"departs by {conv_err:.3g}")
         del w_conv
+        extra = dict(kernel_cold_ms=_b7_cold_ms(args) or "not measured")
+        if (bands, c, t) in B7_SWEEP:
+            extra.update(_b7_sweep(geometry, args))
+        if (bands, c, t) == (1, WB_TOOL_C, WB_T):
+            extra.update(_b7_host_us(args))
+            _say(f"phase 2: B7 {geometry}: the wrapper's host time "
+                 f"{extra['host_us']:.1f} us a call; its three output "
+                 f"allocations {extra['alloc_us']:.1f} us (one allocation "
+                 f"and three views {extra['one_alloc_us']:.1f}), its "
+                 f"checks {extra['checks_us']:.1f}, the C entry through "
+                 f"ctypes {extra['entry_us']:.1f}; the stream read through "
+                 f"torch.cuda.current_stream {extra['stream_public_us']:.2f}"
+                 f" us, through the raw getter "
+                 f"{extra['stream_raw_us']:.2f} us")
         rows.append(_Row(
-            "B7 channelizer", f"C={c} T={t}",
+            "B7 channelizer", geometry,
             "dy4tpu_torch/csrc/channelizer.cu",
             "dy4tpu/ops/channelizer.py:344", chc.channelize_branches,
             _max_err(k_out, p_out), 1e-5,
             lambda a=args: chc.channelize_branches(*a),
             lambda a=args: chc.channelize_branches_plain(*a),
-            where=f"{WB_BANDS} bands x {n2} bytes",
+            where=f"{bands} bands x {n2} bytes",
             nbytes=_nbytes(args, k_out),
-            flops=2 * k_out[0].numel() * t, library=conv))
+            flops=2 * k_out[0].numel() * t, library=conv, extra=extra))
         del k_out, p_out
     out = [r.finish(smi, cfg.mode) for r in rows]
     del rows
+    for r in out:
+        r["beats_conv1d_by_events"] = r["ms"] < r["library_ms"]
+        _say(f"phase 2: B7 {r['name'].split(':', 1)[1]} by CUDA events: "
+             f"the wrapper {r['ms']:.4f} ms, conv1d {r['library_ms']:.4f} "
+             f"ms: faster than conv1d "
+             + ("met" if r["beats_conv1d_by_events"] else "missed")
+             + "; alone from a cold L2 "
+             + (r["kernel_cold_ms"] if isinstance(r["kernel_cold_ms"], str)
+                else f"{r['kernel_cold_ms']:.4f} ms"))
 
     # the kernel route (B7, DFT matrices with the correction folded in)
     # against the plain route (post-bank correction), per-band coefficients

@@ -8,7 +8,8 @@ smem, stream>>>(args)`` runs its blocks one after another with one
 ``std::thread`` per CUDA thread, ``__syncthreads`` is a ``std::barrier``
 of the block, a named barrier (``bar.sync id, count``) a ``std::barrier``
 of ``count`` threads, and the round-to-nearest intrinsics are the host's
-IEEE operations (``__fmaf_rn`` is ``std::fma``).  Each test file gives the
+IEEE operations (``__fmaf_rn`` is ``std::fma``, ``__int_as_float`` a
+copy of the bits).  Each test file gives the
 regular-expression rewrites that turn its source's inline assembly and
 launch into calls of the shim.
 """
@@ -53,6 +54,11 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
 struct dim3 { unsigned x, y, z; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local unsigned char* g_smem;
@@ -85,6 +91,10 @@ template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) {
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
 inline dim3 grid_of(dim3 d) { return d; }
 template <class T> dim3 grid_of(T x) { return {unsigned(x), 1, 1}; }
 // blocks one after another (x fastest), each with a thread per CUDA thread

@@ -70,12 +70,14 @@ def test_modes_equal_dy4tpu():
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "b7_alone.py"]
 
 
 @pytest.mark.parametrize("root", ["dy4tpu", "jax"])
 def test_no_port_file_imports(root):
-    """An AST scan of every file of the port and of chip_smoke.py."""
+    """An AST scan of every file of the port, chip_smoke.py and
+    b7_alone.py."""
     bad = []
     for f in _port_sources():
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
