@@ -114,15 +114,20 @@ front-end routes and the kernels no receiver route runs:
    faults), the receiver's CLI decoding PI/PS from the clean capture, and
    ratechange 2400 -> 1440 on the card against ``--device cpu`` (within 1
    LSB).  B10 must launch on no earlier path;
-8. phase 7, at modes 0 and 1, C=512: B11, B12 and B13 (the RF stage to fm
-   from the u8 rows, its phase planes, its 32-bit words) against their
-   plain versions and B12, B13 against B11 on block 2 (fm within 1e-3 where
-   the decimated power is above 1e-3, iq_tail exact, prev_i/prev_q within
-   1e-5), and B9-expand against its plain version and B9 + the torch
-   expansion, bitwise, also at B9's ragged [37, 383]; ``run_blocks`` over
-   24 blocks with ``frontend="fused-rf"`` and ``"fused-phase"`` (B11 or
-   B12 exactly once a block, B1 never; channel 0 decoded; four channels
-   held to the B1 route; median of 5 rates) and with ``pll_span=8,
+8. phase 7, at modes 0 and 1: B11, B12 and B13 (one kernel,
+   ``rf_tile_kernel``: the RF stage to fm from the u8 rows read as 16-bit
+   pairs, B12 on the same rows with no phase planes, B13 as 32-bit words)
+   against their plain versions on block 2 at C=512, at 37 ragged rows
+   and at C=1 (fm within 1e-3 where the decimated power is above 1e-3,
+   iq_tail exact, prev_i/prev_q within 1e-5), each bitwise under a second
+   plan and B12, B13 bitwise B11; B11 bitwise B1 from the same state (its
+   fm[m - 50] B1's fm_delayed[m], its prev_i/prev_q and iq_tail B1's);
+   B9-expand against its plain version and B9 + the torch expansion,
+   bitwise, also at B9's ragged [37, 383]; ``run_blocks`` over 24 blocks
+   with ``frontend="fused-rf"`` and ``"fused-phase"`` (B11 or B12 exactly
+   once a block, B1 never; channel 0 decoded; four channels held to the
+   B1 route; median of 5 rates; one more warm run's device time split by
+   kernel) and with ``pll_span=8,
    pll_span_emit="kernel"`` (B9-expand once a block, B9 never; decoded;
    every output bitwise equal to the torch expansion's run); at mode 0,
    B13 and B14 (``fir.block_fir_decim(impl="kernel")`` on the RF legs)
@@ -363,9 +368,9 @@ def _device_kernels() -> dict:
         resample_cuda.fused_rds_backend: "rds_backend_kernel",
         channelizer_cuda.channelize_branches: "channelizer_kernel",
         fft_cuda.fft: "fft_stockham_kernel",
-        frontend_cuda.fused_frontend_raw: "rf_demod_kernel",
-        frontend_cuda.fused_frontend: "rf_demod_kernel",
-        frontend_cuda.fused_frontend_raw_pm: "rf_demod_kernel",
+        frontend_cuda.fused_frontend_raw: "rf_tile_kernel",
+        frontend_cuda.fused_frontend: "rf_tile_kernel",
+        frontend_cuda.fused_frontend_raw_pm: "rf_tile_kernel",
         fir_cuda.block_fir_decim: "fir_decim_kernel",
     }
 
@@ -1434,7 +1439,8 @@ def _select(outs, sel):
     return rx.StepOutputs(*(None if f is None else f[:, sel] for f in outs))
 
 
-def _device_split(label, run, n_blocks, unit="block") -> None:
+def _device_split(label, run, n_blocks, unit="block",
+                  phase="phase 3") -> None:
     """One more warm ``run()`` under ``torch.profiler``: print the device
     time a block (``unit``), the sum of the device events' durations, and
     each hand-written kernel's part of it, the torch ops' the rest."""
@@ -1448,7 +1454,7 @@ def _device_split(label, run, n_blocks, unit="block") -> None:
     device_us = lambda e: getattr(e, "device_time_total", 0.0)  # noqa: E731
     busy = sum(device_us(e) for e in events) / 1e3 / n_blocks
     if not busy > 0:
-        _say(f"phase 3: {label}: the profiler shows no device time "
+        _say(f"{phase}: {label}: the profiler shows no device time "
              f"(device split not measured)")
         return
     parts = {}
@@ -1457,7 +1463,7 @@ def _device_split(label, run, n_blocks, unit="block") -> None:
         if ms > 0:
             parts[name] = ms / n_blocks
     rest = busy - sum(parts.values())
-    _say(f"phase 3: {label}: device busy {busy:.4f} ms a {unit} under "
+    _say(f"{phase}: {label}: device busy {busy:.4f} ms a {unit} under "
          f"torch.profiler (one warm run of {n_blocks}): "
          + ", ".join(f"{k} {v:.4f} ({v / busy:.1%})"
                      for k, v in parts.items())
@@ -2998,65 +3004,132 @@ def _run_psd(dev, smi, all_wrappers) -> list[dict]:
     return results
 
 
+def _ab_other_plan(n_out: int, decim: int, k: int):
+    """A second plan for B11-B13, unlike the wrapper's: tiles of about a
+    third of the row (its own less 5 where that is shorter), passes of 64
+    outputs."""
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    own = fc._rf_plan(n_out, decim, k)
+    other = fc._rf_plan(n_out, decim, k, tile=max(1, min(
+        own.tile - 5, n_out // 3 + 1)), sub=64)
+    assert other != own
+    return other
+
+
+def _check_ab_b1(cfg, params, blk, st, b11) -> None:
+    """B11 against B1's RF stage and demod from the same state: B11's
+    fm[m - kb/2] is B1's fm_delayed[m], and its prev_i/prev_q and iq_tail
+    B1's, bit for bit (one RF stage, rf_stage.cuh, one demod)."""
+    import torch
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    from dy4tpu_torch.pipeline import receiver as rx
+
+    fs = rx.front_state_of(st)
+    cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
+    b1 = fc.fused_frontend_full(
+        blk, params.rf_coeff, params.bank_coeff, params.rds_carrier_coeff,
+        *(cont(t) for t in (fs.rf.iq_tail, fs.rf.prev_i, fs.rf.prev_q,
+                            fs.bank_tail, fs.mono_delay, fs.carrier_tail,
+                            fs.rds_delay)),
+        cfg.rf_decim, rds=cfg.supports_rds)
+    torch.cuda.synchronize()
+    dly = params.bank_coeff.shape[-1] // 2
+    same = (torch.equal(b11[0][:, :-dly], b1[0][:, dly:])
+            and all(torch.equal(a, b) for a, b in zip(b11[1:4], b1[5:8])))
+    if not same:
+        raise AssertionError(
+            f"B11 mode{cfg.mode}: not B1's bits: fm "
+            f"{_max_err([b11[0][:, :-dly]], [b1[0][:, dly:]]):.3g}, "
+            f"iq_tail / prev {_max_err(b11[1:4], b1[5:8]):.3g}")
+    _say(f"phase 7: B11 mode{cfg.mode}: fm[m - {dly}], prev_i/prev_q and "
+         f"iq_tail bit for bit B1's fm_delayed[m], prev_i/prev_q and "
+         f"iq_tail from the same state (C={C})")
+
+
 def _check_ab_kernels(cfg, params, blocks, st, dev) -> list:
     """Phase 7's kernel checks at one mode, on block AB_BLOCK from the
     state ``st`` after the blocks before it (the loops locked in): B11,
-    B12 and B13 each against its plain version, and B12 and B13 against
-    B11; fm where the decimated power is above AB_POWER within AB_TOL,
-    iq_tail exact, prev_i/prev_q within AB_PREV_TOL.  Returns the rows."""
+    B12 and B13 each against its plain version at C=512, at 37 ragged rows
+    (32 + 5, no multiple of the card's 132 SMs) and at C=1, and B12 and B13
+    against B11 and each under a second plan (``_ab_other_plan``), bit for
+    bit; fm where the decimated power is above AB_POWER within AB_TOL,
+    iq_tail exact, prev_i/prev_q within AB_PREV_TOL.  Then B11 against
+    B1 (``_check_ab_b1``).  Returns the rows."""
     import torch
     from dy4tpu_torch.ops import frontend_cuda as fc
 
     blk = blocks[AB_BLOCK]
-    args = (blk, params.rf_coeff, st.rf.iq_tail.contiguous(),
+    full = (blk, params.rf_coeff, st.rf.iq_tail.contiguous(),
             st.rf.prev_i.contiguous(), st.rf.prev_q.contiguous(),
             cfg.rf_decim)
-    _distinct_rows("B11", blk, *args[2:5])
-    i_ds, q_ds, _ = fc.rf_lpf_plain(*args[:3], cfg.rf_decim)
-    live = i_ds * i_ds + q_ds * q_ds > AB_POWER
-    rows, b11 = [], None
-    for name, wrap, plain, replaces in (
-            ("B11 frontend_raw", fc.fused_frontend_raw,
-             fc.fused_frontend_raw_plain, "dy4tpu/ops/frontend_pallas.py:429"),
-            ("B12 frontend_phase", fc.fused_frontend,
-             fc.fused_frontend_plain, "dy4tpu/ops/frontend_pallas.py:983"),
-            ("B13 frontend_raw_pm", fc.fused_frontend_raw_pm,
-             fc.fused_frontend_raw_pm_plain,
-             "dy4tpu/ops/frontend_pallas.py:340")):
-        label = f"{name.split()[0]} mode{cfg.mode}"
-        k_out = wrap(*args)
-        p_out = plain(*args)
-        torch.cuda.synchronize()
-        prev = _max_err(k_out[2:], p_out[2:])
-        if not (torch.equal(k_out[1], p_out[1]) and prev <= AB_PREV_TOL):
-            raise AssertionError(f"{label}: iq_tail differs from the plain "
-                                 f"version, or prev_i/prev_q by {prev:.3g}")
-        diff = (k_out[0] - p_out[0]).abs()
-        err = float(diff[live].max())
-        extra = dict(fm_max_abs_err_everywhere=float(diff.max()),
-                     prev_max_abs_err=prev)
-        note = ""
-        if b11 is None:
-            b11 = k_out
-        else:
-            vs = float((k_out[0] - b11[0]).abs()[live].max())
-            if not (vs <= AB_TOL and torch.equal(k_out[1], b11[1])
-                    and _max_err(k_out[2:], b11[2:]) <= AB_PREV_TOL):
-                raise AssertionError(f"{label}: departs from B11 by {vs:.3g}")
-            extra["vs_b11_max_abs_err"] = vs
-            note = f"; against B11 {vs:.3g}"
-        _say(f"phase 7: {label}: fm within {err:.3g} of the plain version "
-             f"where the decimated power is above {AB_POWER:g} "
-             f"({float(live.double().mean()):.1%} of samples; everywhere "
-             f"{float(diff.max()):.3g}), iq_tail exact, prev_i/prev_q "
-             f"{prev:.3g}{note}")
-        rows.append(_Row(
-            name, f"mode{cfg.mode} decim {cfg.rf_decim}",
-            "dy4tpu_torch/csrc/frontend_rf.cu", replaces, wrap, err, AB_TOL,
-            lambda w=wrap: w(*args), lambda p=plain: p(*args),
-            nbytes=_nbytes(args[:5], k_out),
-            flops=C * cfg.if_per_block * (4 * cfg.num_taps + 9),
-            phase="phase 7", extra=extra))
+    _distinct_rows("B11", blk, *full[2:5])
+    i_ds, q_ds, _ = fc.rf_lpf_plain(*full[:3], cfg.rf_decim)
+    live_all = i_ds * i_ds + q_ds * q_ds > AB_POWER
+    n_out = cfg.if_per_block
+    other = _ab_other_plan(n_out, cfg.rf_decim, cfg.num_taps)
+    rows = []
+    for c in (C, FRONT_RAGGED_ROWS, 1):
+        args = full if c == C else (
+            blk[:c].contiguous(), full[1],
+            *(t[:c].contiguous() for t in full[2:5]), full[5])
+        live = live_all[:c]
+        where = "" if c == C else f" [{c}, {cfg.block_size}]"
+        b11 = None
+        for name, wrap, plain, source, replaces in (
+                ("B11 frontend_raw", fc.fused_frontend_raw,
+                 fc.fused_frontend_raw_plain, fc._PAIRS,
+                 "dy4tpu/ops/frontend_pallas.py:429"),
+                ("B12 frontend_phase", fc.fused_frontend,
+                 fc.fused_frontend_plain, fc._PAIRS,
+                 "dy4tpu/ops/frontend_pallas.py:983"),
+                ("B13 frontend_raw_pm", fc.fused_frontend_raw_pm,
+                 fc.fused_frontend_raw_pm_plain, fc._WORDS,
+                 "dy4tpu/ops/frontend_pallas.py:340")):
+            label = f"{name.split()[0]} mode{cfg.mode}{where}"
+            k_out = wrap(*args)
+            p_out = plain(*args)
+            o_out = fc._launch_rf(source, *args, "second plan", plan=other)
+            torch.cuda.synchronize()
+            prev = _max_err(k_out[2:], p_out[2:])
+            if not (torch.equal(k_out[1], p_out[1]) and prev <= AB_PREV_TOL):
+                raise AssertionError(f"{label}: iq_tail differs from the "
+                                     f"plain version, or prev_i/prev_q by "
+                                     f"{prev:.3g}")
+            if not all(torch.equal(a, b) for a, b in zip(k_out, o_out)):
+                raise AssertionError(f"{label}: not bitwise equal under a "
+                                     f"second plan {other}")
+            diff = (k_out[0] - p_out[0]).abs()
+            err = float(diff[live].max())
+            extra = dict(fm_max_abs_err_everywhere=float(diff.max()),
+                         prev_max_abs_err=prev)
+            if b11 is None:
+                b11 = k_out
+                note = ""
+            else:
+                if not all(torch.equal(a, b) for a, b in zip(k_out, b11)):
+                    raise AssertionError(f"{label}: not bitwise equal to "
+                                         f"B11")
+                note = "; bit for bit B11's"
+            _say(f"phase 7: {label}: fm within {err:.3g} of the plain "
+                 f"version where the decimated power is above {AB_POWER:g} "
+                 f"({float(live.double().mean()):.1%} of samples; "
+                 f"everywhere {float(diff.max()):.3g}), iq_tail exact, "
+                 f"prev_i/prev_q "
+                 f"{prev:.3g}; bit for bit under a second plan{note}")
+            rows.append(_Row(
+                name, f"mode{cfg.mode} decim {cfg.rf_decim}{where}",
+                "dy4tpu_torch/csrc/frontend_rf.cu", replaces, wrap, err,
+                AB_TOL, lambda w=wrap, a=args: w(*a),
+                lambda p=plain, a=args: p(*a), where=f"C={c}",
+                nbytes=_nbytes(args[:5], k_out),
+                flops=c * n_out * (4 * cfg.num_taps + 9),
+                phase="phase 7", extra=extra))
+        if c == C:
+            _check_ab_b1(cfg, params, blk, st, b11)
+    own = fc._rf_plan(n_out, cfg.rf_decim, cfg.num_taps)
+    _say(f"phase 7: mode{cfg.mode}: B11-B13's plan {own}, "
+         f"{fc._rf_smem_bytes(own, cfg.rf_decim, cfg.num_taps)} bytes of "
+         f"shared memory a block; the second plan {other}")
     return rows
 
 
@@ -3167,6 +3240,7 @@ def _run_ab_chains(cfg, params, blocks, dev, smi, all_wrappers) -> dict:
         _say(f"phase 7: {label}: chain, median of {RATE_REPS}: "
              f"{_median_rate(cfg, run):.1f} MS/s complex IQ ({N_BLOCKS} "
              f"blocks x {C} channels, after warm-up) on {smi}")
+        _device_split(label, run, N_BLOCKS, phase="phase 7")
         launches[wrap] = counts[wrap]
 
     expand = pll_cuda.phase_scan_target.expand

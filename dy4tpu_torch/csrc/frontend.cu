@@ -43,17 +43,17 @@
 //    new tail from its own halo-extended buffers.  Every output is summed
 //    tap by tap in one fixed order, so a recomputed halo sample equals the
 //    one its own tile computes.
-//  * The RF stage runs in passes of `sub` outputs.  A pass's window of the
-//    row sits in shared memory in polyphase order (ext sample e0 + v*D + r
-//    at [r][v], as in frontend_rf.cu), filled with consecutive threads on
-//    consecutive pairs of complex samples (16-bit loads); the next pass's
-//    samples are loaded into registers while this pass multiplies.
-//  * Every MAC stage is register-blocked: a thread makes kR = 4
-//    consecutive outputs from one window that slides through registers,
-//    16 bytes a load, with each tap broadcast to the 4 outputs (and, in
-//    the bank, one window shared by its 2 or 3 filters).  So a warp's
-//    float4 window loads hit all 32 banks once, and a tap feeds 4 FMAs.
-//    Taps are padded with zeros to a multiple of 4 (a phase's to nq).
+//  * Stage 1 is rf_stage.cuh's RF stage (shared with B11-B13 in
+//    frontend_rf.cu): passes of `sub` outputs over a window of the row in
+//    polyphase order, filled from 16-bit I/Q pairs prefetched into
+//    registers while the last pass multiplies.  Stage 2 is its demod.
+//  * Every MAC stage is register-blocked (rf_stage.cuh's mac4): a thread
+//    makes kR = 4 consecutive outputs from one window that slides through
+//    registers, 16 bytes a load, with each tap broadcast to the 4 outputs
+//    (and, in the bank, one window shared by its 2 or 3 filters).  So a
+//    warp's float4 window loads hit all 32 banks once, and a tap feeds 4
+//    FMAs.  Taps are padded with zeros to a multiple of 4 (a phase's to
+//    nq).
 //  * The corr moments cover [m0, m1) only: per-thread sums over a stride,
 //    a warp shuffle tree, the warps in order, into partial[row, tile]; the
 //    row's last block to finish (a ticket from an integer atomic, the
@@ -65,45 +65,42 @@
 // cancels in float32 and is not copied).  The sums run tap by tap with
 // FMAs, so results match the plain torch version to float32 tolerance,
 // not bitwise; iq_tail comes straight from the raw block, and B6's
-// prev_i/prev_q straight from its input, so both are exact.
+// prev_i/prev_q straight from its input, so both are exact.  The demod is
+// rf_stage.cuh's fm_demod, each operation rounded on its own, so B1's I/Q
+// and fm are B11's (frontend_rf.cu) bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rf_stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using rf::kR;
+using rf::kRound;
+using rf::kThreads;
+using rf::mac4;
+using rf::norm;
+using rf::round4;
+using rf::window_row;
+
 constexpr int kWarps = kThreads / 32;
 constexpr int kFullBlocks = 3;  // B1 blocks an SM: 80 registers a thread
-constexpr int kR = 4;         // consecutive outputs a thread makes
-constexpr int kPre = 10;      // sample pairs a thread holds for a pass
 constexpr int kMoments = 14;  // IQ-tracker moments (corr epilogue)
-constexpr float kScale = 0.0078125f;
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-
-// A window row of n floats padded to 4 mod 32 words, so that the fill's
-// stores (consecutive samples across the D rows) meet at most 2 to a bank.
-__host__ __device__ inline int window_row(int n) {
-  return n + (36 - n % 32) % 32;
-}
-
-struct Geometry {
+// rf::Geometry: n_in, decim, s_rf (k_rf - 1; 0 for the IF entry), sub (RF
+// outputs a pass), nq (taps a polyphase row, padded to 4), lp (window row,
+// floats).
+struct Geometry : rf::Geometry {
   long long bs;    // u8 bytes per row (I and Q interleaved); 2*n_out for B6
-  int n_in;        // complex samples per row = bs / 2
   int n_out;       // IF samples = n_in / decim
-  int decim;
   int k_rf;        // RF LPF taps; 0 for the IF entry (no RF stage)
-  int s_rf;        // k_rf - 1: RF tail in input samples
   int kb;          // band / carrier taps
   int s_b;         // kb - 1: band history
   int dly;         // kb / 2: mono and RDS delays
   int tile;        // outputs a tile owns
   int n_tiles;     // tiles a row
   int halo;        // I/Q samples a tile recomputes before m0
-  int sub;         // RF outputs a pass
-  int nq;          // taps a polyphase row, padded to 4
-  int lp;          // window row, floats
   int kp;          // band taps padded to 4
   int l_iq;        // floats of each I/Q buffer
   int l_fm;        // floats of the fm buffer
@@ -136,7 +133,7 @@ Geometry make_geometry(long long bs, int decim, int k_rf, int kb, bool rds,
 bool plan_ok(const Geometry& g) {
   return g.tile >= g.halo && g.tile % 4 == 0 &&
          (!g.k_rf || (g.sub >= kR && g.sub % kR == 0 &&
-                      g.decim * (g.sub + g.nq) <= 2 * kPre * kThreads));
+                      g.decim * (g.sub + g.nq) <= kRound));
 }
 
 // Shared-memory layout, in floats, in this order (each a multiple of 4):
@@ -162,14 +159,10 @@ __host__ __device__ inline size_t smem_floats(const Geometry& g, bool rds,
          u_len(g) + (corr ? kMoments * kWarps : 0);
 }
 
-struct Smem {
-  float* hs;
+// rf::Bufs: hs, win_i, win_q, iq_i, iq_q.
+struct Smem : rf::Bufs {
   float* hb;
   float* hc;
-  float* iq_i;
-  float* iq_q;
-  float* win_i;
-  float* win_q;
   float* fm;
   float* rb;   // the RDS band, over iq_i
   float* sq;   // [carrier_tail || squared RDS band], over iq_q
@@ -230,44 +223,6 @@ struct BandIO {
   float* carrier_tail_out;  float* rds_delay_out;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Four taps h[0..3] of kF filters (filter f at h + f*hs) against the
-// window a || b, 8 consecutive samples: acc[f][k] += h[f][u] * x[u + k].
-template <int kF>
-__device__ __forceinline__ void step4(const float* h, int hs, float4 a,
-                                      float4 b, float (&acc)[kF][kR]) {
-  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int f = 0; f < kF; ++f) {
-    const float4 hv = ld4(h + f * hs);
-    const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int k = 0; k < kR; ++k)
-        acc[f][k] = fmaf(hh[u], x[u + k], acc[f][k]);
-  }
-}
-
-// acc[f][k] += sum_{a < 4*n4} h[f][a] * w[a + k], k < kR, taps in order;
-// reads w[0, 4*n4 + 4).  h, w 16-byte aligned.
-template <int kF>
-__device__ __forceinline__ void mac4(const float* h, int hs, const float* w,
-                                     int n4, float (&acc)[kF][kR]) {
-  float4 a = ld4(w);
-  int q = 0;
-  for (; q + 8 <= 4 * n4; q += 8) {
-    const float4 b = ld4(w + q + 4);
-    step4<kF>(h + q, hs, a, b, acc);
-    a = ld4(w + q + 8);
-    step4<kF>(h + q + 4, hs, b, a, acc);
-  }
-  if (q < 4 * n4) step4<kF>(h + q, hs, a, ld4(w + q + 4), acc);
-}
-
 __device__ inline void load_taps(const Smem& s, const Geometry& g,
                                  const float* h_bank, const float* h_carrier,
                                  int nb, int tid) {
@@ -278,107 +233,6 @@ __device__ inline void load_taps(const Smem& s, const Geometry& g,
   if (h_carrier)
     for (int a = tid; a < g.kp; a += kThreads)
       s.hc[a] = a < g.kb ? h_carrier[g.s_b - a] : 0.0f;
-}
-
-__device__ inline float norm(unsigned v) {
-  return (static_cast<float>(v) - 128.0f) * kScale;
-}
-
-// The complex samples [e0, e0 + n_samp) of ext = [tail || block] that
-// lie in the block, into registers: thread tid holds samples 2*tid +
-// 2*kThreads*j and the next one, each a 16-bit I/Q pair, packed in
-// pre[j] (0x8080, i.e. 0, outside the block).
-__device__ inline void fetch(unsigned (&pre)[kPre], const uint16_t* x16,
-                             const Geometry& g, long long e0, int n_samp,
-                             int tid) {
-#pragma unroll
-  for (int j = 0; j < kPre; ++j) {
-    const int l = 2 * (tid + j * kThreads);
-    const long long n = e0 + l - g.s_rf;
-    const unsigned lo =
-        (l < n_samp && n >= 0 && n < g.n_in) ? x16[n] : 0x8080u;
-    const unsigned hi =
-        (l + 1 < n_samp && n + 1 >= 0 && n + 1 < g.n_in) ? x16[n + 1]
-                                                        : 0x8080u;
-    pre[j] = lo | hi << 16;
-  }
-}
-
-// One fetched sample (a 16-bit I/Q pair) into window slot (r, v); a
-// sample in the RF tail straight from it.
-__device__ inline void stage_one(const Smem& s, const Geometry& g,
-                                 const float* tail, long long e, int r,
-                                 int v, unsigned pair) {
-  const int slot = r * g.lp + v;
-  const bool in_tail = e < g.s_rf;
-  s.win_i[slot] = in_tail ? tail[e] : norm(pair & 0xFFu);
-  s.win_q[slot] = in_tail ? tail[g.s_rf + e] : norm((pair >> 8) & 0xFFu);
-}
-
-// The fetched samples into the window in polyphase order (sample l at
-// [l % D][l / D], the phase and column stepped, not divided, per j).
-__device__ inline void stage_window(const unsigned (&pre)[kPre],
-                                    const Smem& s, const Geometry& g,
-                                    const float* tail, long long e0,
-                                    int n_samp, int tid) {
-  const int d = g.decim;
-  const int step = 2 * kThreads;
-  const int dv = step / d, dr = step % d;
-  int r = (2 * tid) % d, v = (2 * tid) / d;
-#pragma unroll
-  for (int j = 0; j < kPre; ++j) {
-    const int l = 2 * (tid + j * kThreads);
-    if (l < n_samp) {
-      stage_one(s, g, tail, e0 + l, r, v, pre[j] & 0xFFFFu);
-      if (l + 1 < n_samp)
-        stage_one(s, g, tail, e0 + l + 1, r + 1 == d ? 0 : r + 1,
-                  r + 1 == d ? v + 1 : v, pre[j] >> 16);
-    }
-    r += dr;
-    v += dv;
-    if (r >= d) {
-      r -= d;
-      ++v;
-    }
-  }
-}
-
-// Stage 1 of B1: the tile's RF outputs [g0, m1) on both legs into iq_i /
-// iq_q from l0 on: y[m] = sum_a h[s - a] ext[m*D + a].  Ends with every
-// output visible to every thread.
-__device__ void rf_stage(const Smem& s, const Geometry& g, const Tile& t,
-                         const uint8_t* x, const float* tail, int tid) {
-  const int d = g.decim;
-  const int n_rf = t.m1 - t.g0;
-  const int passes = (n_rf + g.sub - 1) / g.sub;
-  const int n_samp = d * (g.sub + g.nq);
-  const int chunks = g.sub / kR;
-  const uint16_t* x16 = reinterpret_cast<const uint16_t*>(x);
-  unsigned pre[kPre];
-  fetch(pre, x16, g, static_cast<long long>(t.g0) * d, n_samp, tid);
-  for (int p = 0; p < passes; ++p) {
-    const long long e0 = static_cast<long long>(t.g0 + p * g.sub) * d;
-    __syncthreads();  // the last pass's window consumed (and taps loaded)
-    stage_window(pre, s, g, tail, e0, n_samp, tid);
-    __syncthreads();
-    if (p + 1 < passes)
-      fetch(pre, x16, g, e0 + static_cast<long long>(g.sub) * d, n_samp,
-            tid);
-    for (int task = tid; task < 2 * chunks; task += kThreads) {
-      const int leg = task / chunks;
-      const int t0 = (task - leg * chunks) * kR;
-      const float* w = (leg ? s.win_q : s.win_i) + t0;
-      float acc[1][kR] = {};
-      for (int r = 0; r < d; ++r)
-        mac4<1>(s.hs + r * g.nq, 0, w + r * g.lp, g.nq / 4, acc);
-      const int o = p * g.sub + t0;
-      float* out = (leg ? s.iq_q : s.iq_i) + t.l0 + o;
-#pragma unroll
-      for (int k = 0; k < kR; ++k)
-        if (o + k < n_rf) out[k] = acc[0][k];
-    }
-  }
-  __syncthreads();
 }
 
 // The corr epilogue of one tile.  On entry iq_i/iq_q hold the tile's
@@ -461,15 +315,8 @@ __device__ void band_stages(const Smem& s, const Geometry& g, const Tile& t,
     for (int k = tid; k < g.s_b; k += kThreads)
       fm[k] = io.bank_tail[row * g.s_b + k];
   const int n_fm = t.n_bank + g.s_b;
-  for (int l = t.lf0 + tid; l < n_fm; l += kThreads) {
-    const float i = s.iq_i[l + 1];
-    const float q = s.iq_q[l + 1];
-    const float ip = s.iq_i[l];
-    const float qp = s.iq_q[l];
-    const float power = i * i + q * q;
-    const float num = i * (q - qp) - q * (i - ip);
-    fm[l] = power == 0.0f ? 0.0f : num / power;
-  }
+  for (int l = t.lf0 + tid; l < n_fm; l += kThreads)
+    fm[l] = rf::fm_demod(s.iq_i[l + 1], s.iq_q[l + 1], s.iq_i[l], s.iq_q[l]);
   for (int l = n_fm + tid; l < g.l_fm; l += kThreads) fm[l] = 0.0f;
   if (t.last && tid == 0) {
     io.prev_i_out[row] = s.iq_i[g.n_out - 1 - t.q_base];
@@ -557,16 +404,15 @@ __global__ void __launch_bounds__(kThreads, kFullBlocks)
   const uint8_t* x = iq_u8 + row * g.bs;
   const float* tail = iq_tail + row * 2 * g.s_rf;  // [2, s_rf]
 
-  for (int i = tid; i < g.decim * g.nq; i += kThreads) {
-    const int a = (i % g.nq) * g.decim + i / g.nq;
-    s.hs[i] = a <= g.s_rf ? h_rf[g.s_rf - a] : 0.0f;
-  }
+  rf::load_taps(s.hs, g, h_rf, tid);
   load_taps(s, g, h_bank, kRds ? h_carrier : nullptr, bank_rows(kRds), tid);
   if (t.first && tid == 0) {
     s.iq_i[g.s_b] = io.prev_i[row];
     s.iq_q[g.s_b] = io.prev_q[row];
   }
-  rf_stage(s, g, t, x, tail, tid);
+  rf::rf_stage<false, false>(s, g, t.g0, t.m1, t.l0,
+                      rf::Pairs{reinterpret_cast<const uint16_t*>(x)}, tail,
+                      tid);
   if (t.last)
     for (int j = tid; j < 2 * g.s_rf; j += kThreads) {
       // next RF tail, [2, s_rf], from the raw block's last 2*s_rf bytes

@@ -1,302 +1,241 @@
 // The RF stage of the receiver alone: u8 I/Q -> normalize -> the K-tap
 // RF LPF decimating by `decim` on both legs -> the differentiator demod
-// -> fm.  One kernel body, three ways for the u8 block to reach it:
+// -> fm.  One kernel, rf_tile_kernel, over rf_stage.cuh's RF stage (B1's,
+// frontend.cu), with two ways for the u8 block to reach it:
 //
-// B11 (kBytes)  replaces dy4tpu/ops/frontend_pallas.py :: fused_frontend_raw
-//               (_kernel_raw): the interleaved u8 row [c, bs], one byte
-//               per thread, consecutive threads on consecutive bytes.
-// B12 (kPlanes) replaces frontend_pallas.py :: fused_frontend (_kernel):
-//               the u8 phase planes x20 [2D, c, M] the wrapper pre-splits
-//               in torch (plane 2r + leg holds decimation phase r of leg
-//               `leg`, M = bs/2/D); needs (K-1) % D == 0, so every phase of
-//               the window starts on a whole plane sample.
-// B13 (kWords)  replaces frontend_pallas.py :: fused_frontend_raw_pm
-//               (_kernel_raw_pm): the row as 32-bit words [c, bs/4]; each
-//               thread loads a word and takes its four bytes apart (little-
-//               endian: bytes 0 and 2 are I, 1 and 3 are Q).
+// B11 (Pairs)  replaces dy4tpu/ops/frontend_pallas.py :: fused_frontend_raw
+//              (_kernel_raw): the interleaved u8 row [c, bs] read as 16-bit
+//              I/Q pairs.
+// B12 (Pairs)  replaces frontend_pallas.py :: fused_frontend (_kernel):
+//              dy4tpu splits the block into 2D interleave/decimation phase
+//              planes outside the kernel, a TPU layout ("phase dims go
+//              LEADING so the kernel only ever slab-selects").  Here the
+//              window's polyphase staging in shared memory is that split,
+//              so B12 launches B11's kernel on the u8 row itself (its
+//              wrapper keeps the (K-1) % D == 0 check).
+// B13 (Words)  replaces frontend_pallas.py :: fused_frontend_raw_pm
+//              (_kernel_raw_pm): the row as 32-bit words [c, bs/4], each
+//              two I/Q pairs (little-endian: bytes 0 and 2 are I, 1 and 3
+//              are Q).
 //
-// Contract of all three: (iq_u8, h, iq_tail [c, 2, K-1], prev_i, prev_q
-// [c]) -> fm [c, bs/2/D], the new iq_tail (the block's last K-1 complex
-// samples, normalized: exact), and the new prev_i/prev_q (the last
-// decimated I/Q).
+// Contract: (iq_u8, h, iq_tail [c, 2, K-1], prev_i, prev_q [c]) -> fm
+// [c, bs/2/D], the new iq_tail (the block's last K-1 complex samples,
+// normalized: exact), and the new prev_i/prev_q (the last decimated I/Q).
 //
-// What bounds it on the card: the u8 read (bs bytes per row) is the only
-// stream from device memory that scales with the input, fm is 1/(8D) of
-// it in bytes; the 2K multiply-adds per fm sample are float32 work.  The
-// TPU kernels' banded tap-parity matrices and window/dot interleave are
-// MXU and VMEM devices and are not copied.  Here a thread block takes one
-// row's tile of kThreads decimated outputs (the first one the sample
-// before the tile, which the demod needs, so a tile emits kThreads - 1 fm
-// samples) and loads the tile's window of the row into shared memory in
-// polyphase order: ext sample e = e0 + v*D + r sits at [r][v].  Output t
-// then reads [r][t + q] for tap a = q*D + r, so the 32 threads of a warp
-// read 32 consecutive words for every tap, free of bank conflicts at any
-// D.  Without the band stages a block needs only its window (about 24 KB
-// at mode 0), so several blocks share an SM.
+// What bounds it on the card: the 2K float32 multiply-adds per fm sample
+// (2 x 101 at modes 0-3) against the u8 read (bs bytes a row, the only
+// stream that scales with the input; fm is 1/(2D) of it in floats): about
+// even at D = 10.  The TPU kernels' banded tap-parity matrices and
+// window/dot interleave are MXU and VMEM devices and are not copied.  The
+// design:
 //
-// Numerics: the normalize (x-128)/128 comes first and is exact in
-// float32 (the TPU kernels' -128*sum(h) epilogue cancels in float32 and is
-// not copied).  The taps are summed phase by phase with FMAs, so fm
-// matches the plain torch version to float32 tolerance, amplified by the
-// demod's 1/power where the I/Q pass near the origin; the new iq_tail
-// comes straight from the block's bytes and is exact.
+//  * Grid (row, tile).  A tile is `tile` decimated outputs (the wrapper's
+//    plan, frontend_cuda._rf_plan: at most 2048, the row split evenly), and
+//    recomputes one I/Q sample before its first output, the demod's halo;
+//    tile 0 takes the carried prev_i/prev_q there instead.
+//  * rf_stage.cuh runs the tile's RF outputs in passes of `sub` outputs
+//    (the window in polyphase order in shared memory, its first fetch
+//    round prefetched into registers while the last pass multiplies), into
+//    the tile's I/Q buffers; the demod then writes fm coalesced, and the
+//    last tile writes prev_i/prev_q and the new iq_tail from the block's
+//    last 2(K-1) bytes.
+//  * Unlike B1, a thread makes its 4 outputs on both legs (mac4x2: one tap
+//    load feeds 8 FMAs), and a pass takes up to two fetch rounds (the
+//    plan's RF_PASS_SAMPLES), so at D = 10 a pass still has work for
+//    every thread; the second round is loaded while the block waits.
+//  * A block takes the taps, its I/Q and the window (about 87-94 KB at
+//    modes 0-3), so 2 blocks share an SM, at up to 128 registers a thread.
+//  * Where even one unit of 4 outputs needs more than one fetch round (a
+//    long filter) the stage fills its window in several, and where the
+//    smallest pass does not fit with the tile, the plan shrinks the tile:
+//    every geometry whose first-port block fitted (a window of 256 +
+//    (K-1)/D samples a phase) runs.
+//
+// Numerics: the normalize (x-128)/128 comes first and is exact in float32
+// (the TPU kernels' -128*sum(h) epilogue cancels in float32 and is not
+// copied).  Each output sums its taps in rf_stage.cuh's fixed order, so two
+// plans give the same bits, and B11's I/Q, fm and prev_i/prev_q are B1's
+// (fm shifted by B1's mono delay); fm matches the plain torch version to
+// float32 tolerance, amplified by the demod's 1/power where the I/Q pass
+// near the origin.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rf_stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;        // decimated outputs a block computes
-constexpr int kFm = kThreads - 1;    // fm samples a block emits
-constexpr float kScale = 0.0078125f; // 1/128
+using rf::kThreads;
 
-enum Source { kBytes = 0, kPlanes = 1, kWords = 2 };
+constexpr int kRfBlocks = 2;   // blocks an SM: 128 registers a thread
 
-struct Geom {
-  long long c;     // rows
+enum Source { kPairs = 0, kWords = 1 };
+
+// rf::Geometry: n_in, decim, s_rf, sub, nq, lp.
+struct Geometry : rf::Geometry {
   long long bs;    // u8 bytes per row
-  int n_in;        // complex samples per row = bs / 2
   int n_out;       // decimated samples = n_in / decim
-  int decim;
-  int s;           // RF taps - 1: the tail in complex samples
-  int qmax;        // s / decim + 1: taps per phase, at most
-  int lp;          // kThreads + s / decim: window samples per phase
+  int tile;        // outputs a tile owns
+  int n_tiles;     // tiles a row
+  int l_iq;        // floats of each I/Q buffer: the tile and its halo
 };
 
-Geom make_geom(long long c, long long bs, int decim, int k) {
-  Geom g;
-  g.c = c;
+Geometry make_geometry(long long bs, int decim, int k, int tile, int sub) {
+  Geometry g;
   g.bs = bs;
   g.n_in = static_cast<int>(bs / 2);
   g.n_out = g.n_in / decim;
   g.decim = decim;
-  g.s = k - 1;
-  g.qmax = g.s / decim + 1;
-  g.lp = kThreads + g.s / decim;
+  g.s_rf = k - 1;
+  g.sub = sub;
+  g.nq = rf::round4(g.s_rf / decim + 1);
+  g.lp = rf::window_row(sub + g.nq);
+  g.tile = tile;
+  g.n_tiles = tile > 0 ? (g.n_out + tile - 1) / tile : 0;
+  g.l_iq = rf::round4(tile + 1);
   return g;
 }
 
-// Shared memory, in floats: taps [D, qmax], the I and Q windows [D, lp]
-// each, the decimated I and Q of the tile [kThreads] each.
-size_t smem_floats(const Geom& g) {
-  return static_cast<size_t>(g.decim) * g.qmax +
-         2 * static_cast<size_t>(g.decim) * g.lp + 2 * kThreads;
+bool plan_ok(const Geometry& g) {
+  return g.tile >= 1 && g.n_tiles >= 1 && g.n_tiles <= 65535 &&
+         g.sub >= rf::kR && g.sub % rf::kR == 0;
 }
 
-// Byte `b` of row `row` (0 <= b < bs; byte 2n + leg is leg `leg` of
-// complex sample n), as the source holds it.
-template <int kSrc>
-__device__ inline unsigned raw_byte(const void* src, const Geom& g,
-                                    long long row, long long b) {
-  if (kSrc == kBytes) {
-    return static_cast<const uint8_t*>(src)[row * g.bs + b];
-  } else if (kSrc == kWords) {
-    const uint32_t w =
-        static_cast<const uint32_t*>(src)[row * (g.bs / 4) + b / 4];
-    return (w >> (8 * (b % 4))) & 0xFFu;
-  } else {
-    const long long n = b >> 1;
-    const int leg = static_cast<int>(b & 1);
-    const int r = static_cast<int>(n % g.decim);
-    const long long u = n / g.decim;
-    return static_cast<const uint8_t*>(
-        src)[((2LL * r + leg) * g.c + row) * g.n_out + u];
-  }
+// Shared memory, in floats, in this order (each a multiple of 4): the taps
+// hs [decim, nq], the tile's I/Q iq_i, iq_q [l_iq] (slot l holds output
+// m0 - 1 + l), the window [2, decim, lp].
+size_t smem_floats(const Geometry& g) {
+  return static_cast<size_t>(g.decim) * g.nq +
+         2 * static_cast<size_t>(g.l_iq) +
+         2 * static_cast<size_t>(g.decim) * g.lp;
 }
 
-__device__ inline float norm(unsigned v) {
-  return (static_cast<float>(v) - 128.0f) * kScale;
-}
-
-template <int kSrc>
-__global__ void __launch_bounds__(kThreads) rf_demod_kernel(
-    const void* __restrict__ src, const float* __restrict__ h,
+// kLong: a pass's window may take more than one fetch round (launched
+// where it does).
+template <class Src, bool kLong>
+__global__ void __launch_bounds__(kThreads, kRfBlocks) rf_tile_kernel(
+    const uint8_t* __restrict__ iq_u8, const float* __restrict__ h,
     const float* __restrict__ iq_tail, const float* __restrict__ prev_i,
     const float* __restrict__ prev_q, float* __restrict__ fm,
     float* __restrict__ iq_tail_out, float* __restrict__ prev_i_out,
-    float* __restrict__ prev_q_out, Geom g) {
-  extern __shared__ float smem[];
-  const int d = g.decim;
-  float* hs = smem;                     // [d, qmax]: hs[r][q] = h[s - qd - r]
-  float* win[2];
-  win[0] = hs + d * g.qmax;             // [d, lp] I window
-  win[1] = win[0] + d * g.lp;           // [d, lp] Q window
-  float* yi = win[1] + d * g.lp;        // [kThreads] decimated I
-  float* yq = yi + kThreads;            // [kThreads] decimated Q
+    float* __restrict__ prev_q_out, Geometry g) {
+  extern __shared__ float4 smem4[];
+  rf::Bufs s;
+  s.hs = reinterpret_cast<float*>(smem4);
+  s.iq_i = s.hs + g.decim * g.nq;
+  s.iq_q = s.iq_i + g.l_iq;
+  s.win_i = s.iq_q + g.l_iq;
+  s.win_q = s.win_i + g.decim * g.lp;
   const long long row = blockIdx.x;
+  const int tile = blockIdx.y;
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kFm;      // the tile's first fm sample
-  // ext = [tail || block] per leg; window slot l = v*d + r holds ext
-  // sample e0 + l, and thread t computes decimated output m0 - 1 + t
-  const long long e0 = static_cast<long long>(m0 - 1) * d;
-  const int w_len = d * g.lp;
-  const float* tail = iq_tail + row * 2 * g.s;
+  const bool first = tile == 0;
+  const int m0 = tile * g.tile;
+  const int m1 = min(m0 + g.tile, g.n_out);
+  const int q_base = m0 - 1;            // iq[l] is output q_base + l
+  const int g0 = first ? 0 : q_base;    // the first output computed
+  const Src x{reinterpret_cast<decltype(Src::x)>(iq_u8 + row * g.bs)};
+  const float* tail = iq_tail + row * 2 * g.s_rf;  // [2, s_rf]
 
-  for (int i = tid; i < d * g.qmax; i += kThreads) {
-    const int a = (i % g.qmax) * d + i / g.qmax;
-    hs[i] = a <= g.s ? h[g.s - a] : 0.0f;
+  rf::load_taps(s.hs, g, h, tid);
+  if (first && tid == 0) {  // the sample before the block: the carried one
+    s.iq_i[0] = prev_i[row];
+    s.iq_q[0] = prev_q[row];
   }
+  rf::rf_stage<kLong, true>(s, g, g0, m1, g0 - q_base, x, tail, tid);
 
-  // ---- the window, in polyphase order
-  if (kSrc == kBytes) {
-    const uint8_t* x = static_cast<const uint8_t*>(src) + row * g.bs;
-    for (int b = tid; b < 2 * w_len; b += kThreads) {
-      const int l = b >> 1;
-      const int leg = b & 1;
-      const long long e = e0 + l;
-      float v = 0.0f;
-      if (e >= 0 && e < g.s) {
-        v = tail[leg * g.s + e];
-      } else if (e >= g.s && e - g.s < g.n_in) {
-        v = norm(x[2 * (e - g.s) + leg]);
-      }
-      win[leg][(l % d) * g.lp + l / d] = v;
-    }
-  } else if (kSrc == kWords) {
-    // the tail and the slots outside the block, then the block's words
-    for (int l = tid; l < w_len; l += kThreads) {
-      const long long e = e0 + l;
-      if (e >= g.s && e - g.s < g.n_in) continue;
-      const bool in_tail = e >= 0 && e < g.s;
-      const int slot = (l % d) * g.lp + l / d;
-      win[0][slot] = in_tail ? tail[e] : 0.0f;
-      win[1][slot] = in_tail ? tail[g.s + e] : 0.0f;
-    }
-    const uint32_t* x =
-        static_cast<const uint32_t*>(src) + row * (g.bs / 4);
-    const long long n_lo = e0 - g.s;               // raw sample of slot 0
-    const long long w_lo = n_lo >= 0 ? n_lo / 2 : -((1 - n_lo) / 2);
-    const long long n_words = g.bs / 4;
-    for (long long w = w_lo + tid; 2 * w < n_lo + w_len; w += kThreads) {
-      if (w < 0 || w >= n_words) continue;
-      const uint32_t word = x[w];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const long long l = 2 * w + (k >> 1) - n_lo;
-        if (l < 0 || l >= w_len) continue;
-        win[k & 1][(l % d) * g.lp + l / d] = norm((word >> (8 * k)) & 0xFFu);
-      }
-    }
-  } else {
-    // plane p = 2r + leg, slot (r, v): ext e = e0 + v*d + r, plane sample
-    // u = m0 - 1 + v - s/d (s % d == 0)
-    const uint8_t* x = static_cast<const uint8_t*>(src);
-    const int s_ph = g.s / d;
-    for (int i = tid; i < 2 * w_len; i += kThreads) {
-      const int p = i / g.lp;
-      const int v = i % g.lp;
-      const int r = p >> 1;
-      const int leg = p & 1;
-      const long long u = static_cast<long long>(m0) - 1 + v - s_ph;
-      float val = 0.0f;
-      if (u >= 0 && u < g.n_out) {
-        val = norm(x[(static_cast<long long>(p) * g.c + row) * g.n_out + u]);
-      } else if (u < 0 && u + s_ph >= 0) {
-        val = tail[leg * g.s + (u + s_ph) * d + r];
-      }
-      win[leg][r * g.lp + v] = val;
-    }
+  float* out = fm + row * g.n_out;
+  for (int m = m0 + tid; m < m1; m += kThreads) {
+    const int l = m - q_base;
+    out[m] = rf::fm_demod(s.iq_i[l], s.iq_q[l], s.iq_i[l - 1], s.iq_q[l - 1]);
   }
-  __syncthreads();
-
-  // ---- the RF LPF on both legs: output m = sum_a h[s - a] ext[m*d + a]
-  const int t = tid;
-  const long long m = static_cast<long long>(m0) - 1 + t;
-  float ai = 0.0f, aq = 0.0f;
-  for (int r = 0; r < d && r <= g.s; ++r) {
-    const int nq = (g.s - r) / d + 1;
-    const float* hr = hs + r * g.qmax;
-    const float* wi = win[0] + r * g.lp + t;
-    const float* wq = win[1] + r * g.lp + t;
-    for (int q = 0; q < nq; ++q) {
-      ai = fmaf(hr[q], wi[q], ai);
-      aq = fmaf(hr[q], wq[q], aq);
+  if (tile == g.n_tiles - 1) {
+    if (tid == 0) {
+      prev_i_out[row] = s.iq_i[g.n_out - 1 - q_base];
+      prev_q_out[row] = s.iq_q[g.n_out - 1 - q_base];
     }
-  }
-  if (m < 0) {  // the sample before the block: the carried one
-    ai = prev_i[row];
-    aq = prev_q[row];
-  }
-  yi[t] = ai;
-  yq[t] = aq;
-  __syncthreads();
-
-  // ---- the differentiator demod, with the zero-power guard
-  if (t >= 1 && m < g.n_out) {
-    const float i = yi[t], q = yq[t];
-    const float ip = yi[t - 1], qp = yq[t - 1];
-    const float power = i * i + q * q;
-    const float num = i * (q - qp) - q * (i - ip);
-    fm[row * g.n_out + m] = power == 0.0f ? 0.0f : num / power;
-    if (m == g.n_out - 1) {
-      prev_i_out[row] = i;
-      prev_q_out[row] = q;
-    }
-  }
-  // ---- the next RF tail, [2, s], from the block's last 2s bytes
-  if (blockIdx.y == gridDim.y - 1) {
-    for (int j = tid; j < 2 * g.s; j += kThreads) {
-      const int leg = j / g.s;
-      const int kk = j % g.s;
-      iq_tail_out[row * 2 * g.s + j] =
-          norm(raw_byte<kSrc>(src, g, row, g.bs - 2LL * g.s + 2 * kk + leg));
+    // the next RF tail, [2, s_rf], from the block's last 2*s_rf bytes
+    for (int j = tid; j < 2 * g.s_rf; j += kThreads) {
+      const int leg = j / g.s_rf;
+      const int k = j % g.s_rf;
+      iq_tail_out[row * 2 * g.s_rf + j] =
+          rf::norm(x.byte(g.bs - 2LL * g.s_rf + 2 * k + leg));
     }
   }
 }
 
-template <int kSrc>
-int launch(const void* src, const float* h, const float* iq_tail,
-           const float* prev_i, const float* prev_q, float* fm,
-           float* iq_tail_out, float* prev_i_out, float* prev_q_out,
-           const Geom& g, cudaStream_t stream) {
+template <class Src, bool kLong>
+int launch_kernel(const uint8_t* iq_u8, const float* h, const float* iq_tail,
+                  const float* prev_i, const float* prev_q, float* fm,
+                  float* iq_tail_out, float* prev_i_out, float* prev_q_out,
+                  const Geometry& g, long long c, cudaStream_t stream) {
   const size_t smem = smem_floats(g) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      rf_demod_kernel<kSrc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      rf_tile_kernel<Src, kLong>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(g.c), (g.n_out + kFm - 1) / kFm);
-  rf_demod_kernel<kSrc><<<grid, kThreads, smem, stream>>>(
-      src, h, iq_tail, prev_i, prev_q, fm, iq_tail_out, prev_i_out,
+  const dim3 grid(static_cast<unsigned>(c), static_cast<unsigned>(g.n_tiles));
+  rf_tile_kernel<Src, kLong><<<grid, kThreads, smem, stream>>>(
+      iq_u8, h, iq_tail, prev_i, prev_q, fm, iq_tail_out, prev_i_out,
       prev_q_out, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Bytes of dynamic shared memory one thread block takes at decimation
-// `decim` with `k` taps (the same for all three sources).  The wrappers
-// check it against the card's 227 KB before a launch.
-extern "C" long long dy4_frontend_rf_smem(int decim, int k) {
-  return static_cast<long long>(smem_floats(make_geom(1, 2LL * decim, decim,
-                                                      k)) * sizeof(float));
+template <class Src>
+int launch(const uint8_t* iq_u8, const float* h, const float* iq_tail,
+           const float* prev_i, const float* prev_q, float* fm,
+           float* iq_tail_out, float* prev_i_out, float* prev_q_out,
+           const Geometry& g, long long c, cudaStream_t stream) {
+  if (!plan_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+  return g.decim * (g.sub + g.nq) > rf::kRound
+             ? launch_kernel<Src, true>(iq_u8, h, iq_tail, prev_i, prev_q, fm,
+                                        iq_tail_out, prev_i_out, prev_q_out,
+                                        g, c, stream)
+             : launch_kernel<Src, false>(iq_u8, h, iq_tail, prev_i, prev_q,
+                                         fm, iq_tail_out, prev_i_out,
+                                         prev_q_out, g, c, stream);
 }
 
-// B11 (source 0), B12 (source 1), B13 (source 2).  `src`: iq_u8 [c, bs]
-// u8, the phase planes [2*decim, c, bs/2/decim] u8, or the words
-// [c, bs/4] int32.  h [k], iq_tail and iq_tail_out [c, 2, k-1],
+}  // namespace
+
+// Bytes of dynamic shared memory one thread block takes for tiles of
+// `tile` outputs and RF passes of `sub` outputs at decimation `decim`
+// with `k` taps (the same for both sources).  frontend_cuda._rf_smem_bytes
+// computes the same; the wrappers check it against the card's 227 KB
+// before a launch.
+extern "C" long long dy4_frontend_rf_smem(int tile, int sub, int decim,
+                                          int k) {
+  const Geometry g = make_geometry(2LL * decim * tile, decim, k, tile, sub);
+  return static_cast<long long>(smem_floats(g) * sizeof(float));
+}
+
+// B11 / B12 (source 0: the rows as 16-bit pairs), B13 (source 1: as 32-bit
+// words).  iq_u8 [c, bs] u8; h [k], iq_tail and iq_tail_out [c, 2, k-1],
 // prev_i/prev_q and their outputs [c], fm [c, bs/2/decim], all float32
-// and contiguous.  The caller guarantees bs % (2*decim) == 0, bs/2 >= k-1,
-// and for source 1 (k-1) % decim == 0, for source 2 bs % 4 == 0.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int dy4_frontend_rf(int source, const void* src, const float* h,
-                               const float* iq_tail, const float* prev_i,
-                               const float* prev_q, float* fm,
-                               float* iq_tail_out, float* prev_i_out,
-                               float* prev_q_out, long long c, long long bs,
-                               int decim, int k, void* stream) {
+// and contiguous.  The caller guarantees bs % (2*decim) == 0, bs/2 >= k-1
+// and bs >= 2*decim, for source 1 bs % 4 == 0.  tile, sub: the plan
+// (frontend_cuda._rf_plan).  Returns cudaGetLastError() after the launch
+// (0 = launched), cudaErrorInvalidValue for a plan it cannot run.
+extern "C" int dy4_frontend_rf(int source, const uint8_t* iq_u8,
+                               const float* h, const float* iq_tail,
+                               const float* prev_i, const float* prev_q,
+                               float* fm, float* iq_tail_out,
+                               float* prev_i_out, float* prev_q_out,
+                               long long c, long long bs, int decim, int k,
+                               int tile, int sub, void* stream) {
   if (c <= 0) return 0;
-  const Geom g = make_geom(c, bs, decim, k);
+  const Geometry g = make_geometry(bs, decim, k, tile, sub);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (source) {
-    case kBytes:
-      return launch<kBytes>(src, h, iq_tail, prev_i, prev_q, fm, iq_tail_out,
-                            prev_i_out, prev_q_out, g, st);
-    case kPlanes:
-      return launch<kPlanes>(src, h, iq_tail, prev_i, prev_q, fm,
-                             iq_tail_out, prev_i_out, prev_q_out, g, st);
+    case kPairs:
+      return launch<rf::Pairs>(iq_u8, h, iq_tail, prev_i, prev_q, fm,
+                               iq_tail_out, prev_i_out, prev_q_out, g, c,
+                               st);
     case kWords:
-      return launch<kWords>(src, h, iq_tail, prev_i, prev_q, fm, iq_tail_out,
-                            prev_i_out, prev_q_out, g, st);
+      return launch<rf::Words>(iq_u8, h, iq_tail, prev_i, prev_q, fm,
+                               iq_tail_out, prev_i_out, prev_q_out, g, c,
+                               st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,21 +26,28 @@ are exact.
 
 The RF stage alone, dy4tpu's A/B front ends (``front_step(frontend=
 "fused-rf" | "fused-phase")``, which leave the band stages to
-``band_stages_plain``), is one kernel body behind three loaders (see the
-note in ``csrc/frontend_rf.cu``), with the contract ``(iq_u8, h, iq_tail,
-prev_i, prev_q, decim) -> (fm, iq_tail', prev_i', prev_q')``:
+``band_stages_plain``), is one kernel on B1's RF stage (``csrc/rf_stage.cuh``)
+then the demod, on a (row, tile) grid from ``_rf_plan`` (see the note in
+``csrc/frontend_rf.cu``), with the contract ``(iq_u8, h, iq_tail, prev_i,
+prev_q, decim) -> (fm, iq_tail', prev_i', prev_q')``:
 
   * ``fused_frontend_raw`` (B11) replaces ``frontend_pallas.py ::
-    fused_frontend_raw``: it reads the interleaved u8 row;
+    fused_frontend_raw``: it reads the interleaved u8 row as 16-bit I/Q
+    pairs;
   * ``fused_frontend`` (B12) replaces ``frontend_pallas.py ::
-    fused_frontend``: the wrapper pre-splits the u8 block into its 2D
-    interleave/decimation phase planes in torch, as dy4tpu does outside
-    Pallas, and the kernel reads the planes; it needs ``(K-1) % D == 0``;
+    fused_frontend``, which reads 2D interleave/decimation phase planes
+    that dy4tpu splits off outside Pallas, a TPU layout: the kernel's
+    polyphase window in shared memory is that split, so B12 launches B11's
+    kernel on the u8 row itself and no plane is made on the card; it
+    keeps the ``(K-1) % D == 0`` check, and its plain version the planes;
   * ``fused_frontend_raw_pm`` (B13) replaces ``frontend_pallas.py ::
     fused_frontend_raw_pm``: the kernel reads the row as 32-bit words
-    (``iq_u8.view(torch.int32)``, free) and takes each word's four bytes
-    apart.  dy4tpu does not wire it into ``front_step``; neither does the
-    port.
+    (``iq_u8.view(torch.int32)``, free), two I/Q pairs a word.  dy4tpu
+    does not wire it into ``front_step``; neither does the port.
+
+The three give the same bits as one another, under any plan, and as B1's
+I/Q, demod and ``prev_i``/``prev_q`` (B1's ``fm_delayed`` is their fm
+delayed by ``Kb // 2``).
 
 dy4tpu's banded tap-parity matrices, its ``split`` window/dot interleave,
 ``mm_dtype``, ``bc_rows``, ``vmem_limit_bytes`` and its 128-lane geometry
@@ -71,14 +78,18 @@ _CORR_ARGS = ([ctypes.c_void_p] * 27 + [ctypes.c_longlong] * 2
 _IF_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _RF_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # the u8 block's way into the RF kernel (csrc/frontend_rf.cu's Source)
-_BYTES, _PLANES, _WORDS = 0, 1, 2
+_PAIRS, _WORDS = 0, 1
 
 
 # B1 / B6's tiling (csrc/frontend.cu): IF outputs a tile owns, threads a
-# block, window samples a thread holds for an RF pass
+# block, window samples the threads hold for an RF pass (rf_stage.cuh's
+# kRound: one fetch round)
 TILE, THREADS, PASS_SAMPLES = 1536, 256, 20 * 256
+# B11-B13's tiling (csrc/frontend_rf.cu): the most IF outputs a tile owns,
+# window samples a pass takes (two fetch rounds)
+RF_TILE, RF_PASS_SAMPLES = 2048, 2 * PASS_SAMPLES
 MOMENTS = len(iqcorr._POWERS)
 
 
@@ -93,8 +104,22 @@ class TilePlan(typing.NamedTuple):
     sub: int
 
 
+class RfPlan(typing.NamedTuple):
+    """B11-B13's grid over one row: ``n_tiles`` tiles of ``tile`` IF
+    outputs (the last one ragged), each recomputing the I/Q sample before
+    its first output; RF passes of ``sub`` outputs."""
+    tile: int
+    n_tiles: int
+    sub: int
+
+
 def _round4(n: int) -> int:
     return -(-n // 4) * 4
+
+
+def _window_row(n: int) -> int:
+    """A window row of ``n`` floats padded to 4 mod 32 (rf_stage.cuh)."""
+    return n + (36 - n % 32) % 32
 
 
 def _phase_taps(decim: int, k_rf: int) -> int:
@@ -135,14 +160,54 @@ def _smem_bytes(plan: TilePlan, decim: int, k_rf: int, kb: int, rds: bool,
     formula (``csrc/frontend.cu``), for the CPU tests."""
     kp = _round4(kb)
     nq = _phase_taps(decim, k_rf)
-    lp = plan.sub + nq
-    lp += (36 - lp % 32) % 32
+    lp = _window_row(plan.sub + nq)
     taps = (decim * nq if k_rf else 0) + ((3 if rds else 2) + rds) * kp
     l_iq = _round4(plan.tile + plan.halo)
     l_fm = _round4(plan.tile + (kb - 1 if rds else 0)) + kp + 4
     win = 2 * decim * lp if k_rf else 0
     return 4 * (taps + 2 * l_iq + max(win, l_fm)
                 + (MOMENTS * THREADS // 32 if corr else 0))
+
+
+def _rf_passes(n_rf: int, decim: int, k: int) -> int:
+    """Outputs a pass for ``n_rf`` RF outputs: even passes, of whole units
+    of 4 outputs, whose window holds at most ``RF_PASS_SAMPLES``, or one
+    unit where no such pass has one (a long filter)."""
+    w_max = max(4, (RF_PASS_SAMPLES // decim - _phase_taps(decim, k) - 28)
+                // 4 * 4)
+    return _round4(-(-n_rf // -(-n_rf // w_max)))
+
+
+def _rf_plan(n_out: int, decim: int, k: int, *, tile: int | None = None,
+             sub: int | None = None) -> RfPlan:
+    """B11-B13's plan for rows of ``n_out`` IF samples through ``k`` taps
+    (``tile`` / ``sub`` pin it).  The row splits evenly into the fewest
+    tiles of at most ``RF_TILE`` outputs, a tile's RF outputs (the tile
+    and its halo sample) evenly into passes (``_rf_passes``); where the
+    block then overflows the shared memory, the tile halves until it fits
+    (a tile of one output at the least).  Never raises: a geometry whose
+    block cannot fit even so is the wrappers' ``check_smem``'s to refuse,
+    and no geometry the first port's block fitted is one."""
+    def plan_of(t: int) -> RfPlan:
+        return RfPlan(t, -(-n_out // t), sub or _rf_passes(t + 1, decim, k))
+
+    def even(most: int) -> int:       # even tiles of at most `most`
+        return -(-n_out // -(-n_out // most))
+
+    if tile is not None:
+        return plan_of(tile)
+    plan = plan_of(even(RF_TILE))
+    while plan.tile > 1 and _rf_smem_bytes(plan, decim, k) > kernels.SMEM_MAX:
+        plan = plan_of(even(-(-plan.tile // 2)))
+    return plan
+
+
+def _rf_smem_bytes(plan: RfPlan, decim: int, k: int) -> int:
+    """Shared memory one B11-B13 block takes: ``dy4_frontend_rf_smem``'s
+    formula (``csrc/frontend_rf.cu``), for the plan and the CPU tests."""
+    nq = _phase_taps(decim, k)
+    return 4 * (decim * nq + 2 * _round4(plan.tile + 1)
+                + 2 * decim * _window_row(plan.sub + nq))
 
 
 def rf_lpf_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor, decim: int):
@@ -458,14 +523,16 @@ def _words(iq_u8: Tensor) -> Tensor:
     return iq_u8.view(torch.int32)
 
 
-def _launch_rf(source: int, src: Tensor, iq_u8: Tensor, h, iq_tail, prev_i,
-               prev_q, decim: int, what: str):
-    """Check the inputs and launch the RF kernel on ``src`` (``iq_u8``
-    itself, its phase planes or its words).  Returns ``(fm, iq_tail,
-    prev_i, prev_q)``."""
+def _launch_rf(source: int, iq_u8: Tensor, h, iq_tail, prev_i, prev_q,
+               decim: int, what: str, plan: RfPlan | None = None):
+    """Check the inputs and launch the RF kernel on ``iq_u8``'s rows, read
+    as 16-bit pairs (``_PAIRS``) or 32-bit words (``_WORDS``), under
+    ``plan`` (``_rf_plan``'s by default).  Counts no launch.  Returns
+    ``(fm, iq_tail, prev_i, prev_q)``."""
     c, bs = iq_u8.shape
     k = h.shape[0]
-    if bs % (2 * decim) or bs // 2 < k - 1:
+    n_out = bs // 2 // decim
+    if bs % (2 * decim) or n_out < 1 or bs // 2 < k - 1:
         raise ValueError(f"{what}: block of {bs} bytes does not decimate by "
                          f"{decim}, or holds fewer than the {k - 1} samples "
                          f"of the RF tail")
@@ -474,16 +541,19 @@ def _launch_rf(source: int, src: Tensor, iq_u8: Tensor, h, iq_tail, prev_i,
     for t, name, shape in ((h, "h", (k,)), (iq_tail, "iq_tail", (c, 2, k - 1)),
                            (prev_i, "prev_i", (c,)), (prev_q, "prev_q", (c,))):
         kernels.require(t, name, shape, device=dev)
-    kernels.check_smem("frontend_rf", "dy4_frontend_rf_smem", what, decim, k)
+    if plan is None:
+        plan = _rf_plan(n_out, decim, k)
+    kernels.check_smem("frontend_rf", "dy4_frontend_rf_smem", what,
+                       plan.tile, plan.sub, decim, k)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
-    outs = (new(c, bs // 2 // decim), new(c, 2, k - 1), new(c), new(c))
+    outs = (new(c, n_out), new(c, 2, k - 1), new(c), new(c))
     fn = kernels.entry("frontend_rf", "dy4_frontend_rf", _RF_ARGS)
     with torch.cuda.device(dev):
-        status = fn(source, src.data_ptr(), h.data_ptr(), iq_tail.data_ptr(),
-                    prev_i.data_ptr(), prev_q.data_ptr(),
+        status = fn(source, iq_u8.data_ptr(), h.data_ptr(),
+                    iq_tail.data_ptr(), prev_i.data_ptr(), prev_q.data_ptr(),
                     *(o.data_ptr() for o in outs), c, bs, decim, k,
-                    kernels.stream_of(iq_u8))
+                    plan.tile, plan.sub, kernels.stream_of(iq_u8))
     kernels.check_launch(status, what)
     return outs
 
@@ -498,8 +568,8 @@ def fused_frontend_raw(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
     if iq_u8.device.type == "cpu":
         return fused_frontend_raw_plain(iq_u8, h, iq_tail, prev_i, prev_q,
                                         decim)
-    outs = _launch_rf(_BYTES, iq_u8, iq_u8, h, iq_tail, prev_i, prev_q,
-                      decim, "fused_frontend_raw")
+    outs = _launch_rf(_PAIRS, iq_u8, h, iq_tail, prev_i, prev_q, decim,
+                      "fused_frontend_raw")
     fused_frontend_raw.launches += 1
     return outs
 
@@ -508,21 +578,16 @@ fused_frontend_raw.launches = 0
 
 
 def fused_frontend(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
-    """B12, the RF stage from the u8 phase planes: the kernel for CUDA
-    tensors, ``fused_frontend_plain`` for CPU ones; the contract of
-    ``fused_frontend_raw``, with ``(K-1) % decim == 0``.  The planes
-    (``phase_planes``) are made in torch before the launch, an extra
-    read and write of the block."""
+    """B12, the RF stage of the phase-split front end: the kernel for CUDA
+    tensors, ``fused_frontend_plain`` (the phase planes) for CPU ones; the
+    contract of ``fused_frontend_raw``, with ``(K-1) % decim == 0``.  On
+    the card it launches B11's kernel on the u8 rows themselves: no phase
+    plane is made (see ``csrc/frontend_rf.cu``)."""
     if iq_u8.device.type == "cpu":
         return fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim)
     _require_phase_aligned(h.shape[0], decim)
-    kernels.require(iq_u8, "iq_u8", iq_u8.shape, torch.uint8, iq_u8.device)
-    if iq_u8.dim() != 2 or iq_u8.shape[1] % (2 * decim):
-        raise ValueError(f"fused_frontend: block {tuple(iq_u8.shape)} does "
-                         f"not decimate by {decim}")
-    planes = phase_planes(iq_u8, decim).contiguous()
-    outs = _launch_rf(_PLANES, planes, iq_u8, h, iq_tail, prev_i, prev_q,
-                      decim, "fused_frontend")
+    outs = _launch_rf(_PAIRS, iq_u8, h, iq_tail, prev_i, prev_q, decim,
+                      "fused_frontend")
     fused_frontend.launches += 1
     return outs
 
@@ -539,8 +604,9 @@ def fused_frontend_raw_pm(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
         return fused_frontend_raw_pm_plain(iq_u8, h, iq_tail, prev_i, prev_q,
                                            decim)
     kernels.require(iq_u8, "iq_u8", iq_u8.shape, torch.uint8, iq_u8.device)
-    outs = _launch_rf(_WORDS, _words(iq_u8), iq_u8, h, iq_tail, prev_i,
-                      prev_q, decim, "fused_frontend_raw_pm")
+    _words(iq_u8)       # the kernel reads this view: bs % 4 == 0
+    outs = _launch_rf(_WORDS, iq_u8, h, iq_tail, prev_i, prev_q, decim,
+                      "fused_frontend_raw_pm")
     fused_frontend_raw_pm.launches += 1
     return outs
 

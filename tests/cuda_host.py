@@ -9,9 +9,9 @@ smem, stream>>>(args)`` runs its blocks one after another with one
 of the block, a named barrier (``bar.sync id, count``) a ``std::barrier``
 of ``count`` threads, and the round-to-nearest intrinsics are the host's
 IEEE operations (``__fmaf_rn`` is ``std::fma``, ``__int_as_float`` a
-copy of the bits).  Each test file gives the
-regular-expression rewrites that turn its source's inline assembly and
-launch into calls of the shim.
+copy of the bits, ``__funnelshift_r`` a shift of the 64-bit pair).  Each
+test file gives the regular-expression rewrites that turn its source's
+inline assembly and launch into calls of the shim.
 """
 
 from __future__ import annotations
@@ -53,7 +53,13 @@ inline float4 make_float4(float a, float b, float c, float d) {
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return static_cast<unsigned>(
+      ((static_cast<unsigned long long>(hi) << 32) | lo) >> (shift & 31));
+}
+using std::min;
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, sizeof f);
