@@ -132,9 +132,12 @@ front-end routes and the kernels no receiver route runs:
    every output bitwise equal to the torch expansion's run); at mode 0,
    B13 and B14 (``fir.block_fir_decim(impl="kernel")`` on the RF legs)
    through their own calls over the 24 blocks, state carried, each once a
-   block and nothing else; then B14 against its plain conv1d (also the
-   library call) at six geometries, y within 2e-4 x max(1, max|y|), state
-   exact.
+   block and nothing else, B14's I/Q through torch's demod bit for bit
+   B11's fm, iq_tail and prev_i/prev_q on every channel; then B14 against
+   its plain conv1d (also the library call) at seven geometries (37
+   ragged rows among them), y within 2e-4 x max(1, max|y|), state exact,
+   bit for bit under a second plan, and its plans swept alone from a cold
+   L2 at the RF legs of 512 channels, the rule's pick marked.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -218,13 +221,16 @@ TOOL_BLOCKS, RC_BLOCKS = 48, 24
 # demod's 1/power amplifies float32 rounding near the origin), prev_i/
 # prev_q within AB_PREV_TOL; B14 within FIR_TOL x max(1, max|y|)
 # (test_fir_pallas.py) at FIR_GEOMS (batch, N, K, D): mode 0's RF legs at
-# C=512, benchmarks/micro_fir.py's 128 rows, test_fir_pallas.py's four
+# C=512, benchmarks/micro_fir.py's 128 rows, test_fir_pallas.py's four, 37
+# ragged rows; B14's plan swept at FIR_GEOMS[0] over FIR_SWEEP's tiles,
+# outputs a pass and ring stages
 AB_MODES, AB_BLOCK = (0, 1), 2
 AB_POWER, AB_TOL, AB_PREV_TOL = 1e-3, 1e-3, 1e-5
 FIR_TOL = 2e-4
 FIR_GEOMS = (((2 * C,), 76800, 101, 10), ((128,), 76800, 101, 10),
              ((2, 2), 76800, 101, 10), ((3,), 640, 101, 5),
-             ((), 1280, 7, 2), ((5,), 256, 33, 4))
+             ((), 1280, 7, 2), ((5,), 256, 33, 4), ((37,), 15310, 101, 10))
+FIR_SWEEP = dict(tile=(512, 1024, 1920), sub=(256, 512), stages=(1, 2, 3))
 HBM_BYTES_S = 3.35e12                # H100 SXM device memory, bytes/s
 FP32_FLOP_S = 67e12                  # H100 SXM float32 outside tensor cores
 FP32_LATENCY = 4                     # cycles from one dependent float op
@@ -1778,28 +1784,37 @@ def _l2_flush():
     return torch.empty(n, dtype=torch.uint8, device="cuda")
 
 
+def _cold_ms(launch, wrapper):
+    """A kernel alone from a cold L2: mean device milliseconds of
+    ``wrapper``'s kernel under ``torch.profiler``, each call of ``launch``
+    (one launch) after a read of ``_l2_flush()`` (whose own time is left
+    out).  Up to three profiler sessions; None where none shows device
+    time."""
+    flush = _l2_flush()
+
+    def call():
+        flush.sum()
+        launch()
+    for _ in range(3):
+        ms = _kernel_device_ms(call, wrapper)
+        if ms is not None:
+            return ms
+    return None
+
+
 def _b7_cold_ms(args, plan=None):
-    """B7 alone from a cold L2: mean device milliseconds of its kernel
-    under ``torch.profiler``, each launch after a read of ``_l2_flush()``
-    (whose own time is left out), under ``plan`` (through the C entry
-    point) or the wrapper's.  Up to three profiler sessions; None where
-    none shows device time."""
+    """B7 alone from a cold L2 (``_cold_ms``) under ``plan`` (through the
+    C entry point) or the wrapper's."""
     from dy4tpu_torch.ops import channelizer_cuda as chc
     from dy4tpu_torch.runtime import kernels
-    flush = _l2_flush()
     outs = _b7_outputs(args)
 
     def launch():
-        flush.sum()
         if plan is None:
             chc.channelize_branches(*args)
         else:
             kernels.check_launch(_b7_entry(args, outs, plan), f"B7 {plan}")
-    for _ in range(3):
-        ms = _kernel_device_ms(launch, chc.channelize_branches)
-        if ms is not None:
-            return ms
-    return None
+    return _cold_ms(launch, chc.channelize_branches)
 
 
 def _b7_sweep(label: str, args) -> dict:
@@ -3273,11 +3288,64 @@ def _run_ab_chains(cfg, params, blocks, dev, smi, all_wrappers) -> dict:
     return launches
 
 
+def _fir_other_plan(rows: int, n_out: int, d: int, k: int):
+    """The wrapper's plan of B14 and a second one, unlike it: tiles of a
+    third of the row and one output (so the last is shorter; 4 more where
+    that is the wrapper's), passes of 64 outputs, three stages."""
+    from dy4tpu_torch.ops import fir_cuda
+    own = fir_cuda._fir_plan(n_out, d, k, rows=rows)
+    tile = n_out // 3 + 1
+    other = fir_cuda._fir_plan(n_out, d, k, rows=rows,
+                               tile=tile + 4 if tile == own.tile else tile,
+                               sub=64, stages=3)
+    assert other != own
+    return own, other
+
+
+def _fir_sweep(label: str, args) -> dict:
+    """B14's plans at ``args`` (x, h, state, d): the rule's pick and every
+    plan of FIR_SWEEP's tiles, passes and stages, each alone from a cold
+    L2 (``_cold_ms``), printed fastest first with the pick marked;
+    nothing is fitted.  Returns the JSON keys of the geometry's row."""
+    from dy4tpu_torch.ops import fir_cuda
+    x, h, _, d = args
+    n, k = x.shape[-1], h.shape[0]
+    rows = x.numel() // n
+    pick = fir_cuda._fir_plan(n // d, d, k, rows=rows)
+    plans = [pick] + [fir_cuda._fir_plan(n // d, d, k, rows=rows, tile=tile,
+                                         sub=sub, stages=st)
+                      for tile in FIR_SWEEP["tile"]
+                      for sub in FIR_SWEEP["sub"]
+                      for st in FIR_SWEEP["stages"]]
+    plans = list(dict.fromkeys(plans))
+    timed = [(plan, _cold_ms(functools.partial(fir_cuda._launch, *args,
+                                               plan),
+                             fir_cuda.block_fir_decim)) for plan in plans]
+    for plan, ms in sorted(timed, key=lambda r: (r[1] is None, r[1] or 0)):
+        _say(f"phase 7: B14 {label} plan sweep: tiles of {plan.tile} x "
+             f"{plan.n_tiles}, passes of {plan.sub}, {plan.stages} "
+             f"stage(s): "
+             + ("not measured" if ms is None else f"{ms:.4f} ms")
+             + (" <- the rule's pick" if plan == pick else ""))
+    measured = [(plan, ms) for plan, ms in timed if ms is not None]
+    pick_ms = timed[0][1]
+    fastest = min(measured, key=lambda r: r[1], default=(None, None))
+    return dict(sweep_plans=len(plans),
+                sweep=[dict(plan._asdict(), cold_ms=ms) for plan, ms in timed],
+                sweep_pick_ms=("not measured" if pick_ms is None
+                               else pick_ms),
+                sweep_fastest_ms=("not measured" if fastest[0] is None
+                                  else fastest[1]),
+                sweep_fastest_plan=(None if fastest[0] is None
+                                    else fastest[0]._asdict()))
+
+
 def _check_fir(dev) -> list:
     """B14 against its plain version (``fir.block_fir_decim``'s conv1d,
     also the library call) at FIR_GEOMS, unit-normal inputs from a seed:
-    y within FIR_TOL x max(1, max|y|), the new state exact.  Returns the
-    rows."""
+    y within FIR_TOL x max(1, max|y|), the new state exact; bit for bit
+    under a second plan (``_fir_other_plan``); at FIR_GEOMS[0] its plans
+    swept from a cold L2 (``_fir_sweep``).  Returns the rows."""
     import torch
     from dy4tpu_torch.ops import fir, fir_cuda
 
@@ -3294,23 +3362,33 @@ def _check_fir(dev) -> list:
                                  impl="kernel")
         plain = functools.partial(fir.block_fir_decim, x, h, state, d,
                                   impl="plain")
+        own, other = _fir_other_plan(x.numel() // n, n // d, d, k)
         k_y, k_s = kern()
         p_y, p_s = plain()
+        o_y, o_s = fir_cuda._launch(x, h, state, d, other)
         torch.cuda.synchronize()
         scale = max(1.0, float(p_y.abs().max()))
         geometry = f"{list(x.shape)} K={k} D={d}"
         if not torch.equal(k_s, p_s):
             raise AssertionError(f"B14 {geometry}: the state differs from "
                                  f"the plain version")
+        if not (torch.equal(o_y, k_y) and torch.equal(o_s, k_s)):
+            raise AssertionError(f"B14 {geometry}: not bitwise equal under "
+                                 f"a second plan {other}")
         err = _max_err([k_y], [p_y])
         _say(f"phase 7: B14 {geometry}: max |kernel - plain| {err:.3g} "
-             f"(tolerance {FIR_TOL:g} x {scale:.3g}), state exact")
+             f"(tolerance {FIR_TOL:g} x {scale:.3g}), state exact; plan "
+             f"{own}, bit for bit under {other}")
+        extra = dict(plan=own._asdict(), second_plan=other._asdict())
+        if (batch, n, k, d) == FIR_GEOMS[0]:
+            extra.update(_fir_sweep(geometry, (x, h, state, d)))
         rows.append(_Row(
             "B14 fir_decim", geometry, "dy4tpu_torch/csrc/fir.cu",
             "dy4tpu/ops/fir_pallas.py:86", fir_cuda.block_fir_decim, err,
             FIR_TOL * scale, kern, plain, where="unit normals",
             nbytes=_nbytes(x, h, state, k_y, k_s),
-            flops=2 * k * k_y.numel(), library=plain, phase="phase 7"))
+            flops=2 * k * k_y.numel(), library=plain, phase="phase 7",
+            extra=extra))
     return rows
 
 
@@ -3319,12 +3397,15 @@ def _run_direct(cfg, params, blocks, all_wrappers) -> dict:
     at the receiver's geometry, over N_BLOCKS blocks of C channels, state
     carried: B13 (``fused_frontend_raw_pm``) on the u8 blocks and B14
     (``fir.block_fir_decim(impl="kernel")``) on the blocks' normalized RF
-    legs [C, 2, n].  Each launches once a block and nothing else does.  On
-    CHAIN_ROWS, B14's output is held to the plain RF LPF's over the whole
-    stream and B13's fm to B11's where that LPF's power is above
-    AB_POWER.  Returns {wrapper: launches}."""
+    legs [C, 2, n], its I/Q then through ``demod.fm_demod_diff``.  Each
+    launches once a block and nothing else does.  On CHAIN_ROWS, B14's
+    output is held to the plain RF LPF's over the whole stream and B13's
+    fm to B11's where that LPF's power is above AB_POWER; on every
+    channel, the fm of B14's I/Q, its last RF state and its last I/Q are
+    B11's fm, iq_tail and prev_i/prev_q bit for bit.  Returns {wrapper:
+    launches}."""
     import torch
-    from dy4tpu_torch.ops import fir, fir_cuda, frontend_cuda as fc
+    from dy4tpu_torch.ops import demod, fir, fir_cuda, frontend_cuda as fc
 
     h, d, s = params.rf_coeff, cfg.rf_decim, cfg.num_taps - 1
     dev = blocks.device
@@ -3335,11 +3416,13 @@ def _run_direct(cfg, params, blocks, all_wrappers) -> dict:
         x = (blk.to(torch.float32) - 128.0) / 128.0
         return x.reshape(blk.shape[0], -1, 2).movedim(-1, -2).contiguous()
 
-    def stream(step, state):
+    def stream(step, state, keep=lambda out: out[sel]):
         outs = []
         for blk in blocks:
             out, state = step(blk, state)
-            outs.append(out[sel])
+            outs.append(keep(out))
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs)), state
         return torch.stack(outs), state
 
     def front(wrap):
@@ -3349,7 +3432,26 @@ def _run_direct(cfg, params, blocks, all_wrappers) -> dict:
         return step
 
     def b14(blk, st):
-        return fir.block_fir_decim(legs(blk), h, st, d, impl="kernel")
+        tail, prev = st
+        iq, tail = fir.block_fir_decim(legs(blk), h, tail, d, impl="kernel")
+        fm, *prev = demod.fm_demod_diff(iq[:, 0], iq[:, 1], *prev)
+        return (iq, fm), (tail, prev)
+
+    def counted(name, wrap, step, state, keep):
+        _zero(all_wrappers)
+        t0 = time.perf_counter()
+        out, end = stream(step, state, keep)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        off = _launches_off(all_wrappers, {wrap: N_BLOCKS})
+        if off:
+            raise AssertionError(f"phase 7: {name}: launches (got, "
+                                 f"expected) {off}")
+        launches[wrap] = wrap.launches
+        return out, end, (f"phase 7: {name} over {N_BLOCKS} blocks x {C} "
+                          f"channels, state carried: {wrap.__name__} "
+                          f"{wrap.launches} launches, nothing else "
+                          f"({secs:.2f} s, first run)")
 
     # the plain RF LPF of CHAIN_ROWS over the whole stream: [blocks, rows,
     # 2, n/d]
@@ -3361,39 +3463,39 @@ def _run_direct(cfg, params, blocks, all_wrappers) -> dict:
     live = (ref_iq * ref_iq).sum(2) > AB_POWER
     rf0 = (zero(C, 2, s), zero(C), zero(C))
     launches = {}
-    for name, wrap, step, state in (
-            ("B13 fused_frontend_raw_pm", fc.fused_frontend_raw_pm,
-             front(fc.fused_frontend_raw_pm), rf0),
-            ("B14 fir.block_fir_decim(impl='kernel')",
-             fir_cuda.block_fir_decim, b14, zero(C, 2, s))):
-        _zero(all_wrappers)
-        t0 = time.perf_counter()
-        out, end = stream(step, state)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        off = _launches_off(all_wrappers, {wrap: N_BLOCKS})
-        if off:
-            raise AssertionError(f"phase 7: {name}: launches (got, "
-                                 f"expected) {off}")
-        launches[wrap] = wrap.launches
-        if wrap is fir_cuda.block_fir_decim:
-            scale = max(1.0, float(ref_iq.abs().max()))
-            err = float((out - ref_iq).abs().max())
-            ok, tol = err <= FIR_TOL * scale, FIR_TOL * scale
-            what = "the RF legs against the plain RF LPF's"
-        else:
-            ref, ref_end = stream(front(fc.fused_frontend_raw), rf0)
-            err = float((out - ref).abs()[live].max())
-            ok = err <= AB_TOL and torch.equal(end[0], ref_end[0])
-            tol = AB_TOL
-            what = (f"fm against B11's where the power is above "
-                    f"{AB_POWER:g}, the last iq_tail exact")
-        _say(f"phase 7: {name} over {N_BLOCKS} blocks x {C} channels, "
-             f"state carried: {wrap.__name__} {wrap.launches} launches, "
-             f"nothing else ({secs:.2f} s, first run); channels "
-             f"{CHAIN_ROWS}: {what} within {err:.3g} (tolerance {tol:.3g})")
-        if not ok:
-            raise AssertionError(f"phase 7: {name}: departs by {err:.3g}")
+
+    out, end, said = counted("B13 fused_frontend_raw_pm",
+                             fc.fused_frontend_raw_pm,
+                             front(fc.fused_frontend_raw_pm), rf0,
+                             lambda out: out[sel])
+    b11, b11_end = stream(front(fc.fused_frontend_raw), rf0,
+                          keep=lambda out: out)
+    err = float((out - b11[:, sel]).abs()[live].max())
+    _say(f"{said}; channels {CHAIN_ROWS}: fm against B11's where the power "
+         f"is above {AB_POWER:g}, the last iq_tail exact, within {err:.3g} "
+         f"(tolerance {AB_TOL:g})")
+    if not (err <= AB_TOL and torch.equal(end[0], b11_end[0])):
+        raise AssertionError(f"phase 7: B13: departs by {err:.3g}")
+
+    (iq, fm), (tail, prev), said = counted(
+        "B14 fir.block_fir_decim(impl='kernel')", fir_cuda.block_fir_decim,
+        b14, (zero(C, 2, s), (zero(C), zero(C))),
+        lambda out: (out[0][sel], out[1]))
+    scale = max(1.0, float(ref_iq.abs().max()))
+    err = float((iq - ref_iq).abs().max())
+    same = (torch.equal(fm, b11) and torch.equal(tail, b11_end[0])
+            and torch.equal(prev[0], b11_end[1])
+            and torch.equal(prev[1], b11_end[2]))
+    _say(f"{said}; channels {CHAIN_ROWS}: the RF legs against the plain RF "
+         f"LPF's within {err:.3g} (tolerance {FIR_TOL * scale:.3g}); every "
+         f"channel: fm of its I/Q (torch's demod) "
+         + ("bit for bit" if same else "NOT bit for bit")
+         + f" B11's over the {N_BLOCKS} blocks, its last RF state and last "
+         f"I/Q B11's iq_tail and prev_i/prev_q")
+    if not (err <= FIR_TOL * scale and same):
+        raise AssertionError(f"phase 7: B14: departs by {err:.3g}, or its "
+                             f"fm is not B11's bit for bit (max |fm - "
+                             f"B11| {_max_err([fm], [b11]):.3g})")
     return launches
 
 

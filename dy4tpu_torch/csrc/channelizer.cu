@@ -70,6 +70,8 @@
 
 #include <mutex>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 512;  // channelizer_cuda.MAX_THREADS
@@ -134,29 +136,6 @@ inline bool plan_ok(const Plan& p) {
          p.smem == 2LL * p.stage;
 }
 
-// ---- the copies (cp.async: the copy runs while the block computes) ----
-
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void copy4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// every copy group but the newest has landed
-__device__ __forceinline__ void copy_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Item `it`: band `band`, rows [m0, m1) of w; its window is x bytes
 // [lo, hi) of the band row (rows below T come from the tail: lo >= 0).
 struct Item {
@@ -195,7 +174,7 @@ __device__ __forceinline__ void fetch(const Plan& p, const Item& i,
     const float* tq = tail_q + i.band * p.k1;
     float* head = reinterpret_cast<float*>(buf);
     for (int e = tid; e < 2 * p.k1; e += p.threads)
-      copy4(head + e, (e & 1 ? tq : ti) + (e >> 1));
+      cpa::copy4(head + e, (e & 1 ? tq : ti) + (e >> 1));
   }
   uint8_t* stage = buf + p.head;
   const uintptr_t x0 = reinterpret_cast<uintptr_t>(x);
@@ -207,7 +186,7 @@ __device__ __forceinline__ void fetch(const Plan& p, const Item& i,
     const uintptr_t src = a0 + 16 * static_cast<uintptr_t>(k);
     uint8_t* dst = stage + 16 * k;
     if (src >= x0 && src + 16 <= x1) {
-      copy16(dst, reinterpret_cast<const void*>(src));
+      cpa::copy16(dst, reinterpret_cast<const void*>(src));
     } else {
       for (int b = 0; b < 16; ++b)
         if (src + b >= x0 && src + b < x1)
@@ -273,14 +252,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2) channelizer_kernel(
 
   int it = blockIdx.x;
   if (it < p.items) fetch(p, item_of(p, it), x, tail_i, tail_q, smem, tid);
-  copy_commit();
+  cpa::commit();
   for (int k = 0; it < p.items; it += gridDim.x, ++k) {
     const int next = it + static_cast<int>(gridDim.x);
     if (next < p.items)
       fetch(p, item_of(p, next), x, tail_i, tail_q,
             smem + ((k + 1) & 1) * p.stage, tid);
-    copy_commit();
-    copy_wait_prior();
+    cpa::commit();
+    cpa::wait<1>();  // all but the newest group
     __syncthreads();
 
     const Item i = item_of(p, it);

@@ -98,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;                 // streams per block
@@ -266,27 +268,7 @@ struct ExpandStep : FloatInput {
   }
 };
 
-// ---- the data warps' copies ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// ---- the data warps' copies (cp_async.cuh) ----
 
 // The warp copies samples [t0, t0 + len) of rows s0 + [r0, r1) of x into
 // tile (row r at r * kStride), asynchronously.
@@ -301,9 +283,9 @@ __device__ __forceinline__ void copy_tile(float* tile,
     float* dst = tile + r * kStride;
     if (kVec) {
       for (int c = 4 * lane; c < len; c += 4 * kWarp)
-        cp_async16(dst + c, src + c);
+        cpa::copy16(dst + c, src + c);
     } else {
-      for (int c = lane; c < len; c += kWarp) cp_async4(dst + c, src + c);
+      for (int c = lane; c < len; c += kWarp) cpa::copy4(dst + c, src + c);
     }
   }
 }
@@ -322,7 +304,7 @@ __device__ __forceinline__ void copy_tile(signed char* tile,
     for (int i = lane; i < (r1 - r0) * kChunks; i += kWarp) {
       const int r = r0 + i / kChunks, c = 16 * (i % kChunks);
       if (c < len)
-        cp_async16(tile + r * kCodeStride + c, x + (s0 + r) * n + t0 + c);
+        cpa::copy16(tile + r * kCodeStride + c, x + (s0 + r) * n + t0 + c);
     }
     return;
   }
@@ -558,21 +540,21 @@ __device__ __forceinline__ void tile_loop(const ScanArgs& a) {
     const Emit emit(a);
     if (tiles > 0) {
       copy_tile<kVec>(in_tiles, x, s0, r0, r1, n, 0, tile_len(0), lane);
-      cp_async_commit();
-      cp_async_wait_all();
+      cpa::commit();
+      cpa::wait<0>();
     }
     tile_sync<kData>();
     for (long long k = 0; k < tiles; ++k) {
       if (k + 1 < tiles) {
         copy_tile<kVec>(in_tiles + ((k + 1) & 1) * kInTile, x, s0, r0, r1, n,
                         (k + 1) * kTile, tile_len(k + 1), lane);
-        cp_async_commit();
+        cpa::commit();
       }
       if (k > 0)
         emit.template store<kVec>(out_tiles + ((k - 1) & 1) * kOutTiles, s0,
                                   r0, r1, (k - 1) * kTile, tile_len(k - 1),
                                   lane);
-      cp_async_wait_all();
+      cpa::wait<0>();
       tile_sync<kData>();
     }
     if (tiles > 0)

@@ -2,7 +2,8 @@
 // (frontend_rf.cu): u8 I/Q -> (x-128)/128 -> the K-tap RF LPF decimating
 // by D on both legs, over ext = [iq_tail || block], for the decimated
 // outputs [g0, m1) of one row; and the differentiator demod both kernels
-// run on its outputs.
+// run on its outputs.  B14 (fir.cu) takes its tap layout (load_taps) and
+// its MACs (mac4) for float rows.
 //
 //  * The stage runs in passes of `sub` outputs.  A pass's window of the
 //    row sits in shared memory in polyphase order (ext sample e0 + v*D + r
@@ -152,10 +153,12 @@ __device__ inline float norm(unsigned v) {
   return fmaf(static_cast<float>(v), kScale, -1.0f);
 }
 
-// The RF taps by phase into hs [decim, nq], zeros past the last tap.
+// The RF taps by phase into hs [decim, nq], zeros past the last tap, by
+// the kStride threads of a block.
+template <int kStride = kThreads>
 __device__ inline void load_taps(float* hs, const Geometry& g,
                                  const float* h, int tid) {
-  for (int i = tid; i < g.decim * g.nq; i += kThreads) {
+  for (int i = tid; i < g.decim * g.nq; i += kStride) {
     const int a = (i % g.nq) * g.decim + i / g.nq;
     hs[i] = a <= g.s_rf ? h[g.s_rf - a] : 0.0f;
   }

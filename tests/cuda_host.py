@@ -177,6 +177,25 @@ RATIONAL_REWRITES = (
 )
 
 
+# csrc/cp_async.cuh's copies as plain copies, commit and wait as nothing
+CP_ASYNC_REWRITES = (
+    (r"#include <cuda_runtime\.h>", '#include "shim.h"'),
+    (r'asm volatile\("cp\.async\.cg.*?\);', "memcpy(dst, src, 16);"),
+    (r'asm volatile\("cp\.async\.ca.*?\);', "memcpy(dst, src, 4);"),
+    (r'asm volatile\("cp\.async\.commit_group.*?\);', ";"),
+    (r'asm volatile\("cp\.async\.wait_group.*?\);', ";"),
+    (r"const unsigned d = static_cast<unsigned>\("
+     r"__cvta_generic_to_shared\(dst\)\);", ""),
+)
+
+
+def cp_async_header() -> str:
+    """``csrc/cp_async.cuh`` for the host (``CP_ASYNC_REWRITES``)."""
+    csrc = Path(__file__).resolve().parents[1] / "dy4tpu_torch" / "csrc"
+    return rewrite((csrc / "cp_async.cuh").read_text(), "csrc/cp_async.cuh",
+                   CP_ASYNC_REWRITES)
+
+
 def build_rational(out: Path, lib: str, names) -> ctypes.CDLL:
     """The ``csrc/<name>.cu`` files of ``names`` (kernels over
     ``rational.cuh``) built for the host into ``out``/``lib``."""

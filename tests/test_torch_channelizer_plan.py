@@ -173,11 +173,6 @@ def test_plan_serves_every_bank_the_first_design_did(t):
 
 _REWRITES = (
     (r"#include <cuda_runtime\.h>", '#include "shim.h"'),
-    (r'asm volatile\("cp\.async\.cg.*?\);', "memcpy(dst, src, 16);"),
-    (r'asm volatile\("cp\.async\.ca.*?\);', "memcpy(dst, src, 4);"),
-    (r'asm volatile\("cp\.async\.(commit|wait)_group.*?\);', ";"),
-    (r"const unsigned d = static_cast<unsigned>\("
-     r"__cvta_generic_to_shared\(dst\)\);", ""),
     (r"extern __shared__ __align__\(16\) unsigned char smem\[\];",
      "unsigned char* smem = g_smem;"),
     cuda_host.LAUNCH,
@@ -191,7 +186,9 @@ def host_b7(tmp_path_factory):
     src = cuda_host.rewrite((kernels.CSRC / "channelizer.cu").read_text(),
                             "csrc/channelizer.cu", _REWRITES)
     so = cuda_host.build(tmp_path_factory.mktemp("b7_host"),
-                         "libb7_host.so", {"channelizer.cpp": src})
+                         "libb7_host.so",
+                         {"cp_async.cuh": cuda_host.cp_async_header(),
+                          "channelizer.cpp": src})
     fn = so.dy4_channelizer
     fn.argtypes = cc._ARGS
     fn.restype = ctypes.c_int

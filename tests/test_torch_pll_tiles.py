@@ -197,12 +197,7 @@ def test_span_plain_matches_dy4tpu_and_chains(expand, m, rows):
 # (pattern, replacement) applied to csrc/pll.cu, each of which must match
 _REWRITES = (
     (r"#include <cuda_runtime\.h>", '#include "shim.h"'),
-    (r'asm volatile\("cp\.async\.cg.*?\);', "memcpy(dst, src, 16);"),
-    (r'asm volatile\("cp\.async\.ca.*?\);', "memcpy(dst, src, 4);"),
-    (r'asm volatile\("cp\.async\.(commit|wait)_group.*?\);', ";"),
     (r'asm volatile\("bar\.sync.*?\);', "g_bar->arrive_and_wait();"),
-    (r"const unsigned d = static_cast<unsigned>\("
-     r"__cvta_generic_to_shared\(dst\)\);", ""),
     (r"extern __shared__ __align__\(16\) unsigned char smem\[\];",
      "unsigned char* smem = g_smem;"),
     (r"kernel<<<(.*?), (.*?), (.*?),\s*static_cast<cudaStream_t>\(stream\)"
@@ -218,7 +213,9 @@ def host_pll(tmp_path_factory):
     src = cuda_host.rewrite((kernels.CSRC / "pll.cu").read_text(),
                             "csrc/pll.cu", _REWRITES)
     so = cuda_host.build(tmp_path_factory.mktemp("pll_host"),
-                         "libpll_host.so", {"pll.cpp": src})
+                         "libpll_host.so",
+                         {"cp_async.cuh": cuda_host.cp_async_header(),
+                          "pll.cpp": src})
     fns = {}
     for name, args in (("dy4_pll_phase_scan", pll_cuda._ARGS),
                        ("dy4_pll_span_scan", pll_cuda._TARGET_ARGS),
