@@ -6,8 +6,9 @@ Drives the port's receiver on the card through its sixteen hand-written
 CUDA kernels, in all four modes, through the IF entry, with the opt-in span
 PLL and IQ tracker, through the wideband channelizer front door, through
 the receiver's command line, through the exact time-sharded receiver,
-through the PSD path and the capture tools, and through dy4tpu's A/B
-front-end routes and the kernels no receiver route runs:
+through the PSD path and the capture tools, through dy4tpu's A/B
+front-end routes and the kernels no receiver route runs, and through fleet
+serving:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -137,7 +138,18 @@ front-end routes and the kernels no receiver route runs:
    its plain conv1d (also the library call) at seven geometries (37
    ragged rows among them), y within 2e-4 x max(1, max|y|), state exact,
    bit for bit under a second plan, and its plans swept alone from a cold
-   L2 at the RF legs of 512 channels, the rule's pick marked.
+   L2 at the RF legs of 512 channels, the rule's pick marked;
+9. phase 8, fleet serving (``dy4tpu_torch.tools.fleet``) over captures
+   the port's synth writes (four mode-0 stations, one through a tuner
+   fault, two mode-2 stations, 24 blocks each): the tool as a subprocess
+   at C=512 (``--repeat 128``), overlapped and with ``--sync-ingest``,
+   every station decoding its capture's PI/PS and the two runs' station
+   lines equal; ``fleet.serve`` in process at C=512 with chunks of 8
+   (overlapped and sync), 3 and 1, the RDS outputs bitwise equal, B1-B4
+   once a block (and once a block of the warm-up chunk) and nothing else;
+   mode 2 with the envelope CDR (B5 and B4 at 171/640) and mode 0 with the
+   IQ tracker (B1's corr variant) at C=64, decoded; each run's wall,
+   MS/s, real-time factor and phase times beside phase 3's chain rate.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -215,6 +227,15 @@ PSD_LIN_TOL = 1e-3
 PSD_NOISE_DB = 1e-3  # PSD of white noise, dB (test_fft_psd.py's bar)
 PSD_NOISE_ROWS = 4
 TOOL_BLOCKS, RC_BLOCKS = 48, 24
+# phase 8: fleet serving.  Four mode-0 stations x 128 = C, one faulted
+# mode-0 capture for --iqcorr, two mode-2 stations for the envelope CDR
+FLEET_MODE0 = ((0x54A7, "DY4TPU"), (0x0A0B, "FLEET 2"), (0x1C3D, "FLEET 3"),
+               (0x7E5F, "FLEET 4"))
+FLEET_FAULTED = (0x5EED, "FAULTED")
+FLEET_MODE2 = ((0x2A2A, "MODE2 A"), (0x2B2B, "MODE2 B"))
+FLEET_REPEAT = C // len(FLEET_MODE0)  # 128: the serving batch of phase 3
+FLEET_SIDE_C = 64                     # stations of the mode-2 / iqcorr runs
+FLEET_CHUNKS = ((8, False), (8, True), (3, False), (1, False))
 # phase 7: the A/B front ends B11-B13 and B9-expand at AB_MODES, checked on
 # block AB_BLOCK after the loops lock in: fm within AB_TOL where the
 # decimated power is above AB_POWER (test_frontend_pallas.py's bar: the
@@ -1476,9 +1497,9 @@ def _device_split(label, run, n_blocks, unit="block",
          + f", torch ops {rest:.4f} ({rest / busy:.1%})")
 
 
-def _chain_rate(label, cfg, run, t0, smi) -> None:
+def _chain_rate(label, cfg, run, t0, smi) -> float:
     """Time a second, warm ``run()`` and print the chain rate, then split
-    a third run's device time by kernel."""
+    a third run's device time by kernel.  Returns the rate in MS/s."""
     import torch
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1493,6 +1514,7 @@ def _chain_rate(label, cfg, run, t0, smi) -> None:
          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
          f"{time.perf_counter() - t0:.1f} s on {smi}")
     _device_split(label, run, N_BLOCKS)
+    return msps
 
 
 def _median_rate(cfg, run) -> float:
@@ -1605,10 +1627,10 @@ def _run_options(cfg, params, blocks, dev, smi, all_wrappers) -> dict:
     return launches
 
 
-def _run_mode(mode, dev, smi, all_wrappers) -> list[dict]:
+def _run_mode(mode, dev, smi, all_wrappers, rates: dict) -> list[dict]:
     """Phases 2 and 3 at one mode (and the IF entry where B6 is checked).
     Returns the mode's JSON entries, each with the launches of the run
-    whose path holds its kernel."""
+    whose path holds its kernel; puts the chain rate in ``rates[mode]``."""
     import torch
     from dy4tpu_torch.config import get_mode
     from dy4tpu_torch.ops import frontend_cuda
@@ -1651,8 +1673,9 @@ def _run_mode(mode, dev, smi, all_wrappers) -> list[dict]:
     _compare_chain(f"{label}: kernel path vs all-plain path", cfg, rf_kept,
                    ref, n_check)
     del outs, ref
-    _chain_rate(label, cfg, lambda: rx.run_blocks(params, state, blocks,
-                                                  cfg), t0, smi)
+    rates[mode] = _chain_rate(
+        label, cfg, lambda: rx.run_blocks(params, state, blocks, cfg), t0,
+        smi)
     if mode in B6_MODES:
         count = _run_if_entry(cfg, params, blocks, rf_kept, dev, smi,
                               all_wrappers)
@@ -3540,6 +3563,186 @@ def _run_ab(dev, smi, all_wrappers) -> list[dict]:
     return results
 
 
+def _fleet_captures(tmp: Path) -> dict:
+    """The port's synth writes phase 8's captures (all at once, as
+    subprocesses), N_BLOCKS blocks each: {name: (path, pi, ps)}."""
+    synth = [sys.executable, "-m", "dy4tpu_torch.tools.synth"]
+    want = {f"m0_{i}": (0, pi, ps, []) for i, (pi, ps) in
+            enumerate(FLEET_MODE0)}
+    want["fault"] = (0, *FLEET_FAULTED, ["--dc", "0.12", "-0.08",
+                                         "--iq-imbalance", "0.7", "25"])
+    want.update({f"m2_{i}": (2, pi, ps, []) for i, (pi, ps) in
+                 enumerate(FLEET_MODE2)})
+    procs = {name: subprocess.Popen(
+        [*synth, str(tmp / f"{name}.raw"), "--mode", str(mode), "--blocks",
+         str(N_BLOCKS), "--pi", hex(pi), "--ps", ps, *extra],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for name, (mode, pi, ps, extra) in want.items()}
+    try:
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 8: synth {name} exited "
+                                     f"{proc.returncode}:\n{err[-3000:]}")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    return {name: (str(tmp / f"{name}.raw"), pi, ps)
+            for name, (_, pi, ps, _) in want.items()}
+
+
+def _fleet_decoded(label, paths, infos, caps) -> None:
+    """Every station's PI and PS equal its capture's."""
+    want = {path: (f"{pi:04X}", ps) for path, pi, ps in caps}
+    bad = [(ch, info.pi_hex, info.ps_name) for ch, (path, info) in
+           enumerate(zip(paths, infos))
+           if (info.pi_hex, (info.ps_name or "").strip()) != want[path]]
+    if bad:
+        raise AssertionError(f"phase 8: {label}: {len(bad)} of {len(paths)} "
+                             f"stations decode the wrong PI/PS, e.g. "
+                             f"{bad[:4]}")
+
+
+def _fleet_run_text(label, run, cfg, chain_msps=None) -> str:
+    """Wall, MS/s, real-time factor and the four phase times of a run."""
+    c = len(run.paths)
+    iq = c * run.n_blocks * cfg.iq_per_block
+    msps = iq / run.wall / 1e6
+    text = (f"{label}: {c} stations x {run.n_blocks} blocks, chunk "
+            f"{run.chunk}, {'sync' if run.sync_ingest else 'overlapped'}: "
+            f"wall {run.wall * 1e3:.1f} ms = {msps:.1f} MS/s "
+            f"({msps / (cfg.rf_fs / 1e6):.0f}x real time); put "
+            f"{run.t_put * 1e3:.1f} ms (pinned fill {run.t_fill * 1e3:.1f} "
+            f"ms), dispatch {run.t_dispatch * 1e3:.1f} ms, host decode "
+            f"{run.t_drain * 1e3:.1f} ms")
+    if chain_msps:
+        text += (f"; phase 3's chain at this mode and C: {chain_msps:.1f} "
+                 f"MS/s, fleet keeps {msps / chain_msps:.1%}")
+    return text
+
+
+def _run_fleet(dev, smi, all_wrappers, rates: dict) -> None:
+    """Phase 8: fleet serving (``dy4tpu_torch.tools.fleet``) on the card
+    over the port's synth captures: as a subprocess at C=512 (mode 0,
+    overlapped, then ``--sync-ingest``), every station decoding its
+    capture's PI/PS and the two runs' station lines equal; ``serve`` in
+    process at C=512 with chunks of 8 (overlapped and sync), 3 and 1, the
+    RDS outputs bitwise equal (the same kernels in the same order, so any
+    difference is an ingest race), B1-B4 once a block (and once a block of
+    the warm-up chunk) and nothing else; mode 2 with the envelope CDR
+    (B1, B2, B4 at 171/640, B5) and mode 0 with ``iqcorr`` (B1's corr
+    variant) over the faulted capture, at C=64, decoded."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll_cuda,
+                                  resample_cuda)
+    from dy4tpu_torch.tools import fleet
+
+    t_phase = time.perf_counter()
+    cfg = get_mode(0)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        caps = _fleet_captures(Path(tmp))
+        _say(f"setup phase 8: synth wrote {len(caps)} captures of {N_BLOCKS} "
+             f"blocks in {time.perf_counter() - t_phase:.1f} s")
+        m0 = [caps[f"m0_{i}"] for i in range(len(FLEET_MODE0))]
+        paths = [c[0] for c in m0] * FLEET_REPEAT
+
+        # ---- the command line, as a user runs it ----
+        lines = {}
+        for flag in ([], ["--sync-ingest"]):
+            cmd = [sys.executable, "-m", "dy4tpu_torch.tools.fleet",
+                   "--mode", "0", "--repeat", str(FLEET_REPEAT),
+                   *flag, *(c[0] for c in m0)]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"phase 8: {' '.join(cmd[1:])} exited "
+                                     f"{r.returncode}:\n{r.stderr[-3000:]}")
+            err = r.stderr.splitlines()
+            stations = [ln for ln in err if ln.startswith("[")]
+            if len(stations) != C or "stations x" not in err[0]:
+                raise AssertionError(f"phase 8: fleet printed {len(stations)} "
+                                     f"station lines:\n{r.stderr[-2000:]}")
+            for ch, ln in enumerate(stations):
+                pi, ps = m0[ch % len(m0)][1:]
+                if f"PI={pi:04X} PS={ps.ljust(8)!r} " not in ln:
+                    raise AssertionError(f"phase 8: station {ch}: {ln}")
+            lines[bool(flag)] = stations
+            _say(f"phase 8: python {' '.join(cmd[1:-len(m0)])} (4 "
+                 f"captures; {time.perf_counter() - t0:.1f} s): {err[0]}; "
+                 f"every station decodes its capture's PI/PS")
+        if lines[False] != lines[True]:
+            raise AssertionError("phase 8: --sync-ingest's station lines "
+                                 "differ from the overlapped run's")
+        _say(f"phase 8: --sync-ingest's {C} station lines equal the "
+             f"overlapped run's")
+
+        # ---- in process: chunks, sync, launches, bitwise outputs ----
+        path0 = [frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
+                 backend_cuda.fused_audio_backend,
+                 resample_cuda.fused_rds_backend]
+        first = None
+        for chunk, sync in FLEET_CHUNKS:
+            _zero(all_wrappers)
+            run = fleet.serve(paths, cfg, chunk=chunk, sync_ingest=sync,
+                              device=dev, record=True)
+            torch.cuda.synchronize()
+            n = run.n_blocks + min(chunk, run.n_blocks)   # + the warm-up
+            off = _launches_off(all_wrappers, {w: n for w in path0})
+            label = f"serve chunk {chunk}{' sync' if sync else ''}"
+            if off:
+                raise AssertionError(f"phase 8: {label}: launches (got, "
+                                     f"expected): {off}")
+            _fleet_decoded(label, paths, run.infos, m0)
+            if first is None:
+                first = run
+            for f in ("rds_symbols", "rds_resync", "rds_offset"):
+                a, b = getattr(run, f), getattr(first, f)
+                if not (a.shape == b.shape == (N_BLOCKS, C, *a.shape[2:])
+                        and np.array_equal(a, b)):
+                    raise AssertionError(f"phase 8: {label}: {f} differs "
+                                         f"from chunk 8's overlapped run")
+            _say("phase 8: " + _fleet_run_text(label, run, cfg,
+                                                rates.get(0))
+                 + f"; B1-B4 {n} launches each ({run.n_blocks} blocks + "
+                 f"{n - run.n_blocks} of the warm-up), nothing else; RDS "
+                 f"outputs bitwise chunk 8's; every station decoded")
+        del first, run
+
+        # ---- mode 2, envelope CDR; mode 0, IQ tracker ----
+        side = (("mode 2 --cdr envelope", get_mode(2), "envelope", False,
+                 [caps[f"m2_{i}"] for i in range(len(FLEET_MODE2))],
+                 [frontend_cuda.fused_frontend_full, pll_cuda.phase_scan,
+                  resample_cuda.fused_audio_backend_rational,
+                  resample_cuda.fused_rds_backend]),
+                ("mode 0 --iqcorr", cfg, "peak", True, [caps["fault"]],
+                 [frontend_cuda.fused_frontend_full.corr,
+                  pll_cuda.phase_scan, backend_cuda.fused_audio_backend,
+                  resample_cuda.fused_rds_backend]))
+        for label, c_cfg, cdr, corr, c_caps, path in side:
+            c_paths = [c[0] for c in c_caps] * (FLEET_SIDE_C // len(c_caps))
+            _zero(all_wrappers)
+            run = fleet.serve(c_paths, c_cfg, cdr=cdr, iqcorr=corr,
+                              device=dev)
+            torch.cuda.synchronize()
+            n = run.n_blocks + min(8, run.n_blocks)
+            off = _launches_off(all_wrappers, {w: n for w in path})
+            if off:
+                raise AssertionError(f"phase 8: {label}: launches (got, "
+                                     f"expected): {off}")
+            _fleet_decoded(label, c_paths, run.infos, c_caps)
+            _say("phase 8: " + _fleet_run_text(label, run, c_cfg)
+                 + f"; {', '.join(w.__name__ for w in path)} {n} launches "
+                 f"each, nothing else; every station decoded")
+    _say(f"phase 8: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 8 "
+         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3587,8 +3790,9 @@ def main() -> None:
                     pll_cuda.phase_scan_target.expand]
     # ---- 2 + 3, mode by mode, then the wideband front door ----
     results: list[dict] = []
+    rates: dict = {}
     for mode in (0, 1, 2, 3):
-        results += _run_mode(mode, dev, smi, all_wrappers)
+        results += _run_mode(mode, dev, smi, all_wrappers, rates)
         torch.cuda.empty_cache()
     _plan_fit()
     results += _run_wideband(dev, smi, all_wrappers)
@@ -3600,6 +3804,8 @@ def main() -> None:
     results += _run_psd(dev, smi, all_wrappers)
     torch.cuda.empty_cache()
     results += _run_ab(dev, smi, all_wrappers)
+    torch.cuda.empty_cache()
+    _run_fleet(dev, smi, all_wrappers, rates)
 
     for r in results:
         del r["wrapper"]

@@ -66,6 +66,18 @@ def _conv1d(x: Tensor, h: Tensor, *, up: int, down: int, pad_lo: int,
     return F.conv1d(x, w, stride=down, groups=groups)
 
 
+def convolve_full(x: Tensor, h: Tensor) -> Tensor:
+    """Single-pass linear convolution, output length N+K-1: the
+    reference's validation path ``convolveFIR`` (src/filter.cpp:53-64).
+    ``x`` [..., N], ``h`` [K]; float32 with TF32 off, as dy4tpu computes
+    it at ``precision=HIGHEST``."""
+    k = h.shape[0]
+    n = x.shape[-1]
+    y = _conv1d(x.reshape(-1, 1, n), h[None], up=1, down=1, pad_lo=k - 1,
+                pad_hi=k - 1)
+    return y.reshape(*x.shape[:-1], n + k - 1)
+
+
 def block_fir_resample(x: Tensor, h: Tensor, state: Tensor, *,
                        up: int = 1, down: int = 1) -> tuple[Tensor, Tensor]:
     """Stateful polyphase FIR: upsample by ``up``, filter, keep every
@@ -150,3 +162,16 @@ def block_fir_bank(x: Tensor, hs: Tensor, states: Tensor
     y = y.reshape(*batch, f, n)
     new_states = x[..., n - s:] if shared else x_b[..., n - s:]
     return y, new_states
+
+
+def downsample(x: Tensor, factor: int) -> Tensor:
+    """Take every ``factor``-th sample (src/filter.cpp:104-110)."""
+    return x[..., ::factor]
+
+
+def upsample(x: Tensor, factor: int) -> Tensor:
+    """Zero-stuff: each sample followed by ``factor-1`` zeros
+    (src/filter.cpp:112-121)."""
+    out = x.new_zeros(*x.shape, factor)
+    out[..., 0] = x
+    return out.reshape(*x.shape[:-1], x.shape[-1] * factor)

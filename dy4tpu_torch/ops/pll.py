@@ -1,5 +1,6 @@
 """Type-II software PLL + NCO: the counterpart of ``dy4tpu/ops/pll.py``
-(the sign-detector path and the span PLL).
+(the sign-detector path, the span PLL and ``pll_reference``, the
+reference's literal per-sample loop).
 
 Reference: ``fmPLL`` (src/filter.cpp:174-228) and the Python-model twin
 with quadrature output (``fmPll`` model/fmMonoBlock.py:344-379).  Loop
@@ -315,3 +316,39 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
         feedback_i=torch.cos(phi_end), feedback_q=torch.sin(phi_end),
         integrator=integ, phase_est=pe, angle=ang, nco=end_i, nco_q=end_q)
     return nco_i, nco_q, new_state
+
+
+def pll_reference(pll_in: Tensor, state: PLLState, *, freq: float,
+                  fs: float, nco_scale: float = 1.0,
+                  phase_adjust: float = 0.0, norm_bandwidth: float = 0.01
+                  ) -> tuple[Tensor, Tensor, PLLState]:
+    """Literal transcription of the reference loop (filter.cpp:174-228):
+    one atan2 and a cos/sin pair per sample, a torch loop over time.  Kept
+    as the cross-check of the sign-detector recurrence that ``pll`` runs
+    (tests/test_torch_remnants.py), as dy4tpu keeps its own.  Returns
+    ``(nco_i, nco_q, new_state)`` shaped like ``pll``'s."""
+    kp = norm_bandwidth * _CP
+    ki = norm_bandwidth * norm_bandwidth * _CI
+    dtheta = 2.0 * np.pi * (freq / fs)
+    carry = state
+    nco_i, nco_q = [], []
+    for k in range(pll_in.shape[-1]):
+        xk = pll_in[..., k]
+        error_i = xk * carry.feedback_i
+        error_q = xk * -carry.feedback_q
+        error_d = torch.where(error_i == 0.0, 0.0,
+                              torch.atan2(error_q, error_i))
+        integrator = carry.integrator + ki * error_d
+        phase_est = torch.remainder(carry.phase_est + kp * error_d
+                                    + integrator, _WRAP)
+        angle = torch.remainder(carry.angle + dtheta, _WRAP)
+        trig_arg = angle + phase_est
+        out_arg = trig_arg * nco_scale + phase_adjust
+        # emit the previous NCO sample: output k is the nco of step k-1
+        nco_i.append(carry.nco)
+        nco_q.append(carry.nco_q)
+        carry = PLLState(
+            feedback_i=torch.cos(trig_arg), feedback_q=torch.sin(trig_arg),
+            integrator=integrator, phase_est=phase_est, angle=angle,
+            nco=torch.cos(out_arg), nco_q=torch.sin(out_arg))
+    return torch.stack(nco_i, -1), torch.stack(nco_q, -1), carry

@@ -54,6 +54,14 @@ def sincos(x: Tensor) -> tuple[Tensor, Tensor]:
     return s_out, c_out
 
 
+def sin(x: Tensor) -> Tensor:
+    return sincos(x)[0]
+
+
+def cos(x: Tensor) -> Tensor:
+    return sincos(x)[1]
+
+
 def nco_sincos(x: Tensor) -> tuple[Tensor, Tensor]:
     """The NCO-synthesis trig of ``pll.pll``: the bulk synthesis and the
     carried ``nco``/``nco_q`` go through this one function, so streaming

@@ -51,8 +51,8 @@ import numpy as np
 import torch
 
 from dy4tpu_torch.config import ModeConfig
-from dy4tpu_torch.ops import (backend_cuda, fir, firdes, frontend_cuda,
-                              iqcorr, mix, pll, resample_cuda)
+from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,
+                              frontend_cuda, iqcorr, mix, pll, resample_cuda)
 
 Tensor = torch.Tensor
 
@@ -155,6 +155,7 @@ class BackOut(NamedTuple):
 
 
 _IMPLS = ("auto", "plain")
+_DEMODS = ("diff", "arctan")
 _AB_FRONTENDS = ("fused-rf", "fused-phase")   # dy4tpu's A/B front ends
 _FRONTENDS = _IMPLS + _AB_FRONTENDS
 
@@ -209,7 +210,7 @@ def fused_phase_frontend_ok(cfg: ModeConfig) -> bool:
 
 def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
                cfg: ModeConfig, *, rds_enabled: bool = True,
-               frontend: str = "auto",
+               frontend: str = "auto", demod_kind: str = "diff",
                corr: Optional[iqcorr.IQCorrCoeffs] = None,
                corr_moments: bool = False):
     """RF front end + band bank + RDS carrier recovery filters: the LTI
@@ -230,9 +231,28 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
     the correction.  The A/B routes stop at fm and take no correction,
     as dy4tpu's.
 
+    ``demod_kind``: "diff" (the differentiator the reference runs in real
+    time, src/filter.cpp:85-102: the production path, B1's) or "arctan"
+    (``demod.fm_demod_arctan``, the phase-unwrap demod of the reference's
+    Python model, fmMonoBlock.py:628, kept as dy4tpu keeps it so a
+    full-chain test can pin the chain against that model).  dy4tpu runs
+    "arctan" on its stock path only and raises for its kernel front ends;
+    so does the port: "arctan" takes ``frontend`` "auto" or "plain" and
+    runs the plain front end on any device (B1 has no arctan demod), and
+    raises ``ValueError`` for the A/B routes.  With "arctan" the
+    ``RFState.prev_i`` slot carries the previous block's phase and
+    ``prev_q`` the last Q sample, as in dy4tpu.
+
     ``iq_u8`` [..., n]: a whole block, or any n that decimates into whole
     IF samples (the sharded receiver's sub-block warm-up).
     """
+    if demod_kind not in _DEMODS:
+        raise ValueError(f"demod_kind must be one of {_DEMODS}, got "
+                         f"{demod_kind!r}")
+    if demod_kind == "arctan" and frontend not in _IMPLS:
+        raise ValueError(f"demod_kind='arctan' runs the plain front end; "
+                         f"frontend must be one of {_IMPLS}, got "
+                         f"{frontend!r}")
     if iq_u8.shape[-1] % (2 * cfg.rf_decim):
         raise ValueError(f"block of {iq_u8.shape[-1]} bytes; mode "
                          f"{cfg.mode} takes a multiple of "
@@ -247,6 +267,9 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
         raise ValueError(f"frontend='fused-phase' needs phase-aligned taps "
                          f"((taps-1) % decim == 0; taps={cfg.num_taps}, "
                          f"decim={cfg.rf_decim})")
+    if demod_kind == "arctan":
+        return _front_step_arctan(params, fstate, iq_u8, cfg, rds_enabled,
+                                  corr, corr_moments)
     flat, unflat, plain = _route(frontend, iq_u8.shape[:-1], _FRONTENDS)
     if frontend in _AB_FRONTENDS:
         return _front_step_ab(params, fstate, flat(iq_u8), cfg, rds_enabled,
@@ -263,6 +286,29 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
     outs = front(*args, rds=rds_enabled, corr=corr_rows)
     ret = _front_state(outs[:5] + outs[6:12], unflat(outs[5]), unflat)
     return (*ret, unflat(outs[12])) if corr_moments else ret
+
+
+def _front_step_arctan(params: ReceiverParams, fstate: FrontState,
+                       iq_u8: Tensor, cfg: ModeConfig, rds_enabled: bool,
+                       corr: Optional[iqcorr.IQCorrCoeffs],
+                       corr_moments: bool):
+    """``front_step(demod_kind="arctan")``: dy4tpu's stock front end with
+    the phase-unwrap demod, in plain torch on any leading batch dims."""
+    i_ds, q_ds, iq_tail = frontend_cuda.rf_lpf_plain(
+        iq_u8, params.rf_coeff, fstate.rf.iq_tail, cfg.rf_decim)
+    mom = iqcorr.moments(i_ds, q_ds) if corr_moments else None
+    if corr is not None:
+        i_ds, q_ds = iqcorr.apply(i_ds, q_ds, corr)
+    fm, phase = demod.fm_demod_arctan(i_ds, q_ds, fstate.rf.prev_i)
+    (fmd, pilot, stereo, carrier, rdsdel, bank_tail, mono_delay,
+     carrier_tail, rds_delay) = frontend_cuda.band_stages_plain(
+        fm, params.bank_coeff, params.rds_carrier_coeff, fstate.bank_tail,
+        fstate.mono_delay, fstate.carrier_tail, fstate.rds_delay,
+        rds=rds_enabled)
+    ret = _front_state((fmd, pilot, stereo, carrier, rdsdel, phase,
+                        q_ds[..., -1], bank_tail, mono_delay, carrier_tail,
+                        rds_delay), iq_tail, lambda a: a)
+    return (*ret, mom) if corr_moments else ret
 
 
 def _front_step_ab(params: ReceiverParams, fstate: FrontState,
@@ -516,7 +562,7 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
                   with_rds: Optional[bool] = None, frontend: str = "auto",
                   backend: str = "auto", pll_impl: str = "auto",
                   cdr_timing: str = "peak", pll_span: int = 1,
-                  pll_span_emit: str = "torch"
+                  pll_span_emit: str = "torch", demod_kind: str = "diff"
                   ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of interleaved u8 IQ samples.
 
@@ -528,7 +574,8 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
     unset is "peak"); ``pll_span``: 1 (the exact per-sample PLL) or K > 1
     (the span PLL; dy4tpu's ``DY4TPU_PLL_SPAN``); ``pll_span_emit``:
     "torch" or "kernel" (B9-expand; dy4tpu's ``DY4TPU_SPAN_EMIT``), see
-    ``pll.pll``.  The port reads no environment variable.
+    ``pll.pll``; ``demod_kind``: "diff" or "arctan" (``front_step``).  The
+    port reads no environment variable.
 
     With an ``iqcorr`` tracker in the state, the block is corrected with
     the coefficients of the blocks before it (block 0 is the identity),
@@ -542,12 +589,13 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
         corr = iqcorr.coeffs(state.iqcorr)
         fstate, fo, mom = front_step(
             params, front_state_of(state), iq_u8, cfg,
-            rds_enabled=rds_enabled, frontend=frontend, corr=corr,
-            corr_moments=True)
+            rds_enabled=rds_enabled, frontend=frontend,
+            demod_kind=demod_kind, corr=corr, corr_moments=True)
         new_iqcorr = iqcorr.fold(state.iqcorr, mom)
     else:
         fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
-                                rds_enabled=rds_enabled, frontend=frontend)
+                                rds_enabled=rds_enabled, frontend=frontend,
+                                demod_kind=demod_kind)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
                         backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
                         pll_span_emit)
