@@ -7,8 +7,9 @@ CUDA kernels, in all four modes, through the IF entry, with the opt-in span
 PLL and IQ tracker, through the wideband channelizer front door, through
 the receiver's command line, through the exact time-sharded receiver,
 through the PSD path and the capture tools, through dy4tpu's A/B
-front-end routes and the kernels no receiver route runs, and through fleet
-serving:
+front-end routes and the kernels no receiver route runs, through fleet
+serving, and through CDR dropouts, noise, echoes, channel isolation and a
+10^4-block soak:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -149,7 +150,22 @@ serving:
    once a block (and once a block of the warm-up chunk) and nothing else;
    mode 2 with the envelope CDR (B5 and B4 at 171/640) and mode 0 with the
    IQ tracker (B1's corr variant) at C=64, decoded; each run's wall,
-   MS/s, real-time factor and phase times beside phase 3's chain rate.
+   MS/s, real-time factor and phase times beside phase 3's chain rate;
+10. phase 9, recovery and the long stream, on the default kernel route:
+   the soak of tests/test_soak.py at C=64 (four stations, 16 rows each):
+   10^4 mode-0 blocks and 5000 mode-2 blocks with the envelope CDR, one
+   25-block cycle put on the card once and looped, the state finite and
+   the PLL accumulators inside their wrap band every 100 cycles, a
+   checkpoint through ``utils.checkpoint`` and disk at block 7500 (3750
+   at mode 2) whose resumed twin equals the live run bit for bit over
+   three cycles, and every row's PI/PS decoded from the last cycle with
+   no resync in it (B1-B4, or B1, B2, B5, B4, on every block); then one
+   mode-0 batch of tests/test_noise.py's, test_recovery.py's and
+   test_multichannel.py's captures at their bars, the IQ tracker (B1's
+   corr variant) on test_iqcorr.py's faulted and multipath captures
+   against the tracker off, and test_mode2_rds_property.py's CDR
+   dropouts at mode 2 on two stations, each at its four properties; the
+   soak's ms a block, MS/s and the phase's peak device memory.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -168,6 +184,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -236,6 +253,28 @@ FLEET_MODE2 = ((0x2A2A, "MODE2 A"), (0x2B2B, "MODE2 B"))
 FLEET_REPEAT = C // len(FLEET_MODE0)  # 128: the serving batch of phase 3
 FLEET_SIDE_C = 64                     # stations of the mode-2 / iqcorr runs
 FLEET_CHUNKS = ((8, False), (8, True), (3, False), (1, False))
+# phase 9: the soak (tests/test_soak.py): a SOAK_CYCLE-block cycle of four
+# distinct stations (PI, PS, left and right tones), SOAK_ROWS rows each,
+# looped (mode, cycles, CDR timing); the state checked every
+# SOAK_CHECK_EVERY cycles, checkpointed after min(SOAK_CKPT, 3/4 of the
+# cycles) (block 7500 at mode 0) and its resumed twin held bitwise over
+# SOAK_TWIN cycles
+SOAK_CYCLE, SOAK_CHECK_EVERY, SOAK_CKPT, SOAK_TWIN = 25, 100, 300, 3
+SOAK_RUNS = ((0, 400, "peak"), (2, 200, "envelope"))
+SOAK_STATIONS = ((0x54A7, "SOAKSOAK", 800.0, 2400.0),
+                 (0x1B2C, "SOAK  B ", 600.0, 1900.0),
+                 (0x3D4E, "SOAK  C ", 1000.0, 3100.0),
+                 (0x5F60, "SOAK  D ", 1300.0, 700.0))
+SOAK_ROWS = 16                        # C = 64
+PLL_WRAP = 4.0 * math.pi              # ops/pll.py's accumulator modulus
+# phase 9's recovery runs: test_recovery.py's 14 + 4 + 14 dropout stream,
+# test_multichannel.py's stations, test_mode2_rds_property.py's capture
+# (row 0) and a second station through the same dropouts (row 1)
+REC_SEG = 14
+REC_STATIONS = ((0x1111, "ALPHA FM", 600.0), (0x2222, "BRAVO FM", 1000.0),
+                (0x3333, "CHARLIE!", 1500.0))
+MODE2_ROWS = ((0x2A95, 7, "MODE2 95"), (0x6B21, 7, "MODE2 B "))
+MODE2_BLOCKS = 52
 # phase 7: the A/B front ends B11-B13 and B9-expand at AB_MODES, checked on
 # block AB_BLOCK after the loops lock in: fm within AB_TOL where the
 # decimated power is above AB_POWER (test_frontend_pallas.py's bar: the
@@ -3743,6 +3782,407 @@ def _run_fleet(dev, smi, all_wrappers, rates: dict) -> None:
          f"{time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
+def _stereo_capture(cfg, n_blocks, lf, rf, amp, pi=None, pty=10, ps=None,
+                    repeats=60, **kw):
+    """The port's synth: ``n_blocks`` of a broadcast of tones ``lf`` /
+    ``rf`` and, with ``pi``, RDS groups 0A carrying ``ps``."""
+    from dy4tpu_torch.rds import coding
+    from dy4tpu_torch.tx import fm
+    n_audio = n_blocks * cfg.audio_per_block
+    bits = (None if pi is None else
+            coding.make_ps_bitstream(pi, pty, ps, repeats=repeats))
+    return fm.synthesize(cfg, n_blocks,
+                         left=fm.tone(lf, cfg.audio_fs, n_audio, amp),
+                         right=fm.tone(rf, cfg.audio_fs, n_audio, amp),
+                         rds_bits=bits, **kw)
+
+
+def _rds_info(symbols, resync, offsets=None):
+    """One row's RDS decode ([blocks, n] symbols, [blocks] flags):
+    ``(station info, decoder, the block of each group)``."""
+    from dy4tpu_torch.rds.app import ApplicationLayer
+    from dy4tpu_torch.rds.decoder import RDSDecoder
+    app = ApplicationLayer()
+    dec = RDSDecoder(on_group=app.process)
+    group_blocks = []
+    for b in range(len(symbols)):
+        got = dec.push_block(symbols[b], bool(resync[b]),
+                             offset=None if offsets is None
+                             else int(offsets[b]))
+        group_blocks.extend([b] * len(got))
+    return app.info, dec, group_blocks
+
+
+def _sep_db(cfg, left, right) -> float:
+    """Stereo separation (dB, the worse side) of [blocks, n] left / right
+    of an 800 / 2400 Hz broadcast from block 4, as tests/test_iqcorr.py
+    and test_noise.py measure it."""
+    from dy4tpu_torch.tx import fm
+    return min(fm.stereo_separation_db(cfg, left, right, skip_blocks=4))
+
+
+def _soak_bounded(label, state) -> tuple[float, float]:
+    """Every float state leaf finite and the pilot and RDS PLLs'
+    ``phase_est`` / ``angle`` inside ``2*PLL_WRAP + 1`` (test_soak.py's
+    band); returns the largest |phase_est| and |angle|."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.pipeline import convert
+    for k, a in convert.leaves_by_path(state).items():
+        if a.dtype.kind == "f" and not np.isfinite(a).all():
+            raise AssertionError(f"phase 9: {label}: state leaf {k} is not "
+                                 f"finite")
+    worst = []
+    for field in ("phase_est", "angle"):
+        m = max(float(torch.abs(getattr(loop, field)).max())
+                for loop in (state.audio.pll, state.rds.pll))
+        if not m <= 2 * PLL_WRAP + 1.0:
+            raise AssertionError(f"phase 9: {label}: |{field}| reaches "
+                                 f"{m:.4f}, outside 2*WRAP + 1 = "
+                                 f"{2 * PLL_WRAP + 1.0:.4f}")
+        worst.append(m)
+    return worst[0], worst[1]
+
+
+def _same_state(label, a, b) -> None:
+    import numpy as np
+    from dy4tpu_torch.pipeline import convert
+    x, y = convert.leaves_by_path(a), convert.leaves_by_path(b)
+    bad = [k for k in x if not (k in y and x[k].dtype == y[k].dtype
+                               and np.array_equal(x[k], y[k]))]
+    if bad or x.keys() != y.keys():
+        raise AssertionError(f"phase 9: {label}: state leaves differ: "
+                             f"{bad or sorted(set(x) ^ set(y))}")
+
+
+def _soak(mode, cycles, timing, dev, smi, all_wrappers, tmp) -> dict:
+    """The soak at one mode: SOAK_STATIONS x SOAK_ROWS rows, ``cycles``
+    loops of one SOAK_CYCLE-block cycle put on the card once.  Raises on
+    any failed check; returns what it measured."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.utils import checkpoint as ckpt
+
+    cfg = get_mode(mode)
+    label = f"soak mode {mode} ({timing} CDR)"
+    caps = [_stereo_capture(cfg, SOAK_CYCLE, lf, rf, 0.7, pi=pi, ps=ps,
+                            repeats=3 * SOAK_CYCLE)
+            for pi, ps, lf, rf in SOAK_STATIONS]
+    rows = np.repeat(np.stack([x.reshape(SOAK_CYCLE, -1) for x in caps],
+                              axis=1), SOAK_ROWS, axis=1)
+    c = rows.shape[1]
+    cycle = torch.from_numpy(rows).to(dev)            # [cycle, C, block]
+    params = rx.make_params(cfg, device=dev)
+    state = rx.init_state(cfg, (c,), device=dev)
+    ckpt_at = min(SOAK_CKPT, (3 * cycles) // 4)
+
+    def run_cycle(st):
+        outs = []
+        for b in range(SOAK_CYCLE):
+            st, o = rx.receiver_step(params, st, cycle[b], cfg,
+                                     cdr_timing=timing)
+            outs.append(o)
+        return st, outs
+
+    _zero(all_wrappers)
+    twin, t_run, timed, worst = None, 0.0, 0, (0.0, 0.0)
+    for k in range(cycles):
+        t0 = time.perf_counter()
+        state, outs = run_cycle(state)
+        if twin is None:
+            torch.cuda.synchronize()
+            t_run += time.perf_counter() - t0
+            timed += 1
+        else:
+            twin, touts = run_cycle(twin)
+            for b, (o, t) in enumerate(zip(outs, touts)):
+                for f, x, y in zip(o._fields, o, t):
+                    if x is not None and not torch.equal(x, y):
+                        raise AssertionError(
+                            f"phase 9: {label}: the resumed twin's {f} "
+                            f"differs at block {k * SOAK_CYCLE + b}")
+            if k == ckpt_at + SOAK_TWIN - 1:
+                _same_state(f"{label}, resumed twin", state, twin)
+                twin = None
+        if (k + 1) % SOAK_CHECK_EVERY == 0 or k == cycles - 1:
+            worst = tuple(max(a, b) for a, b in zip(
+                worst, _soak_bounded(f"{label}, cycle {k}", state)))
+        if k == ckpt_at - 1:
+            path = str(tmp / f"soak{mode}.ckpt")
+            ckpt.save(path, state, meta={"block": ckpt_at * SOAK_CYCLE})
+            twin, _, meta = ckpt.load(path, rx.init_state(cfg, (c,),
+                                                          device=dev))
+            if meta.get("block") != ckpt_at * SOAK_CYCLE:
+                raise AssertionError(f"phase 9: {label}: checkpoint meta "
+                                     f"{meta}")
+            _same_state(f"{label}, loaded checkpoint", state, twin)
+    torch.cuda.synchronize()
+    n_blocks = (cycles + SOAK_TWIN) * SOAK_CYCLE
+    want = {w: n_blocks for w in _path(cfg)}
+    off = _launches_off(all_wrappers, want)
+    if off:
+        raise AssertionError(f"phase 9: {label}: launches (got, expected): "
+                             f"{off}")
+    # RDS still locked: no resync in the last cycle, every row's PI/PS
+    resync = torch.stack([o.rds_resync for o in outs]).cpu().numpy()
+    if resync.any():
+        raise AssertionError(f"phase 9: {label}: {int(resync.any(0).sum())} "
+                             f"rows resync in the last cycle")
+    symbols = torch.stack([o.rds_symbols for o in outs]).cpu().numpy()
+    for row in range(c):
+        pi, ps = SOAK_STATIONS[row // SOAK_ROWS][:2]
+        info, _, _ = _rds_info(symbols[:, row], resync[:, row])
+        if (info.pi_hex, (info.ps_name or "").strip()) != (f"{pi:04X}",
+                                                           ps.strip()):
+            raise AssertionError(f"phase 9: {label}: row {row} decodes PI "
+                                 f"{info.pi_hex} PS {info.ps_name!r} in the "
+                                 f"last cycle, not {pi:04X} {ps!r}")
+    ms = t_run / (timed * SOAK_CYCLE) * 1e3
+    msps = c * cfg.iq_per_block / (ms * 1e-3) / 1e6
+    _say(f"phase 9: {label}: {c} rows x {cycles * SOAK_CYCLE} blocks "
+         f"(+{SOAK_TWIN * SOAK_CYCLE} of the resumed twin): {ms:.4f} ms a "
+         f"block over the {timed} cycles without the twin, {msps:.1f} MS/s "
+         f"complex IQ ({msps / (cfg.rf_fs / 1e6):.0f}x real time); state "
+         f"finite and max |phase_est| {worst[0]:.4f}, |angle| "
+         f"{worst[1]:.4f} <= 2*WRAP + 1 = {2 * PLL_WRAP + 1.0:.4f} over "
+         f"the checks every {SOAK_CHECK_EVERY} cycles; checkpoint at block "
+         f"{ckpt_at * SOAK_CYCLE} through disk, the resumed twin bitwise "
+         f"over {SOAK_TWIN} cycles; last cycle: no resync, every row's "
+         f"PI/PS; launches " + ", ".join(f"{w.__name__} {n}" for w, n in
+                                        want.items()) + f" ({smi})")
+    return {"ms": ms, "msps": msps}
+
+
+def _rec_captures(cfg) -> list:
+    """Phase 9's mode-0 recovery batch: test_noise.py's two captures,
+    test_recovery.py's dropout stream and test_multichannel.py's three
+    stations."""
+    import numpy as np
+    noisy = _stereo_capture(cfg, 20, 800.0, 2400.0, 0.6, pi=0x5A5A, pty=9,
+                            ps="NOISY OK", noise=0.05, seed=3)
+    echo = _stereo_capture(cfg, 14, 800.0, 2400.0, 0.6, pi=0x54A7, pty=9,
+                           ps="ECHO  OK",
+                           multipath=[(24, 0.5 * np.exp(1j * 2.1)),
+                                      (60, 0.32 * np.exp(-1j * 0.9))])
+    seg = dict(pi=0xD00D, pty=7, ps="RECOVERY", repeats=80)
+    drop = np.concatenate([
+        _stereo_capture(cfg, REC_SEG, 700.0, 1900.0, 0.6, **seg),
+        _stereo_capture(cfg, 4, 700.0, 1900.0, 0.6),
+        _stereo_capture(cfg, REC_SEG, 700.0, 1900.0, 0.6, **seg)])
+    stations = [_stereo_capture(cfg, 20, tone, tone, 0.6, pi=pi, ps=ps,
+                                repeats=50)
+                for pi, ps, tone in REC_STATIONS]
+    return [noisy, echo, drop, *stations]
+
+
+def _batch(cfg, captures):
+    """[max blocks, len(captures), block] u8, each capture a channel,
+    padded with u8 128 (no signal)."""
+    import numpy as np
+    bs = cfg.block_size
+    n = max(len(x) for x in captures) // bs
+    blocks = np.full((n, len(captures), bs), 128, np.uint8)
+    for ch, x in enumerate(captures):
+        blocks[:len(x) // bs, ch] = x.reshape(-1, bs)
+    return blocks
+
+
+def _run_batch(label, cfg, captures, dev, all_wrappers, corr=False,
+               **step_kwargs):
+    """``run_blocks`` on the card over the captures as channels, every
+    path kernel on every block (``_run_path``); the outputs on the host."""
+    import torch
+    from dy4tpu_torch.pipeline import receiver as rx
+    blocks = torch.from_numpy(_batch(cfg, captures)).to(dev)
+    params = rx.make_params(cfg, device=dev)
+    state = rx.init_state(cfg, (len(captures),), with_iqcorr=corr,
+                          device=dev)
+    (_, outs), _ = _run_path(
+        label, cfg, lambda: rx.run_blocks(params, state, blocks, cfg,
+                                          **step_kwargs),
+        all_wrappers, n_blocks=blocks.shape[0], phase="phase 9", corr=corr)
+    return rx.StepOutputs(*(None if f is None else f.cpu().numpy()
+                            for f in outs))
+
+
+def _check(label, ok, detail) -> None:
+    if not ok:
+        raise AssertionError(f"phase 9: {label}: {detail}")
+
+
+def _recovery_mode0(dev, all_wrappers) -> None:
+    """test_noise.py, test_recovery.py and test_multichannel.py at their
+    bars, one batch on the card."""
+    import numpy as np
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.tx import fm
+    cfg = get_mode(0)
+    outs = _run_batch("recovery mode 0 (noise, echoes, dropout, 3 "
+                      "stations)", cfg, _rec_captures(cfg), dev,
+                      all_wrappers)
+    fs = cfg.audio_fs
+
+    def info(ch, n):
+        return _rds_info(outs.rds_symbols[:n, ch], outs.rds_resync[:n, ch])
+
+    # noise 0.05: PI, >= 3 groups, the left tone 10x the right's leak
+    got, _, _ = info(0, 20)
+    sep_l, _ = fm.stereo_separation_db(cfg, outs.left[:20, 0],
+                                       outs.right[:20, 0], skip_blocks=4)
+    _check("noise", got.pi == 0x5A5A and got.groups_seen >= 3
+           and sep_l > 20.0, (got.pi_hex, got.groups_seen, sep_l))
+    msg = [f"noise 0.05: PI {got.pi_hex}, {got.groups_seen} groups, left "
+           f"tone {sep_l:.1f} dB over the right's"]
+    # two echoes: separation > 15 dB, PI, >= 2 groups
+    got, _, _ = info(1, 14)
+    sep = _sep_db(cfg, outs.left[:14, 1], outs.right[:14, 1])
+    _check("echoes", got.pi == 0x54A7 and got.groups_seen >= 2
+           and sep > 15.0, (got.pi_hex, got.groups_seen, sep))
+    msg.append(f"two echoes: separation {sep:.1f} dB, PI {got.pi_hex}, "
+               f"{got.groups_seen} groups")
+    # the dropout: groups before it, re-acquired after, PI, resync inside
+    n = 2 * REC_SEG + 4
+    got, _, blocks = info(2, n)
+    resync = outs.rds_resync[REC_SEG:REC_SEG + 6, 2]
+    _check("dropout", any(b < REC_SEG for b in blocks)
+           and any(b >= REC_SEG + 8 for b in blocks) and got.pi == 0xD00D
+           and resync.any(), (got.pi_hex, blocks, resync))
+    msg.append(f"4-block RDS dropout: resync at blocks "
+               f"{(REC_SEG + np.nonzero(resync)[0]).tolist()}, groups at "
+               f"{sorted(set(blocks))}, PI {got.pi_hex}")
+    # three stations: each its own PI / PS, its tone 10x the others'
+    for k, (pi, ps, tone) in enumerate(REC_STATIONS):
+        ch = 3 + k
+        got, _, _ = info(ch, 20)
+        mono = outs.mono[3:20, ch].ravel()
+        t = np.arange(len(mono)) / fs
+        own = np.abs(mono @ np.exp(-2j * np.pi * tone * t))
+        leaks = [np.abs(mono @ np.exp(-2j * np.pi * other * t))
+                 for _, _, other in REC_STATIONS if other != tone]
+        _check(f"station {ps!r}", got.pi == pi and got.ps_name == ps
+               and all(own > 10 * x for x in leaks),
+               (got.pi_hex, got.ps_name, own, leaks))
+    msg.append(f"{len(REC_STATIONS)} stations: each its own PI/PS, its "
+               f"tone 10x the others' in mono")
+    _say("phase 9: recovery mode 0: " + "; ".join(msg))
+
+
+def _recovery_tracker(dev, all_wrappers) -> None:
+    """The IQ tracker (B1's corr variant) on test_iqcorr.py's faulted
+    and multipath captures, against the tracker off."""
+    import numpy as np
+    from dy4tpu_torch.config import get_mode
+    cfg = get_mode(0)
+    caps = {"clean": _stereo_capture(cfg, 10, 800.0, 2400.0, 0.8),
+            "dirty": _stereo_capture(cfg, 10, 800.0, 2400.0, 0.8, **FAULT),
+            "multipath": _stereo_capture(
+                cfg, 12, 800.0, 2400.0, 0.8,
+                multipath=[(24, 0.35 * np.exp(1j * 2.0)),
+                           (60, 0.2 * np.exp(-1j * 0.7))],
+                dc_i=0.1, dc_q=-0.06, iq_gain=0.72, iq_phase_deg=18.0)}
+    sep = {}
+    for on, names in ((False, ("clean", "dirty", "multipath")),
+                      (True, ("dirty", "multipath"))):
+        outs = _run_batch(f"tracker {'on' if on else 'off'} "
+                          f"({', '.join(names)})", cfg,
+                          [caps[n] for n in names], dev, all_wrappers,
+                          corr=on)
+        for ch, name in enumerate(names):
+            n = len(caps[name]) // cfg.block_size
+            sep[name, on] = _sep_db(cfg, outs.left[:n, ch],
+                                    outs.right[:n, ch])
+    clean, dirty = sep["clean", False], sep["dirty", False]
+    fixed = sep["dirty", True]
+    mp_off, mp_on = sep["multipath", False], sep["multipath", True]
+    _check("tracker", clean - dirty > 10.0 and fixed - dirty > TRACK_GAIN_DB
+           and fixed > clean - 4.0 and mp_on - mp_off > TRACK_GAIN_DB
+           and mp_on > 28.0, sep)
+    _say(f"phase 9: IQ tracker: separation clean {clean:.1f} dB, faulted "
+         f"{dirty:.1f} -> {fixed:.1f} with the tracker; through two echoes "
+         f"{mp_off:.1f} -> {mp_on:.1f} (bars: the fault costs > 10, the "
+         f"tracker wins > {TRACK_GAIN_DB:g} back, within 4 of clean; "
+         f"multipath > {TRACK_GAIN_DB:g} and > 28)")
+
+
+def _recovery_mode2(dev, all_wrappers) -> None:
+    """test_mode2_rds_property.py's CDR dropouts at mode 2, C=2: row 0 its
+    capture, row 1 another station through the same dropouts; each row
+    at the four properties."""
+    import numpy as np
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.rds.fleet import FleetDecoder
+    from dy4tpu_torch.rds import coding
+    from dy4tpu_torch.tx import fm
+    cfg = get_mode(2)
+    bs = cfg.block_size
+    caps = []
+    for pi, pty, ps in MODE2_ROWS:
+        bits = coding.make_ps_bitstream(pi, pty, ps, repeats=80)
+        iq = fm.synthesize(cfg, MODE2_BLOCKS, rds_bits=bits).copy()
+        iq[14 * bs:16 * bs] = 128                     # edge-aligned
+        start = 30 * bs + 20011 * 2                   # mid-block, mid-symbol
+        iq[start:start + int(1.4 * bs) // 2 * 2] = 128
+        caps.append(iq)
+    outs = _run_batch("recovery mode 2 (CDR dropouts, C=2)", cfg, caps, dev,
+                      all_wrappers)
+    fleet = FleetDecoder(len(caps))
+    for k in range(MODE2_BLOCKS):
+        fleet.push_block(outs.rds_symbols[k], resync=outs.rds_resync[k],
+                         offsets=outs.rds_offset[k])
+    for row, (pi, _, ps) in enumerate(MODE2_ROWS):
+        sym = outs.rds_symbols[:, row]
+        rs = outs.rds_resync[:, row]
+        off = outs.rds_offset[:, row]
+        label = f"mode 2 row {row} ({ps!r})"
+        _check(label, rs[15:18].any() and rs[31:34].any()
+               and not rs[24:30].any() and not rs[40:].any(),
+               f"resync at blocks {np.nonzero(rs)[0].tolist()}")
+        _, gated, blocks = _rds_info(sym, rs, off)
+        _, raw, _ = _rds_info(sym, rs)
+        after_b = sum(b >= 36 for b in blocks)
+        _check(label, len(gated.groups) >= 8 and after_b >= 2
+               and all(g.blocks["A"] == pi for g in gated.groups),
+               f"{len(gated.groups)} groups, {after_b} after block 36, PIs "
+               f"{sorted({g.blocks['A'] for g in gated.groups})}")
+        raw_by_pos = {g.bit_position: g.blocks for g in raw.groups}
+        _check(label, len(gated.groups) >= len(raw.groups) and all(
+            g.blocks == raw_by_pos[g.bit_position] for g in gated.groups
+            if g.bit_position in raw_by_pos),
+            f"gated {len(gated.groups)} groups, raw {len(raw.groups)}")
+        _check(label, [(g.blocks, g.bit_position) for g in fleet.groups[row]]
+               == [(g.blocks, g.bit_position) for g in gated.groups],
+               "the fleet decoder's groups differ from the scalar one's")
+        _say(f"phase 9: {label}: resync at blocks "
+             f"{np.nonzero(rs)[0].tolist()}, {len(gated.groups)} groups "
+             f"(offset-gated; {len(raw.groups)} raw), all PI {pi:04X}, "
+             f"{after_b} after the second dropout; the fleet decoder's "
+             f"groups equal the scalar one's")
+
+
+def _run_recovery(dev, smi, all_wrappers) -> None:
+    """Phase 9: the soak at modes 0 and 2, then the recovery runs.  No
+    check is caught: a failed property ends the script."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, cycles, timing in SOAK_RUNS:
+            rates[mode] = _soak(mode, cycles, timing, dev, smi, all_wrappers,
+                                Path(tmp))
+            torch.cuda.empty_cache()
+    _recovery_mode0(dev, all_wrappers)
+    _recovery_tracker(dev, all_wrappers)
+    _recovery_mode2(dev, all_wrappers)
+    _say(f"phase 9: soak " + "; ".join(
+        f"mode {m}: {r['ms']:.4f} ms a block, {r['msps']:.1f} MS/s"
+        for m, r in rates.items())
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB; phase 9 {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3806,6 +4246,8 @@ def main() -> None:
     results += _run_ab(dev, smi, all_wrappers)
     torch.cuda.empty_cache()
     _run_fleet(dev, smi, all_wrappers, rates)
+    torch.cuda.empty_cache()
+    _run_recovery(dev, smi, all_wrappers)
 
     for r in results:
         del r["wrapper"]
