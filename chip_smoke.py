@@ -8,8 +8,9 @@ PLL and IQ tracker, through the wideband channelizer front door, through
 the receiver's command line, through the exact time-sharded receiver,
 through the PSD path and the capture tools, through dy4tpu's A/B
 front-end routes and the kernels no receiver route runs, through fleet
-serving, and through CDR dropouts, noise, echoes, channel isolation and a
-10^4-block soak:
+serving, through CDR dropouts, noise, echoes, channel isolation and a
+10^4-block soak, and through the compiled step (the receiver's chunk of
+K blocks as one captured CUDA graph):
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -85,9 +86,12 @@ serving, and through CDR dropouts, noise, echoes, channel isolation and a
 5. phase 4, the CLI on the card: ``python -m dy4tpu_torch 0 sr --iqcorr
    --stereo-blend --deemphasis us --rds-json ... --stats`` over a 200-block
    mode-0 capture through the tuner fault, as a subprocess: PCM length,
-   PI/PS in the JSON events, the real-time factor; then the same run cut
-   by ``--checkpoint`` at 100 blocks and finished by ``--resume``, whose
-   PCM must equal the uninterrupted run's;
+   PI/PS in the JSON events, the real-time factor; the same at ``--chunk
+   8``, and both runs' PCM and RDS events bitwise those of the eager
+   library path in process (whose second block passes the sync audit);
+   then the run cut by ``--checkpoint`` at 100 blocks and finished by
+   ``--resume``, at ``--chunk 8``, whose PCM must equal the uninterrupted
+   run's;
 6. phase 5, the exact time-sharded receiver at mode 0 on a 1x1 mesh at
    ``bench.py``'s sharded point (C=128, shard_blocks=6, the auto 1920-IF
    halo): B8 against its plain version and against B2 on the float32
@@ -146,15 +150,19 @@ serving, and through CDR dropouts, noise, echoes, channel isolation and a
    at C=512 (``--repeat 128``), overlapped and with ``--sync-ingest``,
    every station decoding its capture's PI/PS and the two runs' station
    lines equal; ``fleet.serve`` in process at C=512 with chunks of 8
-   (overlapped and sync), 3 and 1, the RDS outputs bitwise equal, B1-B4
-   once a block (and once a block of the warm-up chunk) and nothing else;
+   (overlapped and sync), 3 and 1 (a chunk graph a device buffer, and
+   one for a ragged last chunk), the RDS outputs bitwise equal to each
+   other and to eager ``run_blocks``', B1-B4 once a block (and once a
+   block of each graph's warm-up) and nothing else;
    mode 2 with the envelope CDR (B5 and B4 at 171/640) and mode 0 with the
    IQ tracker (B1's corr variant) at C=64, decoded; each run's wall,
    MS/s, real-time factor and phase times beside phase 3's chain rate;
 10. phase 9, recovery and the long stream, on the default kernel route:
    the soak of tests/test_soak.py at C=64 (four stations, 16 rows each):
    10^4 mode-0 blocks and 5000 mode-2 blocks with the envelope CDR, one
-   25-block cycle put on the card once and looped, the state finite and
+   25-block cycle put on the card once and looped through the chunk
+   graph of the whole cycle (the eager step timed beside it over 4
+   cycles), the state finite and
    the PLL accumulators inside their wrap band every 100 cycles, a
    checkpoint through ``utils.checkpoint`` and disk at block 7500 (3750
    at mode 2) whose resumed twin equals the live run bit for bit over
@@ -165,7 +173,21 @@ serving, and through CDR dropouts, noise, echoes, channel isolation and a
    corr variant) on test_iqcorr.py's faulted and multipath captures
    against the tracker off, and test_mode2_rds_property.py's CDR
    dropouts at mode 2 on two stations, each at its four properties; the
-   soak's ms a block, MS/s and the phase's peak device memory.
+   soak's ms a block, MS/s and the phase's peak device memory;
+11. phase 10, the compiled step (``pipeline/graph.py``) at C=512 x 24
+   blocks: modes 0-3, the IF entry at modes 0 and 1, the IQ tracker
+   through the tuner fault, ``pll_span=8`` with ``pll_span_emit=
+   "kernel"``, the envelope CDR at mode 2 and ``frontend="fused-rf"``:
+   after a warm-up, one eager step under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (the sync audit); eager ``run_blocks`` (launches, channel
+   0 decoded); ``graph.run_blocks`` at chunks of 1 and 8, its outputs and
+   end state bitwise equal to eager (or each difference named and held
+   to the chain bars), the wrappers' launch counts exact (the blocks plus
+   the warm-ups), channel 0 decoded, and one replay under
+   ``torch.profiler`` running each path kernel K times; then eager and
+   graphed timed: ms a block and MS/s (medians of 5, host clock around a
+   synchronized run, with their spread), device busy a block, capture
+   seconds and peak device memory.
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -222,6 +244,7 @@ SPAN = 8                             # the span PLL's samples per update
 FAULT = dict(dc_i=0.12, dc_q=-0.08, iq_gain=0.7, iq_phase_deg=25.0)
 RATE_REPS = 5                        # chain rate: median of this many runs
 CLI_BLOCKS, CLI_SPLIT = 200, 100     # phase 4: blocks, checkpoint point
+CLI_CHUNK = 8                        # phase 4: the CLI's second --chunk
 # phase 5: bench.py's sharded point (_time_sharded(128, 6, ...)), one
 # card, 4 steps of 6 blocks = N_BLOCKS
 SH_C, SH_S, SH_STEPS = 128, 6, 4
@@ -266,6 +289,7 @@ SOAK_STATIONS = ((0x54A7, "SOAKSOAK", 800.0, 2400.0),
                  (0x3D4E, "SOAK  C ", 1000.0, 3100.0),
                  (0x5F60, "SOAK  D ", 1300.0, 700.0))
 SOAK_ROWS = 16                        # C = 64
+SOAK_EAGER = 4                        # cycles of the eager step timed
 PLL_WRAP = 4.0 * math.pi              # ops/pll.py's accumulator modulus
 # phase 9's recovery runs: test_recovery.py's 14 + 4 + 14 dropout stream,
 # test_multichannel.py's stations, test_mode2_rds_property.py's capture
@@ -275,6 +299,28 @@ REC_STATIONS = ((0x1111, "ALPHA FM", 600.0), (0x2222, "BRAVO FM", 1000.0),
                 (0x3333, "CHARLIE!", 1500.0))
 MODE2_ROWS = ((0x2A95, 7, "MODE2 95"), (0x6B21, 7, "MODE2 B "))
 MODE2_BLOCKS = 52
+# phase 10: the compiled step (pipeline/graph.py) at these configurations,
+# (label, mode, entry, init_state keywords, capture fault, step keywords),
+# each at chunks of GRAPH_KS over the N_BLOCKS x C stream of phase 3,
+# timed eager and graphed (medians of GRAPH_REPS)
+GRAPH_CONFIGS = (
+    ("mode 0", 0, "rf", {}, {}, {}),
+    ("mode 1", 1, "rf", {}, {}, {}),
+    ("mode 2", 2, "rf", {}, {}, {}),
+    ("mode 3", 3, "rf", {}, {}, {}),
+    ("IF entry mode 0", 0, "if", {}, {}, {}),
+    ("IF entry mode 1", 1, "if", {}, {}, {}),
+    ("mode 0 IQ tracker through the tuner fault", 0, "rf",
+     dict(with_iqcorr=True), FAULT, {}),
+    (f"mode 0 pll_span={SPAN} pll_span_emit='kernel'", 0, "rf", {}, {},
+     dict(pll_span=SPAN, pll_span_emit="kernel")),
+    ("mode 2 cdr_timing='envelope'", 2, "rf", {}, {},
+     dict(cdr_timing="envelope")),
+    ("mode 0 frontend='fused-rf'", 0, "rf", {}, {},
+     dict(frontend="fused-rf")),
+)
+GRAPH_KS = (1, 8)
+GRAPH_REPS = 5
 # phase 7: the A/B front ends B11-B13 and B9-expand at AB_MODES, checked on
 # block AB_BLOCK after the loops lock in: fm within AB_TOL where the
 # decimated power is above AB_POWER (test_frontend_pallas.py's bar: the
@@ -2325,12 +2371,65 @@ def _count_ops(dev) -> dict:
     return counts
 
 
+def _cli_eager(cfg, iq, dev):
+    """The CLI's path (``0 sr --iqcorr --stereo-blend --deemphasis us``) as
+    eager library calls in process, on the card: ``receiver_step``, the
+    blend, the de-emphasis and the quantize a block, the RDS groups
+    through the host decoder into ``app.rds_event``'s events.  The second
+    block runs under the sync audit.  Returns (PCM, events)."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.app import rds_event
+    from dy4tpu_torch.ops import deemph, mix
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.rds.app import ApplicationLayer
+    from dy4tpu_torch.rds.decoder import RDSDecoder
+
+    params = rx.make_params(cfg, with_rds=True, device=dev)
+    a = deemph.deemph_coeff(cfg.audio_fs, deemph.TAU_US_75)
+    blocks = torch.from_numpy(iq.reshape(-1, 1, cfg.block_size)).to(dev)
+
+    def step(carry, blk):
+        st, de = carry
+        st, out = rx.receiver_step(params, st, blk, cfg, with_rds=True)
+        streams = mix.stereo_blend(out.left, out.right, out.pilot_snr_db)
+        filt = [deemph.deemphasis_block(x, d, a)
+                for x, d in zip(streams, de)]
+        pcm = mix.quantize_s16(mix.interleave(*(f[0] for f in filt)))
+        return ((st, tuple(f[1] for f in filt)),
+                (pcm, out.rds_symbols, out.rds_resync, out.rds_offset))
+
+    carry = (rx.init_state(cfg, (1,), with_rds=True, with_iqcorr=True,
+                           device=dev),
+             deemph.init_deemph_state((1,), stereo=True, device=dev))
+    _sync_audit("phase 4: the CLI's eager path", step, carry,
+                (blocks[0],), (blocks[1],))
+    outs = []
+    for blk in blocks:
+        carry, out = step(carry, blk)
+        outs.append(out)
+    pcm, syms, resync, offs = (torch.stack(f).cpu().numpy()
+                               for f in zip(*outs))
+    events = []
+    app = ApplicationLayer()
+    # through JSON as the CLI writes them
+    dec = RDSDecoder(on_group=lambda g: events.append(json.loads(
+        json.dumps(rds_event(app.process(g), g)))))
+    for j in range(len(outs)):
+        dec.push_block(syms[j, 0], resync=bool(resync[j, 0]),
+                       offset=int(offs[j, 0]))
+    return np.ascontiguousarray(pcm.reshape(-1), dtype="<i2"), events
+
+
 def _run_cli(smi) -> None:
     """Phase 4: the receiver's command line on the card, as a user runs
     it, over a mode-0 stereo + RDS capture through ``FAULT``: one
-    uninterrupted run with every opt-in audio feature, then the same
-    stream cut by ``--checkpoint`` and finished by ``--resume``, whose PCM
-    must equal the uninterrupted run's."""
+    uninterrupted run with every opt-in audio feature at ``--chunk 1``
+    and at ``--chunk 8`` (a chunk graph each), their PCM and RDS events
+    bitwise the eager library path's; then the stream cut by
+    ``--checkpoint`` and finished by ``--resume`` at ``--chunk 8`` (a
+    ragged last chunk each), whose PCM must equal the uninterrupted
+    run's."""
     import numpy as np
     from dy4tpu_torch.config import get_mode
     from dy4tpu_torch.tx import fm
@@ -2389,11 +2488,44 @@ def _run_cli(smi) -> None:
              f"(PI {last['pi']}, PS {last['ps']!r}); --stats: "
              f"{stats[-1]}; single stream: {done[-1]} on {smi}")
 
-        cli("--max-blocks", str(CLI_SPLIT), "--checkpoint",
-            str(tmp / "rx.ckpt"), "--input", str(tmp / "all.raw"),
-            "--output", str(tmp / "first.pcm"))
-        cli("--resume", str(tmp / "rx.ckpt"), "--input",
-            str(tmp / "rest.raw"), "--output", str(tmp / "second.pcm"))
+        err8 = cli("--chunk", str(CLI_CHUNK), "--rds-json",
+                   str(tmp / "events8.jsonl"), "--stats", "--input",
+                   str(tmp / "all.raw"), "--output",
+                   str(tmp / "whole8.pcm"))
+        events8 = [json.loads(line) for line in
+                   (tmp / "events8.jsonl").read_text().splitlines()]
+        t1 = time.perf_counter()
+        pcm_e, events_e = _cli_eager(cfg, iq, torch.device("cuda", 0))
+        for name, pcm, evs in (("--chunk 1", whole, events),
+                               (f"--chunk {CLI_CHUNK}",
+                                np.fromfile(tmp / "whole8.pcm", "<i2"),
+                                events8)):
+            if not np.array_equal(pcm, pcm_e):
+                n = min(len(pcm), len(pcm_e))
+                raise AssertionError(
+                    f"phase 4: the CLI at {name}: its PCM is not the eager "
+                    f"library path's ({len(pcm)} against {len(pcm_e)} "
+                    f"samples, {int((pcm[:n] != pcm_e[:n]).sum())} "
+                    f"unequal)")
+            if evs != events_e:
+                raise AssertionError(f"phase 4: the CLI at {name}: its "
+                                     f"{len(evs)} RDS events are not the "
+                                     f"eager path's {len(events_e)}")
+        done8 = [ln for ln in err8.splitlines()
+                 if ln.startswith("processed ")]
+        _say(f"phase 4: the CLI through its chunk graphs at --chunk 1 and "
+             f"--chunk {CLI_CHUNK}: PCM ({len(pcm_e)} samples) and "
+             f"{len(events_e)} RDS events bitwise the eager library "
+             f"path's (in process, {time.perf_counter() - t1:.1f} s; its "
+             f"warm step passed the sync audit); --chunk {CLI_CHUNK}: "
+             f"{done8[-1] if done8 else '-'} on {smi}")
+
+        cli("--chunk", str(CLI_CHUNK), "--max-blocks", str(CLI_SPLIT),
+            "--checkpoint", str(tmp / "rx.ckpt"), "--input",
+            str(tmp / "all.raw"), "--output", str(tmp / "first.pcm"))
+        cli("--chunk", str(CLI_CHUNK), "--resume", str(tmp / "rx.ckpt"),
+            "--input", str(tmp / "rest.raw"), "--output",
+            str(tmp / "second.pcm"))
         both = np.concatenate([np.fromfile(tmp / "first.pcm", "<i2"),
                                np.fromfile(tmp / "second.pcm", "<i2")])
         if not np.array_equal(both, whole):
@@ -2402,7 +2534,8 @@ def _run_cli(smi) -> None:
                 f"{len(both)} PCM samples, "
                 f"{int((both[:len(whole)] != whole[:len(both)]).sum())} of "
                 f"them unequal to the uninterrupted run's")
-        _say(f"phase 4: --checkpoint at block {CLI_SPLIT} + --resume: the "
+        _say(f"phase 4: --checkpoint at block {CLI_SPLIT} + --resume at "
+             f"--chunk {CLI_CHUNK}: the "
              f"PCM equals the uninterrupted run's ({len(both)} samples); "
              f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
@@ -3730,7 +3863,7 @@ def _run_fleet(dev, smi, all_wrappers, rates: dict) -> None:
             run = fleet.serve(paths, cfg, chunk=chunk, sync_ingest=sync,
                               device=dev, record=True)
             torch.cuda.synchronize()
-            n = run.n_blocks + min(chunk, run.n_blocks)   # + the warm-up
+            n = run.n_blocks + run.warm_blocks   # + the graphs' warm-ups
             off = _launches_off(all_wrappers, {w: n for w in path0})
             label = f"serve chunk {chunk}{' sync' if sync else ''}"
             if off:
@@ -3748,9 +3881,25 @@ def _run_fleet(dev, smi, all_wrappers, rates: dict) -> None:
             _say("phase 8: " + _fleet_run_text(label, run, cfg,
                                                 rates.get(0))
                  + f"; B1-B4 {n} launches each ({run.n_blocks} blocks + "
-                 f"{n - run.n_blocks} of the warm-up), nothing else; RDS "
-                 f"outputs bitwise chunk 8's; every station decoded")
-        del first, run
+                 f"{n - run.n_blocks} of the graphs' warm-ups), nothing "
+                 f"else; RDS outputs bitwise chunk 8's; every station "
+                 f"decoded")
+        # the chunk graphs against the eager step over the same blocks
+        from dy4tpu_torch.pipeline import receiver as rx
+        params = rx.make_params(cfg, device=dev)
+        _, eager = rx.run_blocks(
+            params, rx.init_state(cfg, (C,), device=dev),
+            torch.from_numpy(fleet.host_blocks(paths, cfg, first.n_blocks))
+            .to(dev), cfg)
+        for f in ("rds_symbols", "rds_resync", "rds_offset"):
+            if not np.array_equal(getattr(first, f),
+                                  getattr(eager, f).cpu().numpy()):
+                raise AssertionError(f"phase 8: serve's {f} differ from "
+                                     f"eager run_blocks over its blocks")
+        _say(f"phase 8: serve's RDS symbols, resync flags and CDR offsets "
+             f"(every chunking) bitwise eager run_blocks' over the same "
+             f"{first.n_blocks} blocks x {C}")
+        del first, run, eager
 
         # ---- mode 2, envelope CDR; mode 0, IQ tracker ----
         side = (("mode 2 --cdr envelope", get_mode(2), "envelope", False,
@@ -3768,7 +3917,7 @@ def _run_fleet(dev, smi, all_wrappers, rates: dict) -> None:
             run = fleet.serve(c_paths, c_cfg, cdr=cdr, iqcorr=corr,
                               device=dev)
             torch.cuda.synchronize()
-            n = run.n_blocks + min(8, run.n_blocks)
+            n = run.n_blocks + run.warm_blocks
             off = _launches_off(all_wrappers, {w: n for w in path})
             if off:
                 raise AssertionError(f"phase 8: {label}: launches (got, "
@@ -3862,6 +4011,7 @@ def _soak(mode, cycles, timing, dev, smi, all_wrappers, tmp) -> dict:
     import numpy as np
     import torch
     from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.pipeline import graph
     from dy4tpu_torch.pipeline import receiver as rx
     from dy4tpu_torch.utils import checkpoint as ckpt
 
@@ -3875,62 +4025,82 @@ def _soak(mode, cycles, timing, dev, smi, all_wrappers, tmp) -> dict:
     c = rows.shape[1]
     cycle = torch.from_numpy(rows).to(dev)            # [cycle, C, block]
     params = rx.make_params(cfg, device=dev)
-    state = rx.init_state(cfg, (c,), device=dev)
     ckpt_at = min(SOAK_CKPT, (3 * cycles) // 4)
 
-    def run_cycle(st):
-        outs = []
-        for b in range(SOAK_CYCLE):
-            st, o = rx.receiver_step(params, st, cycle[b], cfg,
-                                     cdr_timing=timing)
-            outs.append(o)
-        return st, outs
+    # the eager step beside it: one cycle to warm up, SOAK_EAGER timed
+    st = rx.init_state(cfg, (c,), device=dev)
+    for k in range(SOAK_EAGER + 1):
+        if k == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        st, _ = rx.run_blocks(params, st, cycle, cfg, cdr_timing=timing)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / (SOAK_EAGER * SOAK_CYCLE) * 1e3
+    del st
 
+    # the soak through the chunk graph of one whole cycle, as a user's
+    # stream runs (the CLI, fleet): a replay a cycle, the state carried in
+    # the runner's static buffers; a runner's outputs stay valid until its
+    # next replay
     _zero(all_wrappers)
+    runner = graph.receiver_runner(params, rx.init_state(cfg, (c,),
+                                                         device=dev),
+                                   cfg, cdr_timing=timing)
+    warm = 0
     twin, t_run, timed, worst = None, 0.0, 0, (0.0, 0.0)
     for k in range(cycles):
         t0 = time.perf_counter()
-        state, outs = run_cycle(state)
+        outs = runner.run(cycle)
         if twin is None:
             torch.cuda.synchronize()
-            t_run += time.perf_counter() - t0
-            timed += 1
+            if k:                              # cycle 0 holds the capture
+                t_run += time.perf_counter() - t0
+                timed += 1
         else:
-            twin, touts = run_cycle(twin)
-            for b, (o, t) in enumerate(zip(outs, touts)):
-                for f, x, y in zip(o._fields, o, t):
-                    if x is not None and not torch.equal(x, y):
-                        raise AssertionError(
-                            f"phase 9: {label}: the resumed twin's {f} "
-                            f"differs at block {k * SOAK_CYCLE + b}")
+            touts = twin.run(cycle)
+            for f, x, y in zip(outs._fields, outs, touts):
+                if x is not None and not torch.equal(x, y):
+                    b = int((x != y).reshape(SOAK_CYCLE, -1).any(1)
+                            .nonzero()[0])
+                    raise AssertionError(
+                        f"phase 9: {label}: the resumed twin's {f} "
+                        f"differs at block {k * SOAK_CYCLE + b}")
             if k == ckpt_at + SOAK_TWIN - 1:
-                _same_state(f"{label}, resumed twin", state, twin)
+                _same_state(f"{label}, resumed twin", runner.read(),
+                            twin.read())
+                warm += twin.warm_blocks
                 twin = None
         if (k + 1) % SOAK_CHECK_EVERY == 0 or k == cycles - 1:
             worst = tuple(max(a, b) for a, b in zip(
-                worst, _soak_bounded(f"{label}, cycle {k}", state)))
+                worst, _soak_bounded(f"{label}, cycle {k}",
+                                     runner.read())))
         if k == ckpt_at - 1:
             path = str(tmp / f"soak{mode}.ckpt")
+            state = runner.read()
             ckpt.save(path, state, meta={"block": ckpt_at * SOAK_CYCLE})
-            twin, _, meta = ckpt.load(path, rx.init_state(cfg, (c,),
-                                                          device=dev))
+            loaded, _, meta = ckpt.load(path, rx.init_state(cfg, (c,),
+                                                            device=dev))
             if meta.get("block") != ckpt_at * SOAK_CYCLE:
                 raise AssertionError(f"phase 9: {label}: checkpoint meta "
                                      f"{meta}")
-            _same_state(f"{label}, loaded checkpoint", state, twin)
+            _same_state(f"{label}, loaded checkpoint", state, loaded)
+            twin = graph.receiver_runner(params, loaded, cfg,
+                                         cdr_timing=timing)
+            del state, loaded
     torch.cuda.synchronize()
-    n_blocks = (cycles + SOAK_TWIN) * SOAK_CYCLE
+    warm += runner.warm_blocks
+    n_blocks = (cycles + SOAK_TWIN) * SOAK_CYCLE + warm
     want = {w: n_blocks for w in _path(cfg)}
     off = _launches_off(all_wrappers, want)
     if off:
         raise AssertionError(f"phase 9: {label}: launches (got, expected): "
                              f"{off}")
     # RDS still locked: no resync in the last cycle, every row's PI/PS
-    resync = torch.stack([o.rds_resync for o in outs]).cpu().numpy()
+    resync = outs.rds_resync.cpu().numpy()
     if resync.any():
         raise AssertionError(f"phase 9: {label}: {int(resync.any(0).sum())} "
                              f"rows resync in the last cycle")
-    symbols = torch.stack([o.rds_symbols for o in outs]).cpu().numpy()
+    symbols = outs.rds_symbols.cpu().numpy()
     for row in range(c):
         pi, ps = SOAK_STATIONS[row // SOAK_ROWS][:2]
         info, _, _ = _rds_info(symbols[:, row], resync[:, row])
@@ -3942,17 +4112,21 @@ def _soak(mode, cycles, timing, dev, smi, all_wrappers, tmp) -> dict:
     ms = t_run / (timed * SOAK_CYCLE) * 1e3
     msps = c * cfg.iq_per_block / (ms * 1e-3) / 1e6
     _say(f"phase 9: {label}: {c} rows x {cycles * SOAK_CYCLE} blocks "
-         f"(+{SOAK_TWIN * SOAK_CYCLE} of the resumed twin): {ms:.4f} ms a "
-         f"block over the {timed} cycles without the twin, {msps:.1f} MS/s "
-         f"complex IQ ({msps / (cfg.rf_fs / 1e6):.0f}x real time); state "
+         f"(+{SOAK_TWIN * SOAK_CYCLE} of the resumed twin) through the "
+         f"chunk graph of a {SOAK_CYCLE}-block cycle: {ms:.4f} ms a block "
+         f"over the {timed} cycles after the capture without the twin, "
+         f"{msps:.1f} MS/s complex IQ ({msps / (cfg.rf_fs / 1e6):.0f}x "
+         f"real time; the eager step {eager_ms:.4f} ms a block over "
+         f"{SOAK_EAGER} cycles); state "
          f"finite and max |phase_est| {worst[0]:.4f}, |angle| "
          f"{worst[1]:.4f} <= 2*WRAP + 1 = {2 * PLL_WRAP + 1.0:.4f} over "
          f"the checks every {SOAK_CHECK_EVERY} cycles; checkpoint at block "
          f"{ckpt_at * SOAK_CYCLE} through disk, the resumed twin bitwise "
          f"over {SOAK_TWIN} cycles; last cycle: no resync, every row's "
          f"PI/PS; launches " + ", ".join(f"{w.__name__} {n}" for w, n in
-                                        want.items()) + f" ({smi})")
-    return {"ms": ms, "msps": msps}
+                                        want.items())
+         + f" ({warm} of the graphs' warm-ups) ({smi})")
+    return {"ms": ms, "msps": msps, "eager_ms": eager_ms}
 
 
 def _rec_captures(cfg) -> list:
@@ -4177,10 +4351,261 @@ def _run_recovery(dev, smi, all_wrappers) -> None:
     _recovery_tracker(dev, all_wrappers)
     _recovery_mode2(dev, all_wrappers)
     _say(f"phase 9: soak " + "; ".join(
-        f"mode {m}: {r['ms']:.4f} ms a block, {r['msps']:.1f} MS/s"
+        f"mode {m}: {r['ms']:.4f} ms a block, {r['msps']:.1f} MS/s "
+        f"(the eager step {r['eager_ms']:.4f} ms a block)"
         for m, r in rates.items())
         + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB; phase 9 {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def _sync_audit(label, step, state, first, second) -> None:
+    """One eager ``step`` (the warm-up: kernels built, caches filled),
+    then a second under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any operation that synchronizes the host with the
+    card (a pageable copy, a read of a device value)."""
+    import torch
+    state = step(state, *first)[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, *second)
+    except RuntimeError as e:
+        raise AssertionError(f"{label}: the warm eager step synchronizes "
+                             f"the host with the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _tree_diffs(got, want, prefix="") -> list:
+    """(path, elements that differ, max |difference|) of every leaf of two
+    trees of NamedTuples of tensors that is not bitwise equal."""
+    import torch
+    if want is None or got is None:
+        return [] if got is want else [(prefix, "one side None", 0.0)]
+    if isinstance(want, torch.Tensor):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            return [(prefix, f"{tuple(got.shape)} {got.dtype} against "
+                     f"{tuple(want.shape)} {want.dtype}", 0.0)]
+        if torch.equal(got, want):
+            return []
+        return [(prefix, int((got != want).sum()),
+                 float((got.double() - want.double()).abs().max()))]
+    out = []
+    for name, g, w in zip(want._fields, got, want):
+        out += _tree_diffs(g, w, f"{prefix}{name}.")
+    return out
+
+
+def _graph_kernels_per_replay(runner, inputs, k, path) -> dict:
+    """{kernel name: device launches} of the path's kernels
+    (``_device_kernels``) in one replay of ``runner``'s chunk graph of
+    ``k`` blocks, under ``torch.profiler``.  A session can drop the first
+    device events of a graph launch, so it replays the graph three times,
+    each followed by a marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``), and counts the events between the last two
+    markers: the last replay.  A session that counts other than ``k`` is
+    taken again, up to three.  None where the profiler records no device
+    event or no markers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    chunk = tuple(t[:k] for t in inputs)
+    names = sorted({_device_kernels()[w] for w in path})
+    runner.run(*chunk)                   # warm, outside the profiler
+    torch.cuda.synchronize()
+    per = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                runner.run(*chunk)
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [e for e in dev if "spin_kernel" in e.name]
+        if len(marks) < 2:
+            continue
+        lo, hi = marks[-2].time_range.end, marks[-1].time_range.start
+        last = [e for e in dev if lo <= e.time_range.start < hi]
+        per = {n: sum(1 for e in last if n in e.name) for n in names}
+        if all(v == k for v in per.values()):
+            break
+    return per
+
+
+def _run_graph_config(conf, dev, smi, all_wrappers) -> dict:
+    """Phase 10 at one configuration: the sync audit, eager
+    ``run_blocks`` (launches, decode), the graph at each chunk of
+    ``GRAPH_KS`` bitwise against it (exact launches, the kernels K times
+    a replay under the profiler), then both timed."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import frontend_cuda
+    from dy4tpu_torch.pipeline import graph
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tx import fm
+
+    label, mode, entry, init_kw, fault, kw = conf
+    cfg = get_mode(mode)
+    params = rx.make_params(cfg, device=dev)
+    blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1, **fault),
+                       cfg, dev, C)
+    if entry == "rf":
+        inputs = (blocks,)
+
+        def step(st, blk):
+            return rx.receiver_step(params, st, blk, cfg, **kw)
+    else:
+        tail = torch.zeros(C, 2, cfg.num_taps - 1, device=dev)
+        i_if = torch.empty(N_BLOCKS, C, cfg.if_per_block, device=dev)
+        q_if = torch.empty_like(i_if)
+        for b in range(N_BLOCKS):
+            i_if[b], q_if[b], tail = frontend_cuda.rf_lpf_plain(
+                blocks[b], params.rf_coeff, tail, cfg.rf_decim)
+        inputs = (i_if, q_if)
+
+        def step(st, i, q):
+            return rx.receiver_step_if(params, st, i, q, cfg, **kw)
+
+    def init():
+        return rx.init_state(cfg, (C,), device=dev, **init_kw)
+
+    def eager():
+        if entry == "rf":
+            return rx.run_blocks(params, init(), blocks, cfg, **kw)
+        st, outs = init(), []
+        for blk in zip(*inputs):
+            st, out = step(st, *blk)
+            outs.append(out)
+        return st, rx.StepOutputs(*(None if f[0] is None else torch.stack(f)
+                                    for f in zip(*outs)))
+
+    run_g = graph.run_blocks if entry == "rf" else graph.run_blocks_if
+
+    def graphed(k):
+        return run_g(params, init(), *inputs, cfg, chunk=k, **kw)
+
+    path = _path(cfg, entry, span="pll_span" in kw,
+                 corr=bool(init_kw.get("with_iqcorr")),
+                 front=kw.get("frontend", "auto"),
+                 span_emit=kw.get("pll_span_emit", "torch"))
+    _sync_audit(label, step, init(), [t[0] for t in inputs],
+                [t[1] for t in inputs])
+
+    torch.cuda.reset_peak_memory_stats()
+    (ref_state, ref), _ = _run_path(f"{label} eager", cfg, eager,
+                                    all_wrappers, entry=entry,
+                                    phase="phase 10", span="pll_span" in kw,
+                                    corr=bool(init_kw.get("with_iqcorr")),
+                                    front=kw.get("frontend", "auto"),
+                                    span_emit=kw.get("pll_span_emit",
+                                                     "torch"))
+    peak = {"eager": torch.cuda.max_memory_allocated()}
+    _check_outputs(f"{label} eager", cfg, ref, phase="phase 10")
+    graph.clear()
+    runner = graph.cached_runner(params, init(), cfg, entry, kw)
+    capture, equal = {}, {}
+    for k in GRAPH_KS:
+        warm0, cap0 = runner.warm_blocks, runner.capture_seconds
+        _zero(all_wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        got_state, got = graphed(k)
+        torch.cuda.synchronize()
+        peak[k] = torch.cuda.max_memory_allocated()
+        capture[k] = runner.capture_seconds - cap0
+        n = N_BLOCKS + runner.warm_blocks - warm0
+        off = _launches_off(all_wrappers, {w: n for w in path})
+        if off:
+            raise AssertionError(f"phase 10: {label} chunk {k}: launches "
+                                 f"(got, expected): {off}")
+        diffs = (_tree_diffs(got, ref, "outputs.")
+                 + _tree_diffs(got_state, ref_state, "state."))
+        equal[k] = not diffs
+        if diffs:
+            # held to the step's bars: the chain tolerance on four rows
+            # and the decode of channel 0
+            _say(f"phase 10: {label} chunk {k}: NOT bitwise equal to eager "
+                 f"run_blocks: " + "; ".join(
+                     f"{p} {c} elements, max {m:.3g}" for p, c, m in diffs))
+            sel = torch.tensor(CHAIN_ROWS, device=dev)
+            _compare_chain(f"{label} chunk {k} against eager", cfg,
+                           _select(got, sel), _select(ref, sel), N_BLOCKS,
+                           phase="phase 10")
+        _check_outputs(f"{label} graphed chunk {k}", cfg, got,
+                       phase="phase 10")
+        per = _graph_kernels_per_replay(runner, inputs, k, path)
+        if per is None:
+            _say(f"phase 10: {label} chunk {k}: the profiler shows no "
+                 f"device event or marker (kernels in the graph not "
+                 f"counted)")
+        elif any(v != k for v in per.values()):
+            raise AssertionError(f"phase 10: {label} chunk {k}: one replay "
+                                 f"ran the path kernels {per} times, "
+                                 f"expected {k} each")
+        _say(f"phase 10: {label} chunk {k}: outputs and end state "
+             + ("bitwise equal to" if equal[k] else "within the bars of")
+             + f" eager run_blocks over {N_BLOCKS} blocks x {C}; launches "
+             f"{n} each ({N_BLOCKS} blocks + {n - N_BLOCKS} of the "
+             f"warm-up) of {', '.join(w.__name__ for w in path)}, nothing "
+             f"else; the last of three replays under torch.profiler ran "
+             + ("-" if per is None else ", ".join(
+                 f"{name} {v}" for name, v in per.items()))
+             + f"; capture {capture[k]:.3f} s")
+        del got, got_state
+
+    iq = N_BLOCKS * C * cfg.iq_per_block
+    runs = {"eager": eager}
+    runs.update({k: (lambda k=k: graphed(k)) for k in GRAPH_KS})
+    row = {}
+    for name, fn in runs.items():
+        secs = []
+        for _ in range(GRAPH_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        med = sorted(secs)[len(secs) // 2]
+        busy = _profile(fn)[0]
+        row[name] = dict(ms=med * 1e3 / N_BLOCKS, msps=iq / med / 1e6,
+                         busy=busy / N_BLOCKS,
+                         spread=(min(secs), max(secs)), peak=peak[name])
+    text = "; ".join(
+        f"{'eager' if name == 'eager' else f'graph chunk {name}'} "
+        f"{r['ms']:.4f} ms a block ({r['spread'][0] * 1e3 / N_BLOCKS:.4f}-"
+        f"{r['spread'][1] * 1e3 / N_BLOCKS:.4f}), {r['msps']:.1f} MS/s, "
+        f"device busy {r['busy']:.4f} ms a block, peak device memory "
+        f"{r['peak'] / 1e9:.2f} GB"
+        + ("" if name == "eager" else f", capture {capture[name]:.3f} s")
+        for name, r in row.items())
+    _say(f"phase 10: {label}, {N_BLOCKS} blocks x {C} channels, medians of "
+         f"{GRAPH_REPS} (host clock around a synchronized run; device busy "
+         f"under torch.profiler): {text}; graph chunk {GRAPH_KS[-1]} "
+         f"{row['eager']['ms'] / row[GRAPH_KS[-1]]['ms']:.2f}x eager by "
+         f"ms a block, on {smi}")
+    graph.clear()
+    del runner, inputs, blocks, ref, ref_state
+    torch.cuda.empty_cache()
+    return dict(label=label, equal=equal, rows=row)
+
+
+def _run_graphs(dev, smi, all_wrappers) -> None:
+    """Phase 10: the compiled step (``pipeline/graph.py``) on the card at
+    every configuration of ``GRAPH_CONFIGS``."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    done = [_run_graph_config(conf, dev, smi, all_wrappers)
+            for conf in GRAPH_CONFIGS]
+    odd = [(d["label"], k) for d in done for k, eq in d["equal"].items()
+           if not eq]
+    _say(f"phase 10: {len(done)} configurations x chunks {GRAPH_KS}: "
+         + ("every graph bitwise equal to eager run_blocks" if not odd else
+            f"not bitwise (within the bars) at {odd}")
+         + f"; the sync audit raised nowhere; phase 10 "
+         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
 def main() -> None:
@@ -4191,9 +4616,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's kernels run only on a CUDA device")
-    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda, fft_cuda,
-                                  fir_cuda, frontend_cuda, pll_cuda,
-                                  resample_cuda)
+    from dy4tpu_torch.pipeline import graph
     from dy4tpu_torch.runtime import kernels
 
     # float32 throughout (dy4tpu's precision=HIGHEST): no TF32 anywhere
@@ -4214,20 +4637,8 @@ def main() -> None:
     _say(f"phase 1: built {len(libs)} kernel libraries in "
          f"{time.perf_counter() - t0:.1f} s ({kernels.build_dir().name})")
 
-    all_wrappers = [frontend_cuda.fused_frontend_full,
-                    frontend_cuda.fused_frontend_full.corr,
-                    frontend_cuda.fused_frontend_if, pll_cuda.phase_scan,
-                    pll_cuda.phase_scan_target,
-                    pll_cuda.phase_scan_coded,
-                    backend_cuda.fused_audio_backend,
-                    resample_cuda.fused_audio_backend_rational,
-                    resample_cuda.fused_rds_backend,
-                    channelizer_cuda.channelize_branches, fft_cuda.fft,
-                    frontend_cuda.fused_frontend_raw,
-                    frontend_cuda.fused_frontend,
-                    frontend_cuda.fused_frontend_raw_pm,
-                    fir_cuda.block_fir_decim,
-                    pll_cuda.phase_scan_target.expand]
+    all_wrappers = graph.counters()
+
     # ---- 2 + 3, mode by mode, then the wideband front door ----
     results: list[dict] = []
     rates: dict = {}
@@ -4248,6 +4659,8 @@ def main() -> None:
     _run_fleet(dev, smi, all_wrappers, rates)
     torch.cuda.empty_cache()
     _run_recovery(dev, smi, all_wrappers)
+    torch.cuda.empty_cache()
+    _run_graphs(dev, smi, all_wrappers)
 
     for r in results:
         del r["wrapper"]

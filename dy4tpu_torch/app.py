@@ -11,14 +11,18 @@ human-facing output:
 Paths: ``m``/``mono``, ``s``/``stereo``, ``r``/``rds`` (mono audio + RDS
 console output), plus ``sr`` (stereo audio + RDS).
 
-Pipeline shape: each chunk of ``--chunk`` blocks is a Python loop of
-``receiver_step`` (plus the stereo blend and the de-emphasis) on the card,
-then one quantize.  Its PCM and RDS outputs go to pinned host buffers by
-asynchronous copies, and a CUDA event marks their arrival; the host writes
-chunk k (waiting on chunk k's event alone) after it has enqueued chunk
-k+1, so host I/O overlaps the card's work.  (A plain ``.cpu()`` of chunk
-k issued after chunk k+1 was enqueued would wait for chunk k+1 too.)
-``--device cpu`` runs the plain versions on the CPU.
+Pipeline shape: each chunk of ``--chunk`` blocks is ``receiver_step``
+(plus the stereo blend and the de-emphasis) a block, then one quantize,
+run by ``pipeline/graph.py``'s ``cli_runner``: on the card one replay of
+the chunk's captured CUDA graph (dy4tpu's jitted ``run_chunk``; a ragged
+last chunk has a graph of its own), on the CPU the same body eagerly.
+Its PCM and RDS outputs go to pinned host buffers by asynchronous copies
+on the stream, ahead of the next replay, and a CUDA event marks their
+arrival; the host writes chunk k (waiting on chunk k's event alone) after
+it has enqueued chunk k+1, so host I/O overlaps the card's work.  (A
+plain ``.cpu()`` of chunk k issued after chunk k+1 was enqueued would
+wait for chunk k+1 too.)  ``--device cpu`` runs the plain versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -149,6 +153,14 @@ def _env_settings(cli_cdr: Optional[str]) -> tuple[int, str, str]:
     return span, emit, cdr
 
 
+def rds_event(info, group) -> dict:
+    """The ``--rds-json`` event of a decoded group: the accumulated station
+    snapshot ``info`` (``ApplicationLayer.process``'s) and the carrying
+    group type."""
+    return {"group": f"{info.group_type}{info.version}",
+            "bit_position": group.bit_position, **info.to_dict()}
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
     path = _PATHS[args.path]
@@ -187,8 +199,7 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     from dy4tpu_torch.ops import deemph as deemphops
     from dy4tpu_torch.ops import iqcorr as iqcorr_ops
-    from dy4tpu_torch.ops import mix as mixops
-    from dy4tpu_torch.pipeline import receiver
+    from dy4tpu_torch.pipeline import graph, receiver
     from dy4tpu_torch.rds.app import ApplicationLayer
     from dy4tpu_torch.rds.decoder import RDSDecoder
     from dy4tpu_torch.utils import checkpoint as ckpt
@@ -236,9 +247,18 @@ def main(argv: Optional[list[str]] = None) -> int:
                                          device=dev)
                          for d in resume_host["deemph"])
 
+    # the chunk body, captured as a CUDA graph a chunk size on the card;
+    # it owns the carried receiver and de-emphasis state from here on
+    runner = graph.cli_runner(
+        params, state, de_state, cfg, stereo=stereo,
+        blend=args.stereo_blend, de_a=de_a, keep_rds=decoder is not None,
+        with_rds=want_rds, cdr_timing=cdr, pll_span=pll_span,
+        pll_span_emit=span_emit)
+
     def save_checkpoint(block: int) -> None:
         if not args.checkpoint:
             return
+        state, de_state = runner.read()
         host = {}
         if decoder is not None:
             host = {"manchester": decoder.manchester,
@@ -257,10 +277,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                         else open(args.rds_json, "w"))
 
             def _on_group(group):
-                info = applayer.process(group)
-                evt = {"group": f"{info.group_type}{info.version}",
-                       "bit_position": group.bit_position,
-                       **info.to_dict()}
+                evt = rds_event(applayer.process(group), group)
                 print(_json.dumps(evt), file=rds_json, flush=True)
 
             decoder.on_group = _on_group
@@ -304,42 +321,14 @@ def main(argv: Optional[list[str]] = None) -> int:
     def run_chunk(blocks):
         """``blocks`` [k, 1, block_size] u8 on the card -> (pcm, symbols,
         resync, offsets) on the host, an event marking their arrival (None
-        on the CPU), and k.  Advances ``state`` and ``de_state``."""
-        nonlocal state, de_state
-        outs = []
-        for blk in blocks:
-            state, out = receiver.receiver_step(
-                params, state, blk, cfg, with_rds=want_rds, cdr_timing=cdr,
-                pll_span=pll_span, pll_span_emit=span_emit)
-            if args.stereo_blend and stereo:
-                bl, br = mixops.stereo_blend(out.left, out.right,
-                                             out.pilot_snr_db)
-                out = out._replace(left=bl, right=br)
-            if de_a is not None:
-                streams = ((out.left, out.right) if stereo
-                           else (out.mono,))
-                filt = [deemphops.deemphasis_block(s, d, de_a)
-                        for s, d in zip(streams, de_state)]
-                de_state = tuple(f[1] for f in filt)
-                ys = tuple(f[0] for f in filt)
-                out = (out._replace(left=ys[0], right=ys[1]) if stereo
-                       else out._replace(mono=ys[0]))
-            outs.append(out)
-        if stereo:
-            pcm = mixops.quantize_s16(mixops.interleave(
-                torch.stack([o.left for o in outs]),
-                torch.stack([o.right for o in outs])))
-        else:
-            pcm = mixops.quantize_s16(torch.stack([o.mono for o in outs]))
-        host = [to_host(pcm)]
-        if decoder is not None:
-            host += [to_host(torch.stack([getattr(o, f) for o in outs]))
-                     for f in ("rds_symbols", "rds_resync", "rds_offset")]
+        on the CPU), and k.  Advances the runner's state.  The copies out
+        are issued before the next replay can overwrite the outputs."""
+        host = [to_host(t) for t in runner.run(blocks)]
         event = None
         if on_card:
             event = torch.cuda.Event()
             event.record()
-        return host, event, len(outs)
+        return host, event, int(blocks.shape[0])
 
     n_done = 0
     pending = None  # (host buffers, event, k) of a chunk not written yet

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from dy4tpu_torch.ops import trig
+from dy4tpu_torch.runtime import consts as _consts
 
 Tensor = torch.Tensor
 
@@ -93,6 +94,23 @@ def _loop_consts(freq, fs, norm_bandwidth):
     ki = bw * bw * f32(_CI)
     dtheta = f32(2.0 * np.pi) * np.asarray(freq, f32) / f32(fs)
     return kp, ki, dtheta
+
+
+# the loop constants on the device: made on a step's first call, handed
+# out afterwards, so a warm step copies nothing from the host
+_CONSTS = _consts.ConstCache(64)
+
+
+def device_consts(device, *values) -> tuple[Tensor, ...]:
+    """``values`` (float32 numpy scalars or arrays, as ``_loop_consts``
+    and ``_span_consts`` give them) as tensors on ``device``, bit for bit
+    what ``torch.as_tensor(v, device=device)`` gives, from a bounded
+    cache keyed by the device and the values (``runtime/consts.py``)."""
+    vals = tuple(np.asarray(v, np.float32) for v in values)
+    dev = torch.device(device)
+    key = (dev, tuple((v.shape, v.tobytes()) for v in vals))
+    return _CONSTS.get(key, lambda: tuple(torch.as_tensor(v, device=dev)
+                                          for v in vals))
 
 
 def _make_step(kp, ki, dtheta):
@@ -237,9 +255,8 @@ def phase_scan_coded(codes: Tensor, carry: tuple[Tensor, Tensor, Tensor], *,
     """
     from dy4tpu_torch.ops import pll_cuda  # its plain twin imports us
 
-    dev = codes.device
-    kp, ki, dtheta = (torch.as_tensor(v, device=dev)
-                      for v in _loop_consts(freq, fs, norm_bandwidth))
+    kp, ki, dtheta = device_consts(codes.device,
+                                   *_loop_consts(freq, fs, norm_bandwidth))
     return pll_cuda.phase_scan_coded(codes, kp, ki, dtheta, tuple(carry),
                                      split_at=split_at)
 
@@ -267,8 +284,7 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
 
     dev = pll_in.device
     consts = _loop_consts(freq, fs, norm_bandwidth)
-    kp, ki, dtheta = (torch.as_tensor(v, device=dev) for v in consts)
-    scale = torch.as_tensor(np.asarray(nco_scale, np.float32), device=dev)
+    kp, ki, dtheta, scale = device_consts(dev, *consts, nco_scale)
     carry0 = (state.integrator, state.phase_est, state.angle)
     if impl not in ("plain", "kernel", "auto"):
         raise ValueError(f"unknown pll impl {impl!r}")
@@ -284,7 +300,7 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
             raise ValueError(f"block length {n} not divisible by pll span "
                              f"{span}")
         k, *eff = _span_consts(*consts, span)
-        kp_e, ki_e, dth_e = (torch.as_tensor(v, device=dev) for v in eff)
+        kp_e, ki_e, dth_e = device_consts(dev, *eff)
         targets = _span_targets(pll_in, dtheta, span).contiguous()
         scan = (pll_cuda.phase_scan_target_plain if plain
                 else pll_cuda.phase_scan_target)

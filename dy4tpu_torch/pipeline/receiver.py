@@ -53,6 +53,7 @@ import torch
 from dy4tpu_torch.config import ModeConfig
 from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,
                               frontend_cuda, iqcorr, mix, pll, resample_cuda)
+from dy4tpu_torch.runtime import consts
 
 Tensor = torch.Tensor
 
@@ -512,6 +513,22 @@ def init_state(cfg: ModeConfig, batch: tuple[int, ...] = (),
 
 _CDR_TIMINGS = ("peak", "envelope")
 
+# the envelope CDR's cos / sin rows on the device, by (device, dtype,
+# block length, samples a symbol): made on the first block, then reused
+_ENVELOPE_TABLES = consts.ConstCache(8)
+
+
+def _envelope_tables(n: int, sps: int, dtype: torch.dtype,
+                     device: torch.device) -> tuple[Tensor, Tensor]:
+    """``(cos, sin)`` of ``2 pi k / sps`` for k < n: the numpy float64
+    rows cast to ``dtype`` on the device, as ``torch.as_tensor`` gave
+    them on every block before the cache."""
+    def make():
+        w = 2.0 * np.pi * np.arange(n) / sps
+        return (torch.as_tensor(np.cos(w), dtype=dtype, device=device),
+                torch.as_tensor(np.sin(w), dtype=dtype, device=device))
+    return _ENVELOPE_TABLES.get((device, dtype, n, sps), make)
+
 
 def _cdr(bb_i: Tensor, bb_q: Tensor, state: CDRState, sps: int,
          timing: str = "peak"):
@@ -533,9 +550,7 @@ def _cdr(bb_i: Tensor, bb_q: Tensor, state: CDRState, sps: int,
     n = bb_i.shape[-1]
     m = n // sps
     if timing == "envelope":
-        w = 2.0 * np.pi * np.arange(n) / sps
-        cos = torch.as_tensor(np.cos(w), dtype=bb_i.dtype, device=bb_i.device)
-        sin = torch.as_tensor(np.sin(w), dtype=bb_i.dtype, device=bb_i.device)
+        cos, sin = _envelope_tables(n, sps, bb_i.dtype, bb_i.device)
         e = bb_i * bb_i + bb_q * bb_q
         tau = torch.atan2(torch.sum(e * sin, dim=-1),
                           torch.sum(e * cos, dim=-1)) * (sps / (2.0 * np.pi))

@@ -7,7 +7,12 @@ one) become a [N, block] channel batch; the whole mono+stereo+RDS chain
 runs a chunk of blocks at a time (``receiver.receiver_step`` a block, the
 kernels B1-B4 at mode 0, B1, B2, B4 and B5 at mode 2, B1's corr variant
 with ``--iqcorr``), and the RDS bit/frame layers drain through the native
-``FleetDecoder``.
+``FleetDecoder``.  On the card a chunk is one replay of a captured CUDA
+graph (``pipeline/graph.py``, dy4tpu's jitted scan a chunk): one graph
+for each of the two device chunk buffers, each buffer bound as its
+graph's own input, so the upload lands where the graph reads and no
+device-to-device copy is made; a ragged last chunk has a graph of its
+own.  Every graph is captured before the clock starts.
 
 Ingest is a double-buffered pipeline (replacing the reference's
 synchronous ``readStdinBlockData`` loop, src/iofunc.cpp:113-120): while
@@ -23,7 +28,9 @@ and reused, each reuse guarded by an event:
   * the compute stream waits for the copy's event before the chunk's
     first step;
   * the three RDS outputs go back into pinned buffers, non-blocking,
-    behind an event that the drain waits on.
+    behind an event that the drain waits on; the copies are issued on
+    the compute stream before the next replay can overwrite the graphs'
+    outputs.
 
 ``--sync-ingest`` serialises the three phases (synchronise after the
 upload, after the chunk's steps, and before the drain) for an A/B
@@ -70,6 +77,7 @@ class FleetRun(NamedTuple):
     rds_symbols: Optional[np.ndarray] = None   # int8 hard symbols
     rds_resync: Optional[np.ndarray] = None    # bool
     rds_offset: Optional[np.ndarray] = None    # int32 CDR phase
+    warm_blocks: int = 0    # blocks the graphs' warm-ups ran (the card)
 
 
 def n_blocks_of(paths, cfg, max_blocks: Optional[int] = None) -> int:
@@ -104,6 +112,7 @@ def serve(paths, cfg, *, chunk: int = 8, sync_ingest: bool = False,
     Raises ``ValueError`` when a capture holds no whole block."""
     import torch
 
+    from dy4tpu_torch.pipeline import graph
     from dy4tpu_torch.pipeline import receiver as rx
     from dy4tpu_torch.rds.app import ApplicationLayer
     from dy4tpu_torch.rds.fleet import FleetDecoder
@@ -124,23 +133,19 @@ def serve(paths, cfg, *, chunk: int = 8, sync_ingest: bool = False,
     fleet = FleetDecoder(c, on_group=lambda ch, g: apps[ch].process(g))
     n_sym = cfg.rds_symbols_per_block
 
-    def steps(state, blocks):
-        """One step a block of ``blocks`` [nk, C, bs]; only the three RDS
-        fields are kept, stacked [nk, C, ...]."""
-        syms, resync, offsets = [], [], []
-        for blk in blocks:
-            state, out = rx.receiver_step(params, state, blk, cfg,
-                                          cdr_timing=cdr)
-            syms.append(out.rds_symbols)
-            resync.append(out.rds_resync)
-            offsets.append(out.rds_offset)
-        return state, tuple(torch.stack(o) for o in (syms, resync, offsets))
+    def step(st, blk):
+        """One block; only the three RDS fields are kept."""
+        st, out = rx.receiver_step(params, st, blk, cfg, cdr_timing=cdr)
+        return st, (out.rds_symbols, out.rds_resync, out.rds_offset)
+
+    runner = graph.ChunkRunner(step, state,
+                               key=("fleet", cfg.mode, cdr, iqcorr))
 
     if on_card:
         kb = min(k, n_blocks)                # blocks a buffer holds
         pinned = [torch.empty((kb, c, cfg.block_size), dtype=torch.uint8,
                               pin_memory=True) for _ in range(2)]
-        dev_in = [torch.empty((kb, c, cfg.block_size), dtype=torch.uint8,
+        dev_in = [torch.zeros((kb, c, cfg.block_size), dtype=torch.uint8,
                               device=dev) for _ in range(2)]
         out_pin = [(torch.empty((kb, c, n_sym), dtype=torch.int8,
                                 pin_memory=True),
@@ -148,16 +153,18 @@ def serve(paths, cfg, *, chunk: int = 8, sync_ingest: bool = False,
                     torch.empty((kb, c), dtype=torch.int32, pin_memory=True))
                    for _ in range(2)]
         landed = [torch.cuda.Event() for _ in range(2)]     # H2D copy done
-        consumed = [torch.cuda.Event() for _ in range(2)]   # steps issued
+        consumed = [torch.cuda.Event() for _ in range(2)]   # chunk replayed
         out_ready = [torch.cuda.Event() for _ in range(2)]  # D2H copy done
         copy_stream = torch.cuda.Stream(dev)
         compute = torch.cuda.current_stream(dev)
-        # warm-up off the clock: one chunk of zeros through a throwaway
-        # state builds the kernels at their first use (each kernel of the
-        # path counts ``kb`` launches more than the stream's blocks)
-        dev_in[0].zero_()
-        steps(rx.init_state(cfg, batch=(c,), with_iqcorr=iqcorr,
-                            device=dev), dev_in[0])
+        # off the clock: capture the graph of every (buffer, chunk length)
+        # the stream takes, each warmed up on a throwaway copy of the
+        # state (which builds the kernels at their first use; each kernel
+        # of the path counts ``warm_blocks`` launches more than the
+        # stream's blocks)
+        for ci in range(n_chunks):
+            nk = min(n_blocks, (ci + 1) * k) - ci * k
+            runner.prepare(dev_in[ci % 2][:nk], bind=True)
         torch.cuda.synchronize(dev)
 
     t = dict(put=0.0, fill=0.0, dispatch=0.0, drain=0.0)
@@ -187,12 +194,11 @@ def serve(paths, cfg, *, chunk: int = 8, sync_ingest: bool = False,
 
     def run_chunk(ci, blocks):
         """Issue chunk ``ci``'s steps; returns what its drain needs."""
-        nonlocal state
         j = ci % 2
         t0 = time.perf_counter()
         if on_card:
             compute.wait_event(landed[j])
-        state, outs = steps(state, blocks)
+        outs = runner.run(blocks, bind=on_card)   # CPU: copied, eager
         if on_card:
             consumed[j].record(compute)
             for pin, o in zip(out_pin[j], outs):
@@ -235,7 +241,8 @@ def serve(paths, cfg, *, chunk: int = 8, sync_ingest: bool = False,
            tuple(np.concatenate(a) for a in zip(*recorded)))
     return FleetRun(list(paths), n_blocks, k, sync_ingest,
                     [app.info for app in apps], wall, t["put"], t["fill"],
-                    t["dispatch"], t["drain"], *rds)
+                    t["dispatch"], t["drain"], *rds,
+                    warm_blocks=runner.warm_blocks)
 
 
 def report(run: FleetRun, cfg, device) -> list[str]:
