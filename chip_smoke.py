@@ -10,7 +10,8 @@ through the PSD path and the capture tools, through dy4tpu's A/B
 front-end routes and the kernels no receiver route runs, through fleet
 serving, through CDR dropouts, noise, echoes, channel isolation and a
 10^4-block soak, and through the compiled step (the receiver's chunk of
-K blocks as one captured CUDA graph):
+K blocks, the wideband step's chunk and the sharded step, each as one
+captured CUDA graph):
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
    and power limit; turns TF32 off (the receiver is float32 throughout);
@@ -187,7 +188,37 @@ K blocks as one captured CUDA graph):
    ``torch.profiler`` running each path kernel K times; then eager and
    graphed timed: ms a block and MS/s (medians of 5, host clock around a
    synchronized run, with their spread), device busy a block, capture
-   seconds and peak device memory.
+   seconds and peak device memory;
+12. phase 11, the compiled step's last slice: the wideband step at phase
+   3's point (32 bands x 16 channels, T=12, 32 steps) with the sync audit
+   on a warm eager step of the kernel route and of ``channelizer=
+   "plain"`` with the IQ tracker (the route that reads the channel
+   mirror index), then ``graph.run_wideband_blocks`` at chunks of 1 and
+   8, every ``rx`` field, the RSSI and the end state bitwise equal to
+   eager ``run_wideband_blocks`` (or each difference named and held to
+   the chain bars), B7, B6, B2, B3 and B4 launched once a step plus the
+   warm-up's steps and nothing else, each K times a replay under the
+   profiler, channel 3 of bands 0 and 31 decoded and 15 dB over every
+   other channel, eager and graphed timed (ms a step, MS/s and bands in
+   real time, medians of 5 with their spread, device busy a step, capture
+   seconds, peak memory); ``wideband_dp`` on a 1x1 mesh bitwise eager;
+   AFC and the tracker at phase 3b's 4 bands x 8 steps through the graph
+   at chunks of 3 and 8, bitwise eager; the wideband tool as a subprocess
+   at ``--chunk 8`` and ``--chunk 1`` on a synth capture (``--wideband 8
+   --stations 1,3``), the same stations, PI/PS and WAV bytes, and its
+   chunk loop in process (``tools/wideband.run_chunks``: pinned buffers
+   in turn, chunk i read while chunk i+1 runs) at one band of 32
+   channels over 64 steps at ``--chunk`` 4 and 8, bitwise and timed
+   against the same runner read by ``.cpu()`` after each replay
+   (alternating, medians of 5); and the sharded step at phase 5's point through ``graph.sharded_runner`` at
+   K=1, exact (after the sync audit of a warm eager step) and legacy
+   (O=1), every output and the end carry bitwise the eager step, exact
+   launches, B8 once a replay under the profiler, channel 0 decoded, the
+   efficiency graph over graph (one replay of the sharded step against
+   one replay of ``run_blocks``' chunk graph of the same 6 blocks,
+   alternating, medians of 5) beside phase 5's eager efficiency, and
+   B8's share of the graphed step's device busy (added to B8's JSON
+   entry as ``sharded_eff_1dev_graphed`` and beside it).
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -321,6 +352,17 @@ GRAPH_CONFIGS = (
 )
 GRAPH_KS = (1, 8)
 GRAPH_REPS = 5
+# phase 11: the compiled step's last slice: the wideband step at phase 3's
+# point through graph.run_wideband_blocks at chunks of WB_GRAPH_KS, AFC +
+# the tracker at phase 3b's point at WB_OPT_KS (3: a ragged last chunk),
+# the wideband tool at each --chunk of WB_TOOL_CHUNKS over a synth
+# capture of WB_TOOL_STEPS steps (WB_TOOL_C channels, stations 1 and 3)
+WB_GRAPH_KS = (1, 8)
+WB_OPT_KS = (3, 8)
+WB_TOOL_CHUNKS, WB_TOOL_STEPS = (8, 1), 24
+# ... and the tool's chunk loop in process at one band of WB_LOOP_C
+# channels over WB_LOOP_STEPS random steps, at each --chunk of WB_LOOP_KS
+WB_LOOP_C, WB_LOOP_STEPS, WB_LOOP_KS = 32, 64, (4, 8)
 # phase 7: the A/B front ends B11-B13 and B9-expand at AB_MODES, checked on
 # block AB_BLOCK after the loops lock in: fm within AB_TOL where the
 # decimated power is above AB_POWER (test_frontend_pallas.py's bar: the
@@ -2196,6 +2238,30 @@ def _check_b2_wideband(cfg, params, chan, blocks, dev) -> "_Row":
                    where=f"{WB_BANDS} bands x {WB_C} channels")
 
 
+def _wideband_decoded(label, cfg, outs, phase="phase 3") -> None:
+    """Channel WB_STATION of bands WB_ROWS of a wideband run's outputs
+    decoded at the bench bars (``fm.check_reception``) and 15 dB over
+    every other channel of its band in RSSI."""
+    from dy4tpu_torch.tx import fm
+    rssi = outs.rssi.mean(0)                       # [bands, C]
+    for b in WB_ROWS:
+        o = outs.rx
+        got = fm.check_reception(
+            cfg, o.left[:, b, WB_STATION].cpu().numpy(),
+            o.right[:, b, WB_STATION].cpu().numpy(),
+            o.rds_symbols[:, b, WB_STATION].cpu().numpy(),
+            o.rds_resync[:, b, WB_STATION].cpu().numpy())
+        live = float(rssi[b, WB_STATION])
+        dead = max(float(v) for c, v in enumerate(rssi[b]) if c != WB_STATION)
+        _say(f"{phase}: {label}: band {b} channel {WB_STATION} decoded: "
+             f"separation L {got['sep_l_db']:.1f} dB, R {got['sep_r_db']:.1f} "
+             f"dB, PI {got['pi']}, PS {got['ps']!r} ({got['groups']} groups);"
+             f" RSSI {live:.1f} dBFS, loudest other channel {dead:.1f} dBFS")
+        if not live >= dead + 15.0:
+            raise AssertionError(f"{label}: band {b}: channel {WB_STATION} "
+                                 f"is not 15 dB over every other channel")
+
+
 def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
     """The wideband front door: phases 2, 3 and 3b.  Returns B7's JSON
     entries and B2's at the wideband geometry, each with the launches of
@@ -2205,7 +2271,6 @@ def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
     from dy4tpu_torch.ops import afc
     from dy4tpu_torch.pipeline import receiver as rx
     from dy4tpu_torch.pipeline import wideband as wb
-    from dy4tpu_torch.tx import fm
 
     cfg = get_mode(0)
     torch.cuda.reset_peak_memory_stats()
@@ -2247,23 +2312,7 @@ def _run_wideband(dev, smi, all_wrappers) -> list[dict]:
         if f is not None and f.is_floating_point() and not bool(
                 torch.isfinite(f).all()):
             raise AssertionError(f"{label}: non-finite output")
-    rssi = outs.rssi.mean(0)                       # [bands, C]
-    for b in WB_ROWS:
-        o = outs.rx
-        got = fm.check_reception(
-            cfg, o.left[:, b, WB_STATION].cpu().numpy(),
-            o.right[:, b, WB_STATION].cpu().numpy(),
-            o.rds_symbols[:, b, WB_STATION].cpu().numpy(),
-            o.rds_resync[:, b, WB_STATION].cpu().numpy())
-        live = float(rssi[b, WB_STATION])
-        dead = max(float(v) for c, v in enumerate(rssi[b]) if c != WB_STATION)
-        _say(f"phase 3: {label}: band {b} channel {WB_STATION} decoded: "
-             f"separation L {got['sep_l_db']:.1f} dB, R {got['sep_r_db']:.1f} "
-             f"dB, PI {got['pi']}, PS {got['ps']!r} ({got['groups']} groups);"
-             f" RSSI {live:.1f} dBFS, loudest other channel {dead:.1f} dBFS")
-        if not live >= dead + 15.0:
-            raise AssertionError(f"{label}: band {b}: channel {WB_STATION} "
-                                 f"is not 15 dB over every other channel")
+    _wideband_decoded(label, cfg, outs)
 
     sel = torch.tensor(WB_ROWS, device=dev)
     n_check = N_CHAIN_CHECK[0]
@@ -2540,11 +2589,14 @@ def _run_cli(smi) -> None:
              f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
 
-def _profile(fn, kernel: str = "") -> tuple[float, int, int, float]:
+def _profile(fn, kernel: str = ""
+             ) -> tuple[float, int, int, float, float]:
     """One call of ``fn`` under ``torch.profiler``: (device busy ms, the
     sum of the device events' durations; the number of device events;
     the number of top-level torch ops the host issued; the ms of the
-    device events whose name holds ``kernel``)."""
+    device events whose name holds ``kernel``; the device span ms, from
+    the first device event's start to the last one's end, which holds
+    busy and the card's idle gaps between the events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2559,8 +2611,10 @@ def _profile(fn, kernel: str = "") -> tuple[float, int, int, float]:
               and e.cpu_parent is None)
     mine = sum(e.time_range.elapsed_us() for e in dev
                if kernel and kernel in e.name)
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) if dev else 0.0
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
-            ops, mine / 1e3)
+            ops, mine / 1e3, span / 1e3)
 
 
 def _check_b8(cfg, params, blocks, halo_if, dev) -> list:
@@ -4435,6 +4489,88 @@ def _graph_kernels_per_replay(runner, inputs, k, path) -> dict:
     return per
 
 
+def _graph_chunks(phase, label, runner, graphed, ref, inputs, path, ks,
+                  all_wrappers, peak, held, decoded, what, units, unit
+                  ) -> tuple[dict, dict]:
+    """A path through its chunk graphs at each chunk of ``ks``:
+    ``graphed(k)`` returns ``(state, outputs)``, held to ``ref`` (the eager
+    ``(state, outputs)``) bit for bit, or, where a leaf differs, each
+    difference named and ``held(k, outputs)`` (the path's bars) run; every
+    kernel of ``path`` launched ``units`` times plus the warm-up's units
+    of ``runner`` (``graphed``'s runner) and nothing else; ``decoded(k,
+    outputs)``; each path kernel K times one replay under the profiler.
+    Fills ``peak[k]``; returns each K's capture seconds and whether it was
+    bitwise."""
+    import torch
+    capture, equal = {}, {}
+    for k in ks:
+        warm0, cap0 = runner.warm_blocks, runner.capture_seconds
+        _zero(all_wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        got_state, got = graphed(k)
+        torch.cuda.synchronize()
+        peak[k] = torch.cuda.max_memory_allocated()
+        capture[k] = runner.capture_seconds - cap0
+        n = units + runner.warm_blocks - warm0
+        off = _launches_off(all_wrappers, {w: n for w in path})
+        if off:
+            raise AssertionError(f"{phase}: {label} chunk {k}: launches "
+                                 f"(got, expected): {off}")
+        diffs = (_tree_diffs(got, ref[1], "outputs.")
+                 + _tree_diffs(got_state, ref[0], "state."))
+        equal[k] = not diffs
+        if diffs:
+            _say(f"{phase}: {label} chunk {k}: NOT bitwise equal to {what}: "
+                 + "; ".join(f"{p} {c} elements, max {m:.3g}"
+                             for p, c, m in diffs))
+            held(k, got)
+        decoded(k, got)
+        per = _graph_kernels_per_replay(runner, inputs, k, path)
+        if per is None:
+            _say(f"{phase}: {label} chunk {k}: the profiler shows no "
+                 f"device event or marker (kernels in the graph not "
+                 f"counted)")
+        elif any(v != k for v in per.values()):
+            raise AssertionError(f"{phase}: {label} chunk {k}: one replay "
+                                 f"ran the path kernels {per} times, "
+                                 f"expected {k} each")
+        _say(f"{phase}: {label} chunk {k}: outputs and end state "
+             + ("bitwise equal to" if equal[k] else "within the bars of")
+             + f" {what}; launches {n} each ({units} {unit} + {n - units} "
+             f"of the warm-up) of {', '.join(w.__name__ for w in path)}, "
+             f"nothing else; the last of three replays under torch.profiler "
+             f"ran " + ("-" if per is None else ", ".join(
+                 f"{name} {v}" for name, v in per.items()))
+             + f"; capture {capture[k]:.3f} s")
+        del got, got_state
+    return capture, equal
+
+
+def _timed_rows(runs: dict, units: int, samples: int, peak: dict,
+                reps: int = GRAPH_REPS) -> dict:
+    """Each of ``runs`` ({name: fn}) timed: the median of ``reps``
+    synchronized runs on the host clock, as ms a unit (a block or a
+    step, ``units`` a run) and MS/s (``samples`` complex samples a run),
+    with the spread, the device busy and device span a unit of one more
+    run under ``torch.profiler``, and ``peak[name]``."""
+    import torch
+    row = {}
+    for name, fn in runs.items():
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        med = sorted(secs)[len(secs) // 2]
+        prof = _profile(fn)
+        row[name] = dict(ms=med * 1e3 / units, msps=samples / med / 1e6,
+                         busy=prof[0] / units, span=prof[4] / units,
+                         spread=(min(secs), max(secs)), peak=peak[name])
+    return row
+
+
 def _run_graph_config(conf, dev, smi, all_wrappers) -> dict:
     """Phase 10 at one configuration: the sync audit, eager
     ``run_blocks`` (launches, decode), the graph at each chunk of
@@ -4506,83 +4642,41 @@ def _run_graph_config(conf, dev, smi, all_wrappers) -> dict:
     _check_outputs(f"{label} eager", cfg, ref, phase="phase 10")
     graph.clear()
     runner = graph.cached_runner(params, init(), cfg, entry, kw)
-    capture, equal = {}, {}
-    for k in GRAPH_KS:
-        warm0, cap0 = runner.warm_blocks, runner.capture_seconds
-        _zero(all_wrappers)
-        torch.cuda.reset_peak_memory_stats()
-        got_state, got = graphed(k)
-        torch.cuda.synchronize()
-        peak[k] = torch.cuda.max_memory_allocated()
-        capture[k] = runner.capture_seconds - cap0
-        n = N_BLOCKS + runner.warm_blocks - warm0
-        off = _launches_off(all_wrappers, {w: n for w in path})
-        if off:
-            raise AssertionError(f"phase 10: {label} chunk {k}: launches "
-                                 f"(got, expected): {off}")
-        diffs = (_tree_diffs(got, ref, "outputs.")
-                 + _tree_diffs(got_state, ref_state, "state."))
-        equal[k] = not diffs
-        if diffs:
-            # held to the step's bars: the chain tolerance on four rows
-            # and the decode of channel 0
-            _say(f"phase 10: {label} chunk {k}: NOT bitwise equal to eager "
-                 f"run_blocks: " + "; ".join(
-                     f"{p} {c} elements, max {m:.3g}" for p, c, m in diffs))
-            sel = torch.tensor(CHAIN_ROWS, device=dev)
-            _compare_chain(f"{label} chunk {k} against eager", cfg,
-                           _select(got, sel), _select(ref, sel), N_BLOCKS,
-                           phase="phase 10")
+    sel = torch.tensor(CHAIN_ROWS, device=dev)
+
+    def held(k, got):
+        # the step's bars: the chain tolerance on four rows, channel 0's
+        # decode
+        _compare_chain(f"{label} chunk {k} against eager", cfg,
+                       _select(got, sel), _select(ref, sel), N_BLOCKS,
+                       phase="phase 10")
+
+    def decoded(k, got):
         _check_outputs(f"{label} graphed chunk {k}", cfg, got,
                        phase="phase 10")
-        per = _graph_kernels_per_replay(runner, inputs, k, path)
-        if per is None:
-            _say(f"phase 10: {label} chunk {k}: the profiler shows no "
-                 f"device event or marker (kernels in the graph not "
-                 f"counted)")
-        elif any(v != k for v in per.values()):
-            raise AssertionError(f"phase 10: {label} chunk {k}: one replay "
-                                 f"ran the path kernels {per} times, "
-                                 f"expected {k} each")
-        _say(f"phase 10: {label} chunk {k}: outputs and end state "
-             + ("bitwise equal to" if equal[k] else "within the bars of")
-             + f" eager run_blocks over {N_BLOCKS} blocks x {C}; launches "
-             f"{n} each ({N_BLOCKS} blocks + {n - N_BLOCKS} of the "
-             f"warm-up) of {', '.join(w.__name__ for w in path)}, nothing "
-             f"else; the last of three replays under torch.profiler ran "
-             + ("-" if per is None else ", ".join(
-                 f"{name} {v}" for name, v in per.items()))
-             + f"; capture {capture[k]:.3f} s")
-        del got, got_state
+
+    capture, equal = _graph_chunks(
+        "phase 10", label, runner, graphed, (ref_state, ref), inputs, path,
+        GRAPH_KS, all_wrappers, peak, held, decoded,
+        f"eager run_blocks over {N_BLOCKS} blocks x {C}", N_BLOCKS, "blocks")
 
     iq = N_BLOCKS * C * cfg.iq_per_block
     runs = {"eager": eager}
     runs.update({k: (lambda k=k: graphed(k)) for k in GRAPH_KS})
-    row = {}
-    for name, fn in runs.items():
-        secs = []
-        for _ in range(GRAPH_REPS):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t1)
-        med = sorted(secs)[len(secs) // 2]
-        busy = _profile(fn)[0]
-        row[name] = dict(ms=med * 1e3 / N_BLOCKS, msps=iq / med / 1e6,
-                         busy=busy / N_BLOCKS,
-                         spread=(min(secs), max(secs)), peak=peak[name])
+    row = _timed_rows(runs, N_BLOCKS, iq, peak)
     text = "; ".join(
         f"{'eager' if name == 'eager' else f'graph chunk {name}'} "
         f"{r['ms']:.4f} ms a block ({r['spread'][0] * 1e3 / N_BLOCKS:.4f}-"
         f"{r['spread'][1] * 1e3 / N_BLOCKS:.4f}), {r['msps']:.1f} MS/s, "
-        f"device busy {r['busy']:.4f} ms a block, peak device memory "
+        f"device busy {r['busy']:.4f} ms a block (span "
+        f"{r['span']:.4f}), peak device memory "
         f"{r['peak'] / 1e9:.2f} GB"
         + ("" if name == "eager" else f", capture {capture[name]:.3f} s")
         for name, r in row.items())
     _say(f"phase 10: {label}, {N_BLOCKS} blocks x {C} channels, medians of "
          f"{GRAPH_REPS} (host clock around a synchronized run; device busy "
-         f"under torch.profiler): {text}; graph chunk {GRAPH_KS[-1]} "
+         f"and span, first event's start to last one's end, under "
+         f"torch.profiler): {text}; graph chunk {GRAPH_KS[-1]} "
          f"{row['eager']['ms'] / row[GRAPH_KS[-1]]['ms']:.2f}x eager by "
          f"ms a block, on {smi}")
     graph.clear()
@@ -4605,6 +4699,448 @@ def _run_graphs(dev, smi, all_wrappers) -> None:
          + ("every graph bitwise equal to eager run_blocks" if not odd else
             f"not bitwise (within the bars) at {odd}")
          + f"; the sync audit raised nowhere; phase 10 "
+         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def _graph_wideband(dev, smi, all_wrappers) -> None:
+    """Phase 11 (a), (b), (d): the wideband step at phase 3's point
+    through the chunk graphs (``graph.run_wideband_blocks``): the sync
+    audit on both channelizer routes, chunks of WB_GRAPH_KS bitwise
+    eager ``run_wideband_blocks`` (exact launches, decode, the path
+    kernels K times a replay), both timed; AFC + the tracker at phase
+    3b's point; ``wideband_dp`` on a 1x1 mesh."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.parallel import make_mesh
+    from dy4tpu_torch.pipeline import graph
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.pipeline import wideband as wb
+
+    cfg = get_mode(0)
+    blocks = _wideband_capture(cfg, dev)
+    params = rx.make_params(cfg, device=dev)
+    chan = wb.make_wideband(cfg, WB_C, taps_per_branch=WB_T, device=dev)
+    label = f"wideband {WB_BANDS} bands x {WB_C} channels"
+    path = _path(cfg, "wideband")
+
+    def init(bands=WB_BANDS, **kw):
+        return wb.wideband_init(cfg, chan, (bands,), **kw)
+
+    # the sync audit: the kernel route (the correction folded into the
+    # DFT), and the plain route with the tracker on, which applies the
+    # correction after the bank through the channel mirror index
+    for route, init_kw in (("auto", {}), ("plain", dict(iqcorr=True))):
+        _sync_audit(
+            f"phase 11: {label} channelizer={route!r} {init_kw}",
+            lambda st, blk, route=route: wb.wideband_step(
+                params, chan, st, blk, cfg, channelizer=route),
+            init(**init_kw), [blocks[0]], [blocks[1]])
+
+    def eager():
+        return wb.run_wideband_blocks(params, chan, init(), blocks, cfg)
+
+    def graphed(k):
+        return graph.run_wideband_blocks(params, chan, init(), blocks, cfg,
+                                         chunk=k)
+
+    torch.cuda.reset_peak_memory_stats()
+    (ref_state, ref), _ = _run_path(f"{label} eager", cfg, eager,
+                                    all_wrappers, entry="wideband",
+                                    n_blocks=WB_STEPS, phase="phase 11")
+    peak = {"eager": torch.cuda.max_memory_allocated()}
+    graph.clear()
+    runner = graph.cached_wideband_runner(params, chan, init(), cfg)
+    live = lambda o, rows=slice(None): rx.StepOutputs(*(  # noqa: E731
+        None if f is None else f[:, rows, WB_STATION] for f in o))
+    sel = torch.tensor(WB_ROWS, device=dev)
+
+    def held(k, got):
+        # the chain bars on the live channel of two bands
+        _compare_chain(f"{label} chunk {k} against eager", cfg,
+                       live(got.rx, sel), live(ref.rx, sel), WB_STEPS,
+                       rows=f"channel {WB_STATION} of bands {WB_ROWS}",
+                       phase="phase 11")
+
+    def decoded(k, got):
+        _wideband_decoded(f"{label} graph chunk {k}", cfg, got, "phase 11")
+
+    capture, _ = _graph_chunks(
+        "phase 11", label, runner, graphed, (ref_state, ref), (blocks,),
+        path, WB_GRAPH_KS, all_wrappers, peak, held, decoded,
+        f"eager run_wideband_blocks over {WB_STEPS} steps (outputs, RSSI)",
+        WB_STEPS, "steps")
+
+    samples = WB_STEPS * WB_BANDS * WB_C * cfg.if_per_block
+    runs = {"eager": eager}
+    runs.update({k: (lambda k=k: graphed(k)) for k in WB_GRAPH_KS})
+    row = _timed_rows(runs, WB_STEPS, samples, peak)
+    band_sps = WB_C * cfg.if_fs
+    text = "; ".join(
+        f"{'eager' if name == 'eager' else f'graph chunk {name}'} "
+        f"{r['ms']:.4f} ms a step ({r['spread'][0] * 1e3 / WB_STEPS:.4f}-"
+        f"{r['spread'][1] * 1e3 / WB_STEPS:.4f}), {r['msps']:.1f} MS/s = "
+        f"{r['msps'] * 1e6 / band_sps:.1f} bands in real time, device busy "
+        f"{r['busy']:.4f} ms a step (span {r['span']:.4f}), peak device "
+        f"memory "
+        f"{r['peak'] / 1e9:.2f} GB"
+        + ("" if name == "eager" else f", capture {capture[name]:.3f} s")
+        for name, r in row.items())
+    k_big = WB_GRAPH_KS[-1]
+    _say(f"phase 11: {label}, {WB_STEPS} steps, medians of {GRAPH_REPS} "
+         f"(host clock around a synchronized run; device busy and span, "
+         f"first event's start to last one's end, under torch.profiler): "
+         f"{text}; graph chunk {k_big} "
+         f"{row['eager']['ms'] / row[k_big]['ms']:.2f}x eager by ms a "
+         f"step, on {smi}")
+
+    # (d) wideband_dp on a 1x1 mesh: this rank holds every band
+    place, run = wb.wideband_dp(params, chan, cfg, make_mesh())
+    dp_state, dp = run(place(init()), place(blocks, axis=1))
+    diffs = (_tree_diffs(dp, ref, "outputs.")
+             + _tree_diffs(dp_state, ref_state, "state."))
+    if diffs:
+        raise AssertionError(f"phase 11: wideband_dp on a 1x1 mesh is not "
+                             f"bitwise eager run_wideband_blocks: {diffs}")
+    _say(f"phase 11: wideband_dp on a 1x1 mesh ({label}, through the chunk "
+         f"graphs): outputs and end state bitwise equal to eager "
+         f"run_wideband_blocks")
+    # (b) AFC and the tracker at phase 3b's point, through the graphs
+    opt = blocks[:WB_OPT_STEPS, :WB_OPT_BANDS].contiguous()
+    del blocks, dp, dp_state
+    opt_init = lambda: init(WB_OPT_BANDS, afc=True, iqcorr=True)  # noqa: E731
+    o_state, o_ref = wb.run_wideband_blocks(params, chan, opt_init(), opt,
+                                            cfg)
+    label = (f"wideband AFC + IQ tracker, {WB_OPT_BANDS} bands x "
+             f"{WB_OPT_STEPS} steps")
+    for k in WB_OPT_KS:
+        st, got = graph.run_wideband_blocks(params, chan, opt_init(), opt,
+                                            cfg, chunk=k)
+        diffs = (_tree_diffs(got, o_ref, "outputs.")
+                 + _tree_diffs(st, o_state, "state."))
+        if diffs:
+            _say(f"phase 11: {label} chunk {k}: NOT bitwise equal to eager: "
+                 + "; ".join(f"{p} {c} elements, max {m:.3g}"
+                             for p, c, m in diffs))
+            _compare_chain(f"{label} chunk {k} against eager", cfg,
+                           live(got.rx), live(o_ref.rx), WB_OPT_STEPS,
+                           rows=f"channel {WB_STATION} of bands "
+                                f"0-{WB_OPT_BANDS - 1}", phase="phase 11")
+        _say(f"phase 11: {label} chunk {k}: outputs and end state (AFC, "
+             f"tracker) " + ("within the bars of" if diffs else
+                             "bitwise equal to") + " eager")
+    graph.clear()
+
+
+def _graph_wideband_tool(smi) -> None:
+    """Phase 11 (c): the wideband tool as a subprocess on a capture of the
+    port's synth (8 channels, stations on 1 and 3) at each ``--chunk`` of
+    WB_TOOL_CHUNKS (a graph replay a chunk): both runs find and decode
+    the same stations with their PI/PS and write the same WAV bytes."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cap = tmp / "band.raw"
+        cmd = [sys.executable, "-m", "dy4tpu_torch.tools.synth", str(cap),
+               "--mode", "0", "--blocks", str(WB_TOOL_STEPS), "--wideband",
+               str(WB_TOOL_C), "--stations", "1,3"]
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode:
+            raise AssertionError(f"phase 11: synth exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        # both chunkings at once, each its own process on the card
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "dy4tpu_torch.tools.wideband", str(cap),
+             "--channels", str(WB_TOOL_C), "--out-dir", str(tmp / f"c{k}"),
+             "--chunk", str(k)], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for k in WB_TOOL_CHUNKS}
+        runs = {}
+        try:
+            for k, proc in procs.items():
+                err = proc.communicate(timeout=300)[1]
+                if proc.returncode:
+                    raise AssertionError(f"phase 11: the wideband tool at "
+                                         f"--chunk {k} exited "
+                                         f"{proc.returncode}: {err[-2000:]}")
+                for ch in (1, 3):
+                    want = f"RDS PI={0x5400 + ch:04X} PS='WB CH-{ch:02d}'"
+                    if want not in err:
+                        raise AssertionError(f"phase 11: the wideband tool "
+                                             f"at --chunk {k} did not print "
+                                             f"{want}: {err[-2000:]}")
+                lines = [ln for ln in err.splitlines() if "RDS PI=" in ln]
+                wavs = {p.name: p.read_bytes()
+                        for p in sorted((tmp / f"c{k}").glob("*.wav"))}
+                runs[k] = (lines, wavs)
+                rate = [ln for ln in err.splitlines() if "MS/s" in ln]
+                _say(f"phase 11: python -m dy4tpu_torch.tools.wideband "
+                     f"--channels {WB_TOOL_C} --chunk {k} over "
+                     f"{WB_TOOL_STEPS} steps: stations {sorted(wavs)}; "
+                     + " | ".join(ln.strip() for ln in lines)
+                     + f"; {rate[-1].strip() if rate else ''} (both runs "
+                     f"{time.perf_counter() - t0:.1f} s with start-up, at "
+                     f"once)")
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        first, *rest = runs.values()
+        for k, got in zip(WB_TOOL_CHUNKS[1:], rest):
+            if got[1].keys() != first[1].keys() or any(
+                    got[1][n] != first[1][n] for n in got[1]):
+                raise AssertionError(f"phase 11: the wideband tool's WAVs at "
+                                     f"--chunk {k} differ from --chunk "
+                                     f"{WB_TOOL_CHUNKS[0]}'s")
+            if got[0] != first[0]:
+                raise AssertionError(f"phase 11: the wideband tool's RDS "
+                                     f"lines at --chunk {k} differ")
+        if not {"station001.wav", "station003.wav"} <= set(first[1]):
+            raise AssertionError(f"phase 11: the wideband tool wrote "
+                                 f"{sorted(first[1])}")
+        n = len(first[1]["station001.wav"])
+        _say(f"phase 11: the wideband tool at --chunk "
+             f"{' and '.join(map(str, WB_TOOL_CHUNKS))}: the same stations, "
+             f"PI/PS and WAV bytes ({n} bytes a station) on {smi}")
+
+
+def _graph_wideband_tool_loop(dev, smi) -> None:
+    """Phase 11 (c): the wideband tool's chunk loop in process
+    (``tools/wideband.run_chunks``: two pinned input and two pinned output
+    buffers in turn, chunk i read while chunk i+1 runs) against the same
+    runner read by ``.cpu()`` after each replay (the loop without
+    overlap), at one band of WB_LOOP_C channels over WB_LOOP_STEPS random
+    steps and each ``--chunk`` of WB_LOOP_KS: both loops' outputs and RSSI
+    sums bitwise equal, both timed on the host clock from the runner's
+    loaded state to the last numpy read (alternating, medians of
+    GRAPH_REPS, each chunk's graph captured before the clock)."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.pipeline import graph, receiver, wideband as wb
+    from dy4tpu_torch.tools import wideband as tool
+
+    cfg = get_mode(0)
+    params = receiver.make_params(cfg, device=dev)
+    chan = wb.make_wideband(cfg, WB_LOOP_C, taps_per_branch=WB_T,
+                            device=dev)
+    state0 = wb.wideband_init(cfg, chan)
+    host = np.random.default_rng(11).integers(
+        0, 256, (WB_LOOP_STEPS, 2 * WB_LOOP_C * cfg.if_per_block),
+        dtype=np.uint8)
+    runner = graph.wideband_runner(params, chan, state0, cfg)
+
+    def cpu_reads(k):
+        rssi, chunks = np.float64(0.0), []
+        for lo in range(0, len(host), k):
+            outs = runner.run(torch.from_numpy(host[lo:lo + k]).to(dev))
+            r = outs.rssi.cpu()
+            rssi = rssi + r.mean(0).numpy() * r.shape[0]
+            chunks.append(receiver.StepOutputs(*(
+                None if f is None else f.cpu().numpy() for f in outs.rx)))
+        return rssi, chunks
+
+    loops = {"overlapped": lambda k: tool.run_chunks(runner, host, k, dev),
+             ".cpu()": cpu_reads}
+    ms_step = WB_LOOP_STEPS / 1e3
+    for k in WB_LOOP_KS:
+        runner.load(state0)
+        tool.run_chunks(runner, host[:k], k, dev)     # capture, unclocked
+        times = {name: [] for name in loops}
+        got = {}
+        for rep in range(GRAPH_REPS):
+            for name in (loops if rep % 2 == 0 else reversed(loops)):
+                runner.load(state0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[name] = loops[name](k)
+                times[name].append(time.perf_counter() - t0)
+        (r_a, c_a), (r_b, c_b) = got.values()
+        if not np.array_equal(r_a, r_b):
+            raise AssertionError(f"phase 11: the tool's chunk loop at "
+                                 f"--chunk {k}: RSSI sums differ")
+        for f in receiver.StepOutputs._fields:
+            a = [getattr(c, f) for c in c_a]
+            b = [getattr(c, f) for c in c_b]
+            if (a[0] is None) != (b[0] is None) or (a[0] is not None and not
+                    np.array_equal(np.concatenate(a), np.concatenate(b))):
+                raise AssertionError(f"phase 11: the tool's chunk loop at "
+                                     f"--chunk {k}: {f} differs from the "
+                                     f".cpu() loop's")
+        med = {n: float(np.median(v)) for n, v in times.items()}
+        spread = {n: (max(v) - min(v)) / med[n] for n, v in times.items()}
+        _say(f"phase 11: the tool's chunk loop, 1 band x {WB_LOOP_C} "
+             f"channels x {WB_LOOP_STEPS} steps at --chunk {k}, outputs and "
+             f"RSSI bitwise the .cpu() loop's: overlapped "
+             f"{med['overlapped'] / ms_step:.4f} ms a step (spread "
+             f"{spread['overlapped']:.1%}), .cpu() after each replay "
+             f"{med['.cpu()'] / ms_step:.4f} (spread {spread['.cpu()']:.1%})"
+             f"; .cpu() / overlapped {med['.cpu()'] / med['overlapped']:.3f} "
+             f"(medians of {GRAPH_REPS}, host clock) on {smi}")
+
+
+def _graph_sharded(dev, smi, all_wrappers, eff_eager) -> dict:
+    """Phase 11 (e): the sharded step at phase 5's point through
+    ``graph.sharded_runner`` at K=1 (dy4tpu's compiled ``step_c``), the
+    exact and the legacy discipline, bitwise their eager ``step`` loop
+    (and so, exact, ``run_blocks``); exact launches; B8 once a replay;
+    channel 0 decoded; the efficiency graph over graph beside phase 5's
+    eager one, and B8's share of the graphed step's device busy."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll_cuda,
+                                  resample_cuda)
+    from dy4tpu_torch.parallel import ShardedReceiver, make_mesh
+    from dy4tpu_torch.pipeline import graph
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tx import fm
+
+    cfg = get_mode(0)
+    params = rx.make_params(cfg, device=dev)
+    blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1), cfg, dev,
+                       SH_C)
+    pieces = torch.stack([blocks[k * SH_S:(k + 1) * SH_S].permute(1, 0, 2)
+                          .reshape(SH_C, -1) for k in range(SH_STEPS)])
+    b8 = pll_cuda.phase_scan_coded
+    runners = {}
+    for exact in (True, False):
+        label = ("sharded exact step" if exact
+                 else "sharded legacy step (O=1)")
+        r = ShardedReceiver(cfg, make_mesh(), shard_blocks=SH_S,
+                            exact=exact)
+
+        def step(c, piece, r=r):
+            return r.step(params, c, piece)
+
+        if exact:
+            _sync_audit(f"phase 11: {label}", step, r.init(SH_C),
+                        [pieces[0]], [pieces[1]])
+        carry, outs = r.init(SH_C), []
+        for piece in pieces:
+            carry, out = step(carry, piece)
+            outs.append(out)
+        ref, ref_carry = graph._stack(outs), carry
+        runner = graph.sharded_runner(r, params, r.init(SH_C))
+        _zero(all_wrappers)
+        got = runner.run_stream(pieces, chunk=1)
+        got_carry = runner.read()
+        torch.cuda.synchronize()
+        n = SH_STEPS + runner.warm_blocks
+        blocks_a_step = SH_S + (1 if exact else r.overlap_blocks)
+        want = {frontend_cuda.fused_frontend_full: n * blocks_a_step,
+                backend_cuda.fused_audio_backend: n * blocks_a_step,
+                resample_cuda.fused_rds_backend: n * blocks_a_step}
+        want[b8 if exact else pll_cuda.phase_scan] = (
+            n if exact else n * blocks_a_step)
+        off = _launches_off(all_wrappers, want)
+        if off:
+            raise AssertionError(f"phase 11: {label}: launches (got, "
+                                 f"expected): {off}")
+        diffs = (_tree_diffs(got, ref, "outputs.")
+                 + _tree_diffs(got_carry, ref_carry, "carry."))
+        if diffs:
+            raise AssertionError(f"phase 11: {label} through its runner is "
+                                 f"not bitwise its eager step: {diffs}")
+        per = (_graph_kernels_per_replay(runner, (pieces,), 1, [b8])
+               if exact else None)
+        if per is not None and any(v != 1 for v in per.values()):
+            raise AssertionError(f"phase 11: {label}: one replay ran B8 "
+                                 f"{per} times, expected 1")
+        dec = fm.check_reception(
+            cfg, got.left[:, 0].reshape(N_BLOCKS, -1).cpu().numpy(),
+            got.right[:, 0].reshape(N_BLOCKS, -1).cpu().numpy(),
+            got.rds_symbols[:, 0].reshape(N_BLOCKS, -1).cpu().numpy(),
+            got.rds_resync[:, 0].reshape(N_BLOCKS).cpu().numpy())
+        _say(f"phase 11: {label}, C={SH_C}, S={SH_S}, halo {r.halo_if} IF, "
+             f"{SH_STEPS} steps through graph.sharded_runner at K=1: every "
+             f"output and the end carry bitwise equal to the eager step"
+             + (" (and so to run_blocks)" if exact else "")
+             + "; launches " + ", ".join(
+                 f"{w.__name__} {v}" for w, v in want.items())
+             + f" ({SH_STEPS} steps + {runner.warm_blocks} of the warm-up), "
+             f"nothing else"
+             + ("" if per is None else
+                f"; the last of three replays under torch.profiler ran "
+                + ", ".join(f"{k} {v}" for k, v in per.items()))
+             + f"; channel 0 decoded: separation L {dec['sep_l_db']:.1f} dB,"
+             f" R {dec['sep_r_db']:.1f} dB, PI {dec['pi']}, PS "
+             f"{dec['ps']!r}; capture {runner.capture_seconds:.3f} s")
+        runners[exact] = runner
+        del got, ref, outs
+
+    # the efficiency graph over graph: one replay of the sharded step
+    # against one replay of run_blocks' chunk graph of the same S blocks
+    # (chunk=S), alternating, medians of RATE_REPS
+    shard = runners[True]
+    plain = graph.receiver_runner(
+        params, rx.init_state(cfg, (SH_C,), device=dev), cfg)
+    chunk_blocks = blocks[:SH_S].contiguous()
+    one = pieces[:1].contiguous()
+    sides = {"plain": lambda: plain.run(chunk_blocks),
+             "sharded": lambda: shard.run(one)}
+    samples = SH_C * SH_S * cfg.iq_per_block
+    rates = {"plain": [], "sharded": []}
+    for fn in sides.values():
+        fn()                                  # capture, outside the clock
+    for k in range(RATE_REPS):
+        for side in (("plain", "sharded") if k % 2 == 0
+                     else ("sharded", "plain")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sides[side]()
+            torch.cuda.synchronize()
+            rates[side].append(samples / (time.perf_counter() - t) / 1e6)
+    med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+    eff = med["sharded"] / med["plain"]
+    b8_name = _device_kernels()[b8]
+    prof = {"plain": _profile(sides["plain"]),
+            "sharded": _profile(sides["sharded"], b8_name)}
+    busy, b8_ms = prof["sharded"][0], prof["sharded"][3]
+    if not 0 < b8_ms < busy:
+        raise AssertionError(f"phase 11: B8 {b8_ms:.4f} ms of a graphed "
+                             f"sharded step's {busy:.4f} ms device busy")
+    _say(f"phase 11: sharded efficiency, graph over graph (one replay of "
+         f"the sharded step against one of run_blocks' chunk graph of "
+         f"{SH_S} blocks, C={SH_C}; medians of {RATE_REPS}): sharded "
+         f"{med['sharded']:.1f} MS/s ({samples / med['sharded'] / 1e3:.4f} "
+         f"ms a step; runs {', '.join(f'{v:.1f}' for v in rates['sharded'])}"
+         f"), plain {med['plain']:.1f} MS/s "
+         f"({samples / med['plain'] / 1e3:.4f} ms; runs "
+         f"{', '.join(f'{v:.1f}' for v in rates['plain'])}), efficiency "
+         f"{eff:.3f} (phase 5's eager over eager: {eff_eager:.3f}); one "
+         f"replay under torch.profiler, device busy and device span (first "
+         f"event's start to last one's end): sharded {busy:.4f} / "
+         f"{prof['sharded'][4]:.4f} ms ({prof['sharded'][1]} events), "
+         f"plain {prof['plain'][0]:.4f} / {prof['plain'][4]:.4f} ms "
+         f"({prof['plain'][1]} events); B8 {b8_ms:.4f} ms of the graphed "
+         f"sharded step's busy ({b8_ms / busy:.1%}) on {smi}")
+    return dict(sharded_eff_1dev_graphed=eff,
+                sharded_step_graphed_ms=samples / med["sharded"] / 1e3,
+                sharded_step_graphed_device_ms=busy,
+                sharded_step_graphed_span_ms=prof["sharded"][4],
+                b8_graphed_step_share=b8_ms / busy)
+
+
+def _run_graph_slice(dev, smi, all_wrappers, results) -> None:
+    """Phase 11: the compiled step's last slice: the wideband step and
+    the tool through their chunk graphs, ``wideband_dp``, and the sharded
+    step through its runner.  Adds the graphed sharded efficiency to B8's
+    JSON entry of the sharded path."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _graph_wideband(dev, smi, all_wrappers)
+    torch.cuda.empty_cache()
+    _graph_wideband_tool(smi)
+    _graph_wideband_tool_loop(dev, smi)
+    torch.cuda.empty_cache()
+    b8_row = next(r for r in results if "sharded_eff_1dev" in r)
+    b8_row.update(_graph_sharded(dev, smi, all_wrappers,
+                                 b8_row["sharded_eff_1dev"]))
+    torch.cuda.empty_cache()
+    _say(f"phase 11: the wideband step, the tool, wideband_dp and the "
+         f"sharded step through their chunk graphs; the sync audit raised "
+         f"nowhere; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 11 "
          f"{time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
@@ -4642,25 +5178,30 @@ def main() -> None:
     # ---- 2 + 3, mode by mode, then the wideband front door ----
     results: list[dict] = []
     rates: dict = {}
-    for mode in (0, 1, 2, 3):
-        results += _run_mode(mode, dev, smi, all_wrappers, rates)
+    took: dict[str, float] = {"0-1": time.perf_counter() - t_start}
+
+    def timed(label: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
         torch.cuda.empty_cache()
-    _plan_fit()
-    results += _run_wideband(dev, smi, all_wrappers)
-    torch.cuda.empty_cache()
-    _run_cli(smi)
-    torch.cuda.empty_cache()
-    results += _run_sharded(dev, smi, all_wrappers)
-    torch.cuda.empty_cache()
-    results += _run_psd(dev, smi, all_wrappers)
-    torch.cuda.empty_cache()
-    results += _run_ab(dev, smi, all_wrappers)
-    torch.cuda.empty_cache()
-    _run_fleet(dev, smi, all_wrappers, rates)
-    torch.cuda.empty_cache()
-    _run_recovery(dev, smi, all_wrappers)
-    torch.cuda.empty_cache()
-    _run_graphs(dev, smi, all_wrappers)
+        took[label] = time.perf_counter() - t
+        return out
+
+    for mode in (0, 1, 2, 3):
+        results += timed(f"2-3 m{mode}", _run_mode, mode, dev, smi,
+                         all_wrappers, rates)
+    timed("2 fit", _plan_fit)
+    results += timed("2-3 wb", _run_wideband, dev, smi, all_wrappers)
+    timed("4", _run_cli, smi)
+    results += timed("5", _run_sharded, dev, smi, all_wrappers)
+    results += timed("6", _run_psd, dev, smi, all_wrappers)
+    results += timed("7", _run_ab, dev, smi, all_wrappers)
+    timed("8", _run_fleet, dev, smi, all_wrappers, rates)
+    timed("9", _run_recovery, dev, smi, all_wrappers)
+    timed("10", _run_graphs, dev, smi, all_wrappers)
+    timed("11", _run_graph_slice, dev, smi, all_wrappers, results)
+    _say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in took.items()))
 
     for r in results:
         del r["wrapper"]

@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dy4tpu_torch.runtime import consts as _consts
+
 Tensor = torch.Tensor
 
 # moment index layout of IQCorrState.m: E[i^p * q^r] at _POWERS[k]
@@ -243,6 +245,19 @@ def channel_affine(c: IQCorrCoeffs):
     return a_r, ab_i, b_r, ab_i, k_r, k_i
 
 
+# the channel mirror index on the device, by (device, C): made on the
+# first block, then reused, so a warm step copies nothing from the host
+_MIRRORS = _consts.ConstCache(8)
+
+
+def _mirror_index(n_c: int, device) -> Tensor:
+    """``(-c) mod C`` for c < C, int64 on ``device``, bit for bit what
+    ``torch.as_tensor`` of the numpy index gives."""
+    dev = torch.device(device)
+    return _MIRRORS.get((dev, n_c), lambda: (torch.as_tensor(
+        (-np.arange(n_c)) % n_c, device=dev),))[0]
+
+
 def apply_channelized(y_i: Tensor, y_q: Tensor, c: IQCorrCoeffs,
                       g_r: Tensor, g_i: Tensor) -> tuple[Tensor, Tensor]:
     """Apply the pre-bank correction in the channel domain:
@@ -258,8 +273,7 @@ def apply_channelized(y_i: Tensor, y_q: Tensor, c: IQCorrCoeffs,
                           for x in (a_r0, a_i0, b_r0, b_i0))
     kg_r = (k_r0[..., None] * g_r - k_i0[..., None] * g_i)[..., :, None]
     kg_i = (k_r0[..., None] * g_i + k_i0[..., None] * g_r)[..., :, None]
-    n_c = y_i.shape[-2]
-    mirror = torch.as_tensor((-np.arange(n_c)) % n_c, device=y_i.device)
+    mirror = _mirror_index(y_i.shape[-2], y_i.device)
     ym_i = torch.index_select(y_i, -2, mirror)
     ym_q = -torch.index_select(y_q, -2, mirror)      # conj
     out_i = a_r * y_i - a_i * y_q + b_r * ym_i - b_i * ym_q - kg_r

@@ -29,7 +29,9 @@ collectives run on the mesh's time subgroup (``torch.distributed``:
 ``all_gather`` for the replay, ``broadcast`` from the last time rank for
 the carried tails); a 1x1 mesh runs with none.  The receiver's stages run
 through the port's kernels on the card and their plain versions on the
-CPU, as ``receiver_step`` does.
+CPU, as ``receiver_step`` does.  ``graph.sharded_runner`` runs ``step`` as
+a captured CUDA graph (dy4tpu's jitted ``step_c`` with its donated carry),
+its collectives captured with it on a mesh with a time axis.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ CUDA graph, the port's counterpart of dy4tpu's jitted scans.
 dy4tpu runs every production path as one compiled program a chunk of
 blocks: ``run_blocks`` is a ``lax.scan``, the CLI's ``run_chunk`` a jitted
 scan of ``--chunk`` blocks, fleet serving a jitted scan a chunk
-(``receiver_step_jit``'s closure form).  The port's eager step is a
+(``receiver_step_jit``'s closure form), ``run_wideband_blocks`` a
+``lax.scan`` of wideband steps (``wideband_dp``'s ``run`` and the wideband
+tool's ``run_chunk`` the same, jitted), and the sharded receiver's
+``step_c`` one jitted step with its carry donated.  The port's eager step is a
 Python loop of torch ops and kernel launches: the host issues some 250
 of them a block, and the card waits on it.  Here the K steps of a chunk
 are captured once as a CUDA graph, the hand-written kernels' launches
@@ -17,6 +20,10 @@ state equal the eager loop's bit for bit.  It is not ``torch.compile``.
     state = runner.read()          # clones of the carried state
 
     state, outs = graph.run_blocks(params, state, blocks, cfg, chunk=8)
+    state, outs = graph.run_wideband_blocks(params, chan, state,
+                                            wb_blocks, cfg, chunk=8)
+    runner = graph.sharded_runner(receiver, params, receiver.init(c))
+    outs = runner.run(pieces)      # pieces [K, C_l, S*bs] -> [K, ...]
 
 ``ChunkRunner`` holds the **static buffers**: the carried state (and
 whatever else the step carries, the CLI's de-emphasis state), each
@@ -111,11 +118,15 @@ def _assign(dst, src) -> None:
 
 
 def _stack(outs: list):
-    """Per-block outputs (a tuple or NamedTuple of tensors and None) ->
-    the same type with each field stacked on a leading block axis."""
+    """Per-block outputs (a tree of tuples / NamedTuples of tensors and
+    None) -> the same tree with each leaf stacked on a leading block
+    axis."""
     first = outs[0]
-    fields = [None if f[0] is None else torch.stack(f)
-              for f in zip(*outs)]
+    if first is None:
+        return None
+    if isinstance(first, Tensor):
+        return torch.stack(outs)
+    fields = [_stack(list(f)) for f in zip(*outs)]
     return type(first)(*fields) if hasattr(first, "_fields") else tuple(
         fields)
 
@@ -167,13 +178,15 @@ class ChunkRunner:
     """
 
     def __init__(self, step: Callable, carry, *, key: tuple = (),
-                 finish: Optional[Callable] = None):
+                 finish: Optional[Callable] = None,
+                 capture_error_mode: str = "global"):
         leaves = _leaves(carry)
         if not leaves:
             raise ValueError("the carry holds no tensor")
         self.step = step
         self.finish = finish
         self.key = tuple(key)
+        self.capture_error_mode = capture_error_mode
         self.device = leaves[0].device
         self.on_card = self.device.type == "cuda"
         # distinct leaves of our own (an initial state may share one zero
@@ -248,7 +261,9 @@ class ChunkRunner:
         graph = torch.cuda.CUDAGraph()
         try:
             with consts.hold() as held:
-                with torch.cuda.graph(graph, pool=self.pool):
+                with torch.cuda.graph(
+                        graph, pool=self.pool,
+                        capture_error_mode=self.capture_error_mode):
                     new, outputs = self._body(self.carry, static)
                     _assign(self.carry, new)
         finally:
@@ -333,19 +348,17 @@ def receiver_runner(params: rx.ReceiverParams, state: rx.ReceiverState,
 _RUNNERS: OrderedDict = OrderedDict()
 
 
-def cached_runner(params, state, cfg, entry: str = "rf",
-                  step_kwargs: Optional[dict] = None) -> ChunkRunner:
-    """``run_blocks``' runner for these params, state structure and
-    options, with ``state`` loaded into it: made at its first use, then
-    kept among the last ``MAX_RUNNERS``.  Holding the params keeps their
-    ``id`` from being reused while the runner lives."""
-    step_kwargs = step_kwargs or {}
-    key = (id(params), _signature(state),
-           *_options(entry, cfg, step_kwargs))
+def _cached(key: tuple, held: tuple, state,
+            make: Callable[[], ChunkRunner]) -> ChunkRunner:
+    """The runner of ``key`` with ``state`` loaded into it: made by
+    ``make()`` at its first use, then kept among the last ``MAX_RUNNERS``
+    of ``run_blocks`` and ``run_wideband_blocks`` (their keys differ by
+    the entry ``_options`` puts in them).  The entry holds ``held`` (the
+    params the key names by ``id``), so that no ``id`` is reused while
+    the runner lives."""
     hit = _RUNNERS.get(key)
     if hit is None:
-        hit = (params, receiver_runner(params, state, cfg, entry=entry,
-                                       **step_kwargs))
+        hit = (held, make())
         _RUNNERS[key] = hit
         while len(_RUNNERS) > MAX_RUNNERS:
             _RUNNERS.popitem(last=False)
@@ -353,6 +366,18 @@ def cached_runner(params, state, cfg, entry: str = "rf",
         _RUNNERS.move_to_end(key)
         hit[1].load(state)
     return hit[1]
+
+
+def cached_runner(params, state, cfg, entry: str = "rf",
+                  step_kwargs: Optional[dict] = None) -> ChunkRunner:
+    """``run_blocks``' runner for these params, state structure and
+    options, with ``state`` loaded into it (``_cached``)."""
+    step_kwargs = step_kwargs or {}
+    key = (id(params), _signature(state),
+           *_options(entry, cfg, step_kwargs))
+    return _cached(key, (params,), state,
+                   lambda: receiver_runner(params, state, cfg, entry=entry,
+                                           **step_kwargs))
 
 
 def run_blocks(params: rx.ReceiverParams, state: rx.ReceiverState,
@@ -380,7 +405,8 @@ def run_blocks_if(params: rx.ReceiverParams, state: rx.ReceiverState,
 
 
 def clear() -> None:
-    """Drop ``run_blocks``' runners and their graphs."""
+    """Drop ``run_blocks``' and ``run_wideband_blocks``' runners and
+    their graphs."""
     _RUNNERS.clear()
 
 
@@ -425,3 +451,89 @@ def cli_runner(params: rx.ReceiverParams, state: rx.ReceiverState,
            ("blend", blend), ("de_a", de_a), ("keep_rds", keep_rds))
     return ChunkRunner(step, (state, tuple(de_state)), key=key,
                        finish=finish)
+
+
+# ---- the wideband receiver ----
+
+def wideband_runner(params: rx.ReceiverParams, chan, state, cfg: ModeConfig,
+                    **step_kwargs) -> ChunkRunner:
+    """A runner of ``wideband.wideband_step`` with ``step_kwargs`` over
+    the bank ``chan``, from the ``WidebandState`` ``state``: inputs
+    ``[K, *bands, 2*C*if_per_block]`` u8, outputs ``WidebandOutputs``
+    stacked on K.  Its graphs are keyed by the mode, the bank's C and T
+    and the step's options; whether AFC and the tracker ride along is
+    fixed by the carry's structure, which ``load`` holds every state
+    to."""
+    from dy4tpu_torch.pipeline import wideband as wb
+
+    def step(st, blk):
+        return wb.wideband_step(params, chan, st, blk, cfg, **step_kwargs)
+
+    key = (*_options("wideband", cfg, step_kwargs),
+           ("C", chan.channels), ("T", chan.taps_per_branch))
+    return ChunkRunner(step, state, key=key)
+
+
+def run_wideband_blocks(params: rx.ReceiverParams, chan, state,
+                        wb_blocks: Tensor, cfg: ModeConfig, *,
+                        chunk: int = 8, **step_kwargs):
+    """``wideband.run_wideband_blocks`` through the chunk graphs: the
+    stream [num_blocks, *bands, 2*C*if_per_block] in chunks of ``chunk``
+    steps, each a graph replay.  Returns the final state and the stacked
+    ``WidebandOutputs``, as ``wideband.run_wideband_blocks`` does and bit
+    for bit equal to it.  Its runners are cached like ``run_blocks``',
+    keyed by the params and the bank (each by ``id``, held by the cache)
+    as well (``cached_wideband_runner``)."""
+    runner = cached_wideband_runner(params, chan, state, cfg, step_kwargs)
+    outs = runner.run_stream(wb_blocks, chunk=chunk)
+    return runner.read(), outs
+
+
+def cached_wideband_runner(params, chan, state, cfg: ModeConfig,
+                           step_kwargs: Optional[dict] = None
+                           ) -> ChunkRunner:
+    """``run_wideband_blocks``' runner for these params, bank, state
+    structure and options, with ``state`` loaded into it (``_cached``)."""
+    step_kwargs = step_kwargs or {}
+    key = (id(params), id(chan), _signature(state),
+           *_options("wideband", cfg, step_kwargs))
+    return _cached(key, (params, chan), state,
+                   lambda: wideband_runner(params, chan, state, cfg,
+                                           **step_kwargs))
+
+
+# ---- the sharded receiver ----
+
+def sharded_runner(receiver, params: rx.ReceiverParams, carry
+                   ) -> ChunkRunner:
+    """A runner of ``ShardedReceiver.step`` (``receiver``: the exact or
+    the legacy discipline) from ``carry`` (``receiver.init``'s), the
+    counterpart of dy4tpu's ``step_c`` with its donated carry: the static
+    carry is updated in place by every replay, ``read`` / ``load`` serve
+    checkpoints.  Inputs ``[K, C_l, shard_blocks * block_size]`` u8 (this
+    rank's pieces, ``input_sharding``'s, K steps), outputs
+    ``ShardedOutputs`` stacked on K.  dy4tpu compiles one step (K = 1);
+    K > 1 is the same step's loop in one graph.
+
+    On a mesh with a time axis the step issues NCCL collectives
+    (``batch_isend_irecv``, ``broadcast``, ``all_gather``,
+    ``all_to_all_single``): every rank captures them in the same order
+    and replays them together, so every rank must run its runner on the
+    same chunks.  The capture then takes ``thread_local`` error mode, so
+    that the process group's watchdog thread may query its events
+    meanwhile.  On the CPU (gloo) every mesh runs the runner's eager
+    body."""
+    mesh = receiver.mesh
+
+    def step(c, iq):
+        return receiver.step(params, c, iq)
+
+    key = ("sharded", receiver.cfg.mode, ("exact", receiver.exact),
+           ("mesh", tuple(sorted(mesh.shape.items()))),
+           ("shard_blocks", receiver.shard_blocks),
+           ("halo_if", receiver.halo_if), ("stereo", receiver.stereo),
+           ("channel_parallel_replay", receiver.channel_parallel_replay))
+    collectives = receiver.t_shards > 1
+    return ChunkRunner(step, carry, key=key,
+                       capture_error_mode=("thread_local" if collectives
+                                           else "global"))

@@ -182,7 +182,10 @@ def wideband_dp(params, chan: ChannelizerParams, cfg: ModeConfig, mesh,
     slice of the band axis ``axis`` out of a [bands, ...] tree (a state,
     axis 0, or the [steps, bands, 2*C*if_per_block] input blocks, axis 1)
     and puts it on the mesh's device; ``run(state, wb_blocks)`` is
-    ``run_wideband_blocks`` over this rank's bands with ``kw``.
+    ``run_wideband_blocks`` over this rank's bands with ``kw``, as
+    dy4tpu's jitted ``run``: through the chunk graphs of
+    ``graph.run_wideband_blocks`` at its default chunk (eagerly on the
+    CPU), bit for bit the eager loop.
     """
     from dy4tpu_torch.parallel.mesh import CH_AXIS
 
@@ -200,7 +203,8 @@ def wideband_dp(params, chan: ChannelizerParams, cfg: ModeConfig, mesh,
         return _map(cut, tree)
 
     def run(state: WidebandState, wb_blocks: Tensor):
-        return run_wideband_blocks(params, chan, state, wb_blocks, cfg,
-                                   **kw)
+        from dy4tpu_torch.pipeline import graph
+        return graph.run_wideband_blocks(params, chan, state, wb_blocks,
+                                         cfg, **kw)
 
     return place, run

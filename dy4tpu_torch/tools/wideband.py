@@ -17,6 +17,11 @@ chain.
 
 ``--device`` defaults to ``cuda`` (the kernels) and fails when the machine
 has no CUDA device; ``--device cpu`` runs the plain versions on the CPU.
+Each ``--chunk`` of K steps is one run of the wideband step's chunk runner
+(``pipeline/graph.py``, dy4tpu's jitted ``run_chunk``): on the card one
+replay of a captured CUDA graph (a ragged last chunk takes its own), its
+outputs read back while the next chunk runs (``run_chunks``); on the CPU
+the same loop eagerly.
 ``--stations auto`` (default) squelches on RSSI: channels at least
 ``--squelch-db`` above the quietest channel are decoded.
 """
@@ -41,6 +46,69 @@ def _parse_stations(spec: str, channels: int):
     return out
 
 
+def run_chunks(runner, host: np.ndarray, k: int, dev):
+    """Pass 1's loop: the steps ``host`` [n_steps, 2*C*if_per_block] u8 in
+    chunks of ``k``, one ``runner.run`` a chunk (on the card one graph
+    replay, a ragged last chunk its own graph; dy4tpu's jitted
+    ``run_chunk``) -> (the RSSI summed over the steps [C], float64; each
+    chunk's ``StepOutputs`` as numpy arrays of the host's own).
+
+    On the card two pinned input and two pinned output buffers take
+    turns.  A chunk goes up from its pinned buffer and its RSSI and
+    outputs come back into the other kind by non-blocking copies, issued
+    in stream order before the next replay overwrites the graph's static
+    outputs; the host reads chunk i's copies, behind their event, only
+    after it has issued chunk i+1, so the card computes while the host
+    fills and unpacks.  A pinned input is refilled only after its upload's
+    event.  On the CPU the same loop runs on plain buffers."""
+    import torch
+
+    from dy4tpu_torch.pipeline import receiver
+
+    on_card = torch.device(dev).type == "cuda"
+    pin_in = [torch.empty((k, host.shape[1]), dtype=torch.uint8,
+                          pin_memory=on_card) for _ in range(2)]
+    pin_out: list = [None, None]
+    up = [torch.cuda.Event() for _ in range(2)] if on_card else None
+    down = [torch.cuda.Event() for _ in range(2)] if on_card else None
+    rssi_sum, chunks = np.float64(0.0), []
+
+    def take(j: int, n: int) -> None:
+        nonlocal rssi_sum
+        if on_card:
+            down[j].synchronize()
+        rssi, *rx = pin_out[j]
+        rssi_sum = rssi_sum + rssi[:n].mean(0).numpy() * n
+        chunks.append(receiver.StepOutputs(*(
+            None if f is None else f[:n].numpy().copy() for f in rx)))
+
+    pending = None
+    for i, lo in enumerate(range(0, len(host), k)):
+        j, n = i % 2, min(k, len(host) - lo)
+        if on_card:
+            up[j].synchronize()
+        pin_in[j][:n].copy_(torch.from_numpy(host[lo:lo + n]))
+        blocks = pin_in[j][:n].to(dev, non_blocking=True)
+        if on_card:
+            up[j].record()
+        outs = runner.run(blocks)
+        fields = [outs.rssi, *outs.rx]
+        if pin_out[j] is None:
+            pin_out[j] = [None if f is None else torch.empty(
+                (k, *f.shape[1:]), dtype=f.dtype, pin_memory=on_card)
+                for f in fields]
+        for h, f in zip(pin_out[j], fields):
+            if f is not None:
+                h[:n].copy_(f, non_blocking=True)
+        if on_card:
+            down[j].record()
+        if pending is not None:
+            take(*pending)
+        pending = (j, n)
+    take(*pending)
+    return rssi_sum, chunks
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description="channelize a wideband capture and decode every "
@@ -63,7 +131,8 @@ def main(argv=None) -> int:
                    help="skip the RDS chain/decoders")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--chunk", type=int, default=4,
-                   help="wideband blocks per copy to the device")
+                   help="wideband blocks per copy to the device (on the "
+                        "card one replay of a captured chunk graph)")
     p.add_argument("--squelch-db", type=float, default=15.0,
                    help="'auto' threshold above the quietest channel")
     p.add_argument("--afc", action="store_true",
@@ -78,12 +147,10 @@ def main(argv=None) -> int:
                         "kernels) or 'cpu' (the plain versions)")
     args = p.parse_args(argv)
 
-    import torch
-
     from dy4tpu_torch.config import get_mode
     from dy4tpu_torch.utils import io as dio
     from dy4tpu_torch.ops import afc as afc_ops
-    from dy4tpu_torch.pipeline import receiver, wideband
+    from dy4tpu_torch.pipeline import graph, receiver, wideband
     from dy4tpu_torch.runtime import kernels
 
     dev = kernels.cli_device(args.device)
@@ -110,14 +177,10 @@ def main(argv=None) -> int:
 
     # ---- pass 1 (or the whole run when scanning): RSSI ----
     t0 = time.perf_counter()
-    rssi_acc, outs_all = np.zeros(c), []
-    for i in range(0, n_steps, k):
-        blocks = torch.from_numpy(host[i:i + k]).to(dev)
-        state, outs = wideband.run_wideband_blocks(
-            params, chan, state, blocks, cfg, with_rds=rds_on)
-        rssi_acc += outs.rssi.mean(0).cpu().numpy() * blocks.shape[0]
-        outs_all.append(receiver.StepOutputs(*(
-            None if f is None else f.cpu().numpy() for f in outs.rx)))
+    runner = graph.wideband_runner(params, chan, state, cfg,
+                                   with_rds=rds_on)
+    rssi_acc, outs_all = run_chunks(runner, host, k, dev)
+    state = runner.read()
     rssi = rssi_acc / n_steps
     floor = rssi.min()
 

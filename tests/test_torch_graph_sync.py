@@ -30,8 +30,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-
 from dy4tpu.config import get_mode as jget_mode  # noqa: E402
 from dy4tpu.pipeline import receiver as jrx  # noqa: E402
 from dy4tpu.rds import coding  # noqa: E402
@@ -42,46 +40,7 @@ from dy4tpu_torch.pipeline import convert, graph  # noqa: E402
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
 from dy4tpu_torch.tx import fm  # noqa: E402
 from torch_graph_cases import (CONFIGS, DEV, FAULT, Case,  # noqa: E402
-                               blocks_of)
-
-_FORBIDDEN = ((torch, "tensor"), (torch, "as_tensor"), (torch, "from_numpy"),
-              (torch.Tensor, "item"), (torch.Tensor, "cpu"),
-              (torch.Tensor, "numpy"), (torch.Tensor, "tolist"))
-_BAD_OPS = ("aten._local_scalar_dense", "aten.nonzero")
-
-
-class _NoHostReads(TorchDispatchMode):
-    """Records every aten op dispatched whose name is in ``_BAD_OPS``."""
-
-    def __init__(self):
-        super().__init__()
-        self.bad = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func.overloadpacket)
-        if name in _BAD_OPS:
-            self.bad.append(name)
-        return func(*args, **(kwargs or {}))
-
-
-def _audited(monkeypatch, fn):
-    """``fn()`` with the host-copy calls patched to raise and the dispatch
-    mode recording; raises on either."""
-    calls = []
-    for owner, name in _FORBIDDEN:
-        def boom(*a, _name=name, **k):
-            calls.append(_name)
-            raise AssertionError(f"the warm step called {_name}")
-        monkeypatch.setattr(owner, name, boom)
-    mode = _NoHostReads()
-    try:
-        with mode:
-            fn()
-    finally:
-        monkeypatch.undo()
-    assert not calls, calls
-    assert not mode.bad, f"the warm step dispatched {sorted(set(mode.bad))}"
-
+                               audited, blocks_of)
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_warm_step_makes_no_host_copy_or_read(monkeypatch, name):
@@ -90,7 +49,7 @@ def test_warm_step_makes_no_host_copy_or_read(monkeypatch, name):
                                    entry=case.entry, **case.kw)
     runner.run(*(t[:1] for t in case.inputs))          # the warm-up
     second = tuple(t[1:2] for t in case.inputs)
-    _audited(monkeypatch, lambda: runner.run(*second))
+    audited(monkeypatch, lambda: runner.run(*second))
 
 
 def test_warm_cli_chunk_makes_no_host_copy_or_read(monkeypatch):
@@ -103,7 +62,7 @@ def test_warm_cli_chunk_makes_no_host_copy_or_read(monkeypatch):
         stereo=True, blend=True, de_a=deemph.deemph_coeff(cfg.audio_fs),
         keep_rds=True, cdr_timing="envelope")
     runner.run(blocks[:1])
-    _audited(monkeypatch, lambda: runner.run(blocks[1:2]))
+    audited(monkeypatch, lambda: runner.run(blocks[1:2]))
 
 
 # ---- against dy4tpu ----

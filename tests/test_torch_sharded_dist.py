@@ -12,8 +12,12 @@ the two meshes (ch=2, time=2) and (ch=1, time=4), and save their local
 outputs; the test process assembles them per case and compares.  A rank
 that fails or outlasts ``TIMEOUT`` fails every case.
 
-The same cases run with NCCL on four cards (``-m cuda``, skipped without
-them; the kernels then run on the ranks and in the references):
+The ranks also run ``matches_sequential_ch2_time2`` through the sharded
+step's chunk runner (``graph.sharded_runner``), and ``wideband_dp`` runs
+through the wideband chunk runner: under gloo each runs its eager body,
+under NCCL it is captured as a CUDA graph with its collectives.  The same
+cases run with NCCL on four cards (``-m cuda``, skipped without them; the
+kernels then run on the ranks and in the references):
 
     python -m pytest --noconftest tests/test_torch_sharded_dist.py -m cuda
 
@@ -66,6 +70,9 @@ CASES = {
                                exact=True),
 }
 
+# cases also run through ``graph.sharded_runner`` on the ranks
+RUNNER_CASES = ("matches_sequential_ch2_time2",)
+
 
 def _streams(mode: int, channels: int) -> np.ndarray:
     """[channels, N_BLOCKS * block_size] u8: the bench broadcast with
@@ -99,9 +106,13 @@ def _wideband_capture() -> np.ndarray:
 
 # ---- the rank ----
 
-def _run_case(case, mesh, iq):
+def _run_case(case, mesh, iq, runner: bool = False):
+    """This rank's outputs of every step, by the eager ``step`` loop or,
+    with ``runner``, through ``graph.sharded_runner`` at K=1 (captured
+    with its collectives on the card, its eager body under gloo)."""
     from dy4tpu_torch.config import get_mode
     from dy4tpu_torch.parallel import ShardedReceiver
+    from dy4tpu_torch.pipeline import graph
     from dy4tpu_torch.pipeline import receiver as rx
     cfg = get_mode(case["mode"])
     params = rx.make_params(cfg, device=mesh.device)
@@ -109,12 +120,20 @@ def _run_case(case, mesh, iq):
                         overlap_blocks=case["O"], exact=case["exact"])
     iq = torch.from_numpy(iq[:case["C"]])
     carry = r.init(case["C"])
+    pieces = [r.input_sharding(iq[:, k * r.chunk_len:(k + 1) * r.chunk_len])
+              for k in range(iq.shape[1] // r.chunk_len)]
     outs = []
-    for k in range(iq.shape[1] // r.chunk_len):
-        chunk = iq[:, k * r.chunk_len:(k + 1) * r.chunk_len]
-        carry, out = r.step(params, carry, r.input_sharding(chunk))
-        outs.append({f: v.cpu() for f, v in out._asdict().items()
-                     if v is not None})
+    if runner:
+        run = graph.sharded_runner(r, params, carry)
+        for piece in pieces:
+            out = run.run(piece[None])
+            outs.append({f: v[0].cpu() for f, v in out._asdict().items()
+                         if v is not None})
+    else:
+        for piece in pieces:
+            carry, out = r.step(params, carry, piece)
+            outs.append({f: v.cpu() for f, v in out._asdict().items()
+                         if v is not None})
     return dict(ch=mesh.ch_index, time=mesh.time_index, halo_if=r.halo_if,
                 outs=outs)
 
@@ -155,6 +174,11 @@ def _rank(rank: int, world: int, work: Path, backend: str) -> None:
         res = {name: _run_case(case, meshes[case["mesh"]],
                                data[f"mode{case['mode']}"])
                for name, case in CASES.items()}
+        for name in RUNNER_CASES:
+            case = CASES[name]
+            res[f"runner_{name}"] = _run_case(
+                case, meshes[case["mesh"]], data[f"mode{case['mode']}"],
+                runner=True)
         res["wideband_dp_ch2"] = _run_wideband(meshes[(2, 2)], data["wb"])
         torch.save(res, work / f"rank{rank}.pt")
     finally:
@@ -261,9 +285,27 @@ def _seq_stream(seq, field, c):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_ranks_match_sequential(launch, name):
+    _check_ranks(launch, name, name)
+
+
+@pytest.mark.parametrize("name", RUNNER_CASES)
+def test_sharded_runner_on_the_ranks_matches_sequential(launch, name):
+    """The same case through ``graph.sharded_runner`` (K=1, dy4tpu's
+    compiled ``step_c``): the sequential bars, and every step's outputs
+    bitwise those of the eager ``step`` loop on every rank."""
+    _check_ranks(launch, name, f"runner_{name}")
+    for r in launch[0]:
+        for got, want in zip(r[f"runner_{name}"]["outs"], r[name]["outs"],
+                             strict=True):
+            assert got.keys() == want.keys()
+            for f in want:
+                assert torch.equal(got[f], want[f]), f
+
+
+def _check_ranks(launch, name, key):
     from dy4tpu_torch.config import get_mode
     from dy4tpu_torch.ops import mix
-    results = [r[name] for r in launch[0]]
+    results = [r[key] for r in launch[0]]
     case = CASES[name]
     cfg = get_mode(case["mode"])
     seq = launch[1][case["mode"]]

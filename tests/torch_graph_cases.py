@@ -1,6 +1,7 @@
 """Helper of the port's chunk-runner tests (tests/test_torch_graph*.py):
 the receiver configurations the compiled step covers, their captures at
-a small size, the eager reference and bitwise comparisons.
+a small size, the eager reference, bitwise comparisons and the sync
+audit (``audited``).
 
 C=3 channels (the bench broadcast, the same with I/Q swapped, and the
 broadcast from 74 bytes in) over N_BLOCKS=5 blocks, so that chunks of 2
@@ -11,6 +12,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from dy4tpu_torch.config import get_mode
 from dy4tpu_torch.ops import frontend_cuda
@@ -121,3 +123,47 @@ def assert_tree_equal(got, want, label: str) -> None:
     names = getattr(want, "_fields", range(len(want)))
     for name, g, w in zip(names, got, want):
         assert_tree_equal(g, w, f"{label}.{name}")
+
+
+# ---- the sync audit ----
+
+_FORBIDDEN = ((torch, "tensor"), (torch, "as_tensor"), (torch, "from_numpy"),
+              (torch.Tensor, "item"), (torch.Tensor, "cpu"),
+              (torch.Tensor, "numpy"), (torch.Tensor, "tolist"))
+_BAD_OPS = ("aten._local_scalar_dense", "aten.nonzero")
+
+
+class _NoHostReads(TorchDispatchMode):
+    """Records every aten op dispatched whose name is in ``_BAD_OPS``."""
+
+    def __init__(self):
+        super().__init__()
+        self.bad = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        if name in _BAD_OPS:
+            self.bad.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+def audited(monkeypatch, fn):
+    """``fn()`` with the host-copy calls (``torch.tensor``,
+    ``torch.as_tensor``, ``torch.from_numpy``, ``Tensor.item`` / ``.cpu``
+    / ``.numpy`` / ``.tolist``) patched to raise and a dispatch mode
+    recording ``aten._local_scalar_dense`` and ``aten.nonzero``; raises
+    on either."""
+    calls = []
+    for owner, name in _FORBIDDEN:
+        def boom(*a, _name=name, **k):
+            calls.append(_name)
+            raise AssertionError(f"the warm step called {_name}")
+        monkeypatch.setattr(owner, name, boom)
+    mode = _NoHostReads()
+    try:
+        with mode:
+            fn()
+    finally:
+        monkeypatch.undo()
+    assert not calls, calls
+    assert not mode.bad, f"the warm step dispatched {sorted(set(mode.bad))}"
