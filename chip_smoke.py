@@ -9,12 +9,13 @@ the receiver's command line, through the exact time-sharded receiver,
 through the PSD path and the capture tools, through dy4tpu's A/B
 front-end routes and the kernels no receiver route runs, through fleet
 serving, through CDR dropouts, noise, echoes, channel isolation and a
-10^4-block soak, and through the compiled step (the receiver's chunk of
+10^4-block soak, through the compiled step (the receiver's chunk of
 K blocks, the wideband step's chunk and the sharded step, each as one
-captured CUDA graph):
+captured CUDA graph), and at dy4tpu's bf16-operand ``precision="default"``:
 
 0. requires a CUDA device; prints torch/CUDA versions and the card's name
-   and power limit; turns TF32 off (the receiver is float32 throughout);
+   and power limit; turns TF32 off (the receiver sums in float32 at every
+   precision);
 1. builds the kernels from ``dy4tpu_torch/csrc`` with nvcc;
 2. per mode, holds each kernel of the mode's path against its plain torch
    version at that mode's shapes (C=512 channels, one 32 ms block) on the
@@ -218,7 +219,25 @@ captured CUDA graph):
    one replay of ``run_blocks``' chunk graph of the same 6 blocks,
    alternating, medians of 5) beside phase 5's eager efficiency, and
    B8's share of the graphed step's device busy (added to B8's JSON
-   entry as ``sharded_eff_1dev_graphed`` and beside it).
+   entry as ``sharded_eff_1dev_graphed`` and beside it);
+13. phase 12, dy4tpu's ``precision="default"`` (bf16 operands, float32
+   sums; ``ops/precision.py``) at C=512 x 24 blocks: per mode, each
+   rounded kernel against its plain version at "default" on phase 2's
+   512 distinct rows (B1, B1-corr and B6: the RF stage and demod within
+   1e-5, the band stage held to its plain version fed the kernel's own
+   float32 fm and RDS band, within 1e-5, its copy tails exact; B3 / B5
+   within 1e-5, tails exact; B4, whose resampled stream can flip a bf16
+   rounding, at most 1% of its baseband past 1e-5, each within 1e-5 +
+   2^-8 max|y| sum|h_rrc|; at mode 0 B11 and B12 at phase 7's bars and
+   B7 within 1e-5), each timed; modes 0-3 and the IF entry at modes 0
+   and 1 through the graphs at chunk 8 at "default", at "highest" and
+   with no keyword: launches exact, no plain version called, channel 0
+   decoded, "default" bitwise its eager loop, "highest" bitwise the
+   call without the keyword, channel 0's RDS hard symbols equal across
+   the precisions, both timed; the tracker and dy4tpu's A/B fronts at
+   "default" for their launches; the wideband cell (graph bitwise
+   eager, decoded, timed at both) and the sharded cell (C=128, S=6,
+   through its runner bitwise the eager step and ``run_blocks``).
 
 Prints one JSON line of per-kernel results (one entry per kernel and
 geometry: its error against the plain version, its time and the plain
@@ -416,6 +435,10 @@ RESAMPLE_PINNED = {("B4", 0): dict(cycles=7), ("B4", 2): dict(cycles=4),
 SH_HALO_IF = 1920       # parallel/sharded.py's auto halo at mode 0
 _PLAN_SWEEP: list = []  # B3 / B4 / B5: every plan timed (_plan_sweep)
 PROFILE_REPS = 20       # calls under torch.profiler for the kernel alone
+# phase 12: dy4tpu's precision="default" (bf16 operands, float32 sums):
+# the graphs' chunk, a bf16 rounding step (relative), and the share of
+# B4's baseband its bf16 flips may move past 1e-5
+PREC_K, PREC_STEP, PREC_SHARE = 8, 2.0 ** -8, 0.01
 U32 = 2.0 ** -24        # float32 unit roundoff
 MOM_TOL = 1e-5         # tracker moments, relative to E[|i|^p |q|^r]
 # the tracker's readout against the fault (test_iqcorr.py's bars) and the
@@ -1080,7 +1103,7 @@ def _entry_ms(which: str, args, plan, reps: int = 20) -> float:
           else kernels.entry("audio_rational", "dy4_audio_rational",
                              rc._AUDIO_ARGS))
     call = (*(t.data_ptr() for t in args[:9 if b4 else 6]),
-            *(t.data_ptr() for t in outs), *geom,
+            *(t.data_ptr() for t in outs), *geom, 0,
             *rc._plan_args(plan, up, down),
             torch.cuda.current_stream().cuda_stream)
     for _ in range(3):
@@ -5144,6 +5167,687 @@ def _run_graph_slice(dev, smi, all_wrappers, results) -> None:
          f"{time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
+# ---- phase 12: dy4tpu's precision="default" (bf16 operands) ----
+
+def _plain_calls():
+    """A context that counts every call of the ops modules' plain
+    versions (their ``*_plain`` functions) while it is open; yields the
+    {name: calls} it fills."""
+    import contextlib
+    from dy4tpu_torch.ops import (backend_cuda, channelizer_cuda, fft_cuda,
+                                  fir_cuda, frontend_cuda, pll_cuda,
+                                  resample_cuda)
+
+    @contextlib.contextmanager
+    def ctx():
+        calls: dict = {}
+        saved = []
+        for mod in (frontend_cuda, backend_cuda, resample_cuda,
+                    channelizer_cuda, pll_cuda, fir_cuda, fft_cuda):
+            for name in dir(mod):
+                fn = getattr(mod, name)
+                if name.endswith("_plain") and callable(fn):
+                    def counted(*a, _fn=fn, _name=name, **k):
+                        calls[_name] = calls.get(_name, 0) + 1
+                        return _fn(*a, **k)
+                    saved.append((mod, name, fn))
+                    setattr(mod, name, counted)
+        try:
+            yield calls
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+    return ctx()
+
+
+def _prec_band_err(streams, taps_tails, fm, kb, rds) -> float:
+    """The band stage of B1 / B6 at "default" held to its plain version
+    fed the kernel's own float32 fm and, for the carrier BPF, its own RDS
+    band, so that no bf16 rounding flips between the two.  ``streams``:
+    the kernel's fm_delayed, pilot, stereo, carrier, rds_delayed and new
+    bank_tail, mono_delay, carrier_tail, rds_delay; ``taps_tails``: the
+    bank and carrier taps and the old band tails.  Raises where a tail
+    that copies the kernel's streams is not exact; returns the largest
+    difference of the filtered streams."""
+    import torch
+    from dy4tpu_torch.ops import fir, frontend_cuda, precision
+    h_bank, h_c, bank_tail, mono_delay, carrier_tail, rds_delay = taps_tails
+    fmd, pilot, stereo, carrier, rdsdel, bt, md, ct, rdl = streams
+    dly = kb // 2
+    want = frontend_cuda.band_stages_plain(
+        fm, h_bank, h_c, bank_tail, mono_delay, carrier_tail, rds_delay,
+        rds=rds, precision="default")
+    err = _max_err([pilot, stereo], want[1:3])
+    exact = torch.equal(bt, want[5]) and torch.equal(fmd[:, :dly],
+                                                     mono_delay)
+    if rds:
+        band = torch.cat([rdsdel[:, dly:], rdl], -1)      # the kernel's
+        sq = band * band
+        want_c, _ = fir.block_fir(precision.bf16(sq), precision.bf16(h_c),
+                                  precision.bf16(carrier_tail))
+        err = max(err, _max_err([band, carrier], [torch.cat(
+            [want[4][:, dly:], want[8]], -1), want_c]))
+        exact = exact and torch.equal(ct, sq[:, -(kb - 1):]) and (
+            torch.equal(rdsdel[:, :dly], rds_delay))
+    if not exact:
+        raise AssertionError("phase 12: a band tail does not copy the "
+                             "kernel's own float32 stream")
+    return err
+
+
+def _prec_front_rows(cfg, params, blk, fs, dev) -> list:
+    """Phase 12's B1 (and B1-corr, B6) at "default" on ``blk`` from the
+    front state ``fs``: the RF stage and demod against the plain version
+    at "default" within 1e-5 (fm, prev_i / prev_q; the RF tail exact),
+    then the band stage on the kernel's own fm (``_prec_band_err``)."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    from dy4tpu_torch.ops import precision as pr
+
+    rds = cfg.supports_rds
+    mode = f"mode{cfg.mode}"
+    kb = cfg.num_taps
+    dly = kb // 2
+    cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
+    fargs = (blk, params.rf_coeff, params.bank_coeff,
+             params.rds_carrier_coeff, *(cont(t) for t in (
+                 fs.rf.iq_tail, fs.rf.prev_i, fs.rf.prev_q, fs.bank_tail,
+                 fs.mono_delay, fs.carrier_tail, fs.rds_delay)),
+             cfg.rf_decim)
+    taps_tails = (params.bank_coeff, params.rds_carrier_coeff, *fargs[7:11])
+    nbytes = lambda out: _nbytes(  # noqa: E731
+        fargs[:11] if rds else fargs[:3] + fargs[4:9], out)
+    rows = []
+    corrs = [None]
+    if cfg.mode in OPT_MODES:
+        g = np.random.default_rng(cfg.mode)
+        corrs.append(torch.from_numpy(np.stack(
+            [g.uniform(-0.05, 0.05, C), g.uniform(-0.05, 0.05, C),
+             g.uniform(-0.2, 0.2, C), g.uniform(0.8, 1.2, C)],
+            axis=-1).astype(np.float32)).to(dev))
+    for corr in corrs:
+        kw = dict(rds=rds, corr=corr, precision="default")
+        k_out = fc.fused_frontend_full(*fargs, **kw)
+        p_out = fc.fused_frontend_full_plain(*fargs, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(k_out[5], p_out[5]):
+            raise AssertionError(f"phase 12: B1 {mode}: iq_tail differs")
+        fm = torch.cat([k_out[0][:, dly:], k_out[9]], -1)
+        fm_p = torch.cat([p_out[0][:, dly:], p_out[9]], -1)
+        err = max(_max_err([fm, *k_out[6:8]], [fm_p, *p_out[6:8]]),
+                  _prec_band_err([k_out[i] for i in (0, 1, 2, 3, 4, 8, 9,
+                                                     10, 11)],
+                                 taps_tails, fm, kb, rds))
+        extra = {"precision": "default"}
+        if corr is not None:
+            extra["mom_rel_err"] = float(
+                ((k_out[12] - p_out[12]).abs()
+                 / p_out[12].abs().clamp(min=1e-6)).max())
+        rows.append(_Row(
+            "B1 frontend" if corr is None else "B1 frontend_corr",
+            f"{mode} decim {cfg.rf_decim} rds={rds} default",
+            "dy4tpu_torch/csrc/frontend.cu",
+            "dy4tpu/ops/frontend_pallas.py:693",
+            fc.fused_frontend_full if corr is None
+            else fc.fused_frontend_full.corr, err, 1e-5,
+            lambda kw=kw: fc.fused_frontend_full(*fargs, **kw),
+            lambda kw=kw: fc.fused_frontend_full_plain(*fargs, **kw),
+            nbytes=nbytes(k_out),
+            flops=_front_flops(cfg, C, rds, rf=True, corr=corr is not None),
+            extra=extra, phase="phase 12"))
+        del k_out, p_out
+    if cfg.mode in B6_MODES:
+        i_if, q_if, _ = fc.rf_lpf_plain(blk, params.rf_coeff,
+                                        fs.rf.iq_tail, cfg.rf_decim)
+        iargs = (i_if.contiguous(), q_if.contiguous(), *fargs[5:7],
+                 params.bank_coeff, params.rds_carrier_coeff, *fargs[7:11])
+        kw = dict(rds=rds, precision="default")
+        k_out = fc.fused_frontend_if(*iargs, **kw)
+        p_out = fc.fused_frontend_if_plain(*iargs, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(k_out[5], p_out[5])
+                and torch.equal(k_out[6], p_out[6])):
+            raise AssertionError(f"phase 12: B6 {mode}: prev_i/prev_q differ")
+        fm = torch.cat([k_out[0][:, dly:], k_out[8]], -1)
+        fm_p = torch.cat([p_out[0][:, dly:], p_out[8]], -1)
+        err = max(_max_err([fm], [fm_p]),
+                  _prec_band_err([k_out[i] for i in (0, 1, 2, 3, 4, 7, 8, 9,
+                                                     10)],
+                                 taps_tails, fm, kb, rds))
+        rows.append(_Row(
+            "B6 frontend_if", f"{mode} rds={rds} default",
+            "dy4tpu_torch/csrc/frontend.cu",
+            "dy4tpu/ops/frontend_pallas.py:881", fc.fused_frontend_if, err,
+            1e-5, lambda: fc.fused_frontend_if(*iargs, **kw),
+            lambda: fc.fused_frontend_if_plain(*iargs, **kw),
+            nbytes=_nbytes(iargs if rds else iargs[:5] + iargs[6:8], k_out),
+            flops=_front_flops(cfg, C, rds, rf=False),
+            extra={"precision": "default"}, phase="phase 12"))
+        del k_out, p_out
+    if cfg.mode == 0:
+        # B11 / B12 (dy4tpu's A/B front ends): the RF stage on rounded taps
+        for wrap, plain, name, line in (
+                (fc.fused_frontend_raw, fc.fused_frontend_raw_plain,
+                 "B11 frontend_raw", ":429"),
+                (fc.fused_frontend, fc.fused_frontend_plain,
+                 "B12 frontend_phase", ":983")):
+            rargs = (blk, params.rf_coeff, *fargs[4:7], cfg.rf_decim)
+            k_out = wrap(*rargs, precision="default")
+            p_out = plain(*rargs, precision="default")
+            i_ds, q_ds, _ = fc.rf_lpf_plain(blk, pr.taps(params.rf_coeff,
+                                                         "default"),
+                                            fs.rf.iq_tail, cfg.rf_decim)
+            live = i_ds * i_ds + q_ds * q_ds > AB_POWER
+            torch.cuda.synchronize()
+            if not torch.equal(k_out[1], p_out[1]) or _max_err(
+                    k_out[2:], p_out[2:]) > AB_PREV_TOL:
+                raise AssertionError(f"phase 12: {name}: iq_tail or "
+                                     f"prev_i/prev_q off")
+            err = float((k_out[0] - p_out[0]).abs()[live].max())
+            rows.append(_Row(
+                name, f"{mode} default", "dy4tpu_torch/csrc/frontend_rf.cu",
+                f"dy4tpu/ops/frontend_pallas.py{line}", wrap, err, AB_TOL,
+                lambda w=wrap, a=rargs: w(*a, precision="default"),
+                lambda p=plain, a=rargs: p(*a, precision="default"),
+                nbytes=_nbytes(rargs[:5], k_out),
+                flops=C * cfg.if_per_block * (4 * cfg.num_taps + 9),
+                extra={"precision": "default"}, phase="phase 12"))
+            del k_out, p_out
+    return rows
+
+
+def _prec_back_rows(cfg, params, blk, st, dev) -> list:
+    """Phase 12's B3 / B5 and B4 at "default" on block ``blk``'s front
+    outputs from state ``st``: B3 / B5 within 1e-5 of the plain version
+    at "default" (both round the same mixed products), their tails exact;
+    B4 whose resampled stream, summed in another order, can flip a bf16
+    rounding before the RRC: at most PREC_SHARE of its baseband past
+    1e-5, each within 1e-5 + 2^-8 max|y| sum|h_rrc|, its LPF tails
+    exact."""
+    import torch
+    from dy4tpu_torch.ops import (backend_cuda, fir, frontend_cuda, pll,
+                                  precision, resample_cuda)
+    from dy4tpu_torch.pipeline import receiver as rx
+
+    rds = cfg.supports_rds
+    mode = f"mode{cfg.mode}"
+    fs = rx.front_state_of(st)
+    fargs = (blk, params.rf_coeff, params.bank_coeff,
+             params.rds_carrier_coeff, fs.rf.iq_tail, fs.rf.prev_i,
+             fs.rf.prev_q, fs.bank_tail, fs.mono_delay, fs.carrier_tail,
+             fs.rds_delay, cfg.rf_decim)
+    fo = [None if t is None else t.contiguous() for t in
+          frontend_cuda.fused_frontend_full_plain(*fargs, rds=rds,
+                                                  precision="default")]
+    fmd, pilot, stereo, carrier, rdsdel = fo[:5]
+    x, lanes, state, _, _, _ = _pll_case(cfg, st, pilot, carrier, dev)
+    nco_i2, nco_q2, _ = pll.pll(x, state, fs=cfg.if_fs, impl="auto",
+                                **lanes)
+    nco = (nco_i2[:, 0] if rds else nco_i2).contiguous()
+    bs = rx.back_state_of(st)
+    rows = []
+    aargs = (fmd, stereo, nco, params.audio_coeff, bs.mono_tail.contiguous(),
+             bs.stereo_tail.contiguous())
+    if cfg.audio_up == 1:
+        wrap, plain, rate = (backend_cuda.fused_audio_backend,
+                             backend_cuda.fused_audio_backend_plain,
+                             (cfg.audio_down,))
+        name, line, geometry = ("B3 audio_backend", "backend_pallas.py:93",
+                                f"{mode} D={cfg.audio_down} default")
+    else:
+        wrap, plain, rate = (resample_cuda.fused_audio_backend_rational,
+                             resample_cuda.fused_audio_backend_rational_plain,
+                             (cfg.audio_up, cfg.audio_down))
+        name, line, geometry = (
+            "B5 audio_rational", "resample_pallas.py:173",
+            f"{mode} {cfg.audio_up}/{cfg.audio_down} default")
+    aargs += rate
+    k_out = wrap(*aargs, precision="default")
+    p_out = plain(*aargs, precision="default")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out[3:], p_out[3:])):
+        raise AssertionError(f"phase 12: {name} {mode}: tails differ")
+    rows.append(_Row(
+        name, geometry, "dy4tpu_torch/csrc/audio_rational.cu",
+        f"dy4tpu/ops/{line}", wrap, _max_err(k_out, p_out), 1e-5,
+        lambda: wrap(*aargs, precision="default"),
+        lambda: plain(*aargs, precision="default"),
+        nbytes=_nbytes(aargs[:6], k_out),
+        flops=_rational_flops(name.split()[0], aargs),
+        extra={"precision": "default"}, phase="phase 12"))
+    if rds:
+        nco_i = nco_i2[:, 1].contiguous()
+        nco_q = nco_q2[:, 1].contiguous()
+        rargs = (rdsdel, nco_i, nco_q, params.rds_lpf_coeff,
+                 params.rds_rrc_coeff, bs.lpf_tail_i.contiguous(),
+                 bs.lpf_tail_q.contiguous(), bs.rrc_tail_i.contiguous(),
+                 bs.rrc_tail_q.contiguous(), cfg.rds_up, cfg.rds_down)
+        k_out = resample_cuda.fused_rds_backend(*rargs, precision="default")
+        p_out = resample_cuda.fused_rds_backend_plain(*rargs,
+                                                      precision="default")
+        y, _ = fir.block_fir_resample(
+            precision.bf16(torch.stack([nco_i * rdsdel, nco_q * rdsdel])),
+            precision.bf16(params.rds_lpf_coeff),
+            precision.bf16(torch.stack([rargs[5], rargs[6]])),
+            up=cfg.rds_up, down=cfg.rds_down)
+        bound = 1e-5 + PREC_STEP * float(y.abs().max()) * float(
+            params.rds_rrc_coeff.abs().sum())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k_out[2:4],
+                                                     p_out[2:4])):
+            raise AssertionError(f"phase 12: B4 {mode}: LPF tails differ")
+        share = max(float(((a - b).abs() > 1e-5).double().mean())
+                    for a, b in zip(k_out[:2], p_out[:2]))
+        rrc_err = _max_err(k_out[4:], p_out[4:])
+        if share > PREC_SHARE or rrc_err > 1e-5:
+            raise AssertionError(f"phase 12: B4 {mode}: {share:.4%} of the "
+                                 f"baseband past 1e-5 (at most "
+                                 f"{PREC_SHARE:.0%}), RRC tails "
+                                 f"{rrc_err:.3g}")
+        _say(f"phase 12: B4 {mode} default: {share:.4%} of the baseband past "
+             f"1e-5 of the plain version (bf16 flips of the resampled "
+             f"stream), the flip bound {bound:.3g}; RRC tails within "
+             f"{rrc_err:.3g}, LPF tails exact")
+        rows.append(_Row(
+            "B4 rds_backend", f"{mode} {cfg.rds_up}/{cfg.rds_down} default",
+            "dy4tpu_torch/csrc/rds_backend.cu",
+            "dy4tpu/ops/resample_pallas.py:275",
+            resample_cuda.fused_rds_backend, _max_err(k_out, p_out), bound,
+            lambda: resample_cuda.fused_rds_backend(*rargs,
+                                                    precision="default"),
+            lambda: resample_cuda.fused_rds_backend_plain(
+                *rargs, precision="default"),
+            nbytes=_nbytes(rargs[:9], k_out),
+            flops=_rational_flops("B4", rargs),
+            extra={"precision": "default", "share_past_1e-5": share},
+            phase="phase 12"))
+    return rows
+
+
+def _prec_graph(label, cfg, params, entry, inputs, dev, smi, all_wrappers,
+                init_kw=None, launches_only=False):
+    """Phase 12 at one configuration of the receiver: ``graph.run_blocks``
+    (``run_blocks_if``) at chunk PREC_K at "default", at "highest" and
+    with no keyword (the call as before), each with its launches exact
+    and no plain version called, channel 0 decoded; "default" bitwise its
+    eager loop, "highest" bitwise the call as before, the RDS hard
+    symbols of channel 0 equal between the precisions; both timed.
+    Returns ({wrapper: launches at "default"}, the timed rows)."""
+    import torch
+    from dy4tpu_torch.pipeline import graph
+    from dy4tpu_torch.pipeline import receiver as rx
+
+    init_kw = init_kw or {}
+    corr = bool(init_kw.get("with_iqcorr"))
+    run_g = graph.run_blocks if entry == "rf" else graph.run_blocks_if
+    path = _path(cfg, entry, corr=corr)
+
+    def init():
+        return rx.init_state(cfg, (C,), device=dev, **init_kw)
+
+    def graphed(**kw):
+        return run_g(params, init(), *inputs, cfg, chunk=PREC_K, **kw)
+
+    graph.clear()
+    got, peak, launches = {}, {}, {}
+    precs = (("default", dict(precision="default")),) + (() if launches_only
+                                                          else (
+        ("highest", dict(precision="highest")), ("as before", {})))
+    for name, kw in precs:
+        runner = graph.cached_runner(params, init(), cfg, entry, kw)
+        warm0 = runner.warm_blocks
+        _zero(all_wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        with _plain_calls() as calls:
+            got[name] = graphed(**kw)
+            torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+        n = N_BLOCKS + runner.warm_blocks - warm0
+        want = {w: n for w in path}
+        off = _launches_off(all_wrappers, want)
+        if off or calls:
+            raise AssertionError(f"phase 12: {label} {name}: launches (got, "
+                                 f"expected) {off}, plain versions called "
+                                 f"{calls}")
+        if name == "default":
+            launches = want
+        _check_outputs(f"{label} graph chunk {PREC_K} {name}", cfg,
+                       got[name][1], phase="phase 12")
+    _say(f"phase 12: {label}: launches at default " + ", ".join(
+        f"{w.__name__} {v}" for w, v in launches.items())
+        + f" ({N_BLOCKS} blocks + the warm-up), nothing else, no plain "
+        f"version called")
+    if launches_only:
+        graph.clear()
+        return launches, None
+    # "default" bitwise its eager loop
+    if entry == "rf":
+        eager = rx.run_blocks(params, init(), inputs[0], cfg,
+                              precision="default")
+    else:
+        st, outs = init(), []
+        for i_b, q_b in zip(*inputs):
+            st, out = rx.receiver_step_if(params, st, i_b, q_b, cfg,
+                                          precision="default")
+            outs.append(out)
+        eager = (st, graph._stack(outs))
+    diffs = (_tree_diffs(got["default"][1], eager[1], "outputs.")
+             + _tree_diffs(got["default"][0], eager[0], "state.")
+             + _tree_diffs(got["highest"][1], got["as before"][1], "outputs.")
+             + _tree_diffs(got["highest"][0], got["as before"][0], "state."))
+    if diffs:
+        raise AssertionError(f"phase 12: {label}: default graph vs eager or "
+                             f"highest vs the call as before not bitwise: "
+                             f"{diffs}")
+    sym = ""
+    if cfg.supports_rds:
+        # dy4tpu's precision_check.py bar: the hard symbols equal.  A
+        # symbol whose soft value at "highest" lies within the RRC stage's
+        # bf16 flip bound of 0 (its input's scale taken from its output)
+        # is a tie the rounding may decide either way: counted, at most
+        # PREC_SHARE of the symbols
+        hi = got["highest"][1]
+        a, b = (got[k][1].rds_symbols[:, 0] for k in ("default", "highest"))
+        tie = 1e-5 + PREC_STEP * float(torch.maximum(
+            hi.rds_bb_i[:, 0].abs().max(), hi.rds_bb_q[:, 0].abs().max())
+        ) * float(params.rds_rrc_coeff.abs().sum())
+        differ = a != b
+        ties = int(differ.sum())
+        if ties > PREC_SHARE * a.numel() or bool(
+                (differ & (hi.rds_sym_i[:, 0].abs() > tie)).any()):
+            raise AssertionError(f"phase 12: {label}: channel 0's RDS "
+                                 f"symbols at default differ from highest's "
+                                 f"in {ties} of {a.numel()}: more than "
+                                 f"{PREC_SHARE:.0%}, or not only where the "
+                                 f"soft value is within {tie:.3g} of 0")
+        sym = (f"; channel 0's {a.numel()} RDS hard symbols equal "
+               f"\"highest\"'s" + (f" but {ties} whose soft value at "
+                                   f"\"highest\" is within the flip bound "
+                                   f"{tie:.3g} of 0" if ties else ""))
+    mono = _max_err([got["default"][1].mono], [got["highest"][1].mono])
+    _say(f"phase 12: {label}: default graph bitwise its eager loop, "
+         f"\"highest\" bitwise the call as before{sym}; max |mono default - "
+         f"highest| {mono:.3g}")
+    del eager
+    iq = N_BLOCKS * C * cfg.iq_per_block
+    row = _timed_rows({k: (lambda kw=dict(kw): graphed(**kw))
+                       for k, kw in precs[:2]}, N_BLOCKS, iq, peak)
+    _say(f"phase 12: {label}, {N_BLOCKS} blocks x {C}, graph chunk {PREC_K}, "
+         f"medians of {GRAPH_REPS}: " + "; ".join(
+             f"{k} {r['ms']:.4f} ms a block "
+             f"({r['spread'][0] * 1e3 / N_BLOCKS:.4f}-"
+             f"{r['spread'][1] * 1e3 / N_BLOCKS:.4f}), {r['msps']:.1f} MS/s, "
+             f"device busy {r['busy']:.4f} ms a block (span {r['span']:.4f})"
+             for k, r in row.items())
+         + f"; default / highest "
+         f"{row['default']['ms'] / row['highest']['ms']:.3f} by ms a block on "
+         f"{smi}")
+    graph.clear()
+    return launches, row
+
+
+def _prec_mode(mode, dev, smi, all_wrappers) -> tuple[list, dict]:
+    """Phase 12 at one mode: the rounded kernels against their plain
+    versions on phase 2's rows (block 1, mid-stream), the RF entry (and
+    at modes 0 and 1 the IF entry; at mode 0 the tracker and the A/B
+    fronts for their launches) through the graphs.  Returns (the JSON
+    rows, {label: timed rows})."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import frontend_cuda
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tx import fm
+
+    cfg = get_mode(mode)
+    params = rx.make_params(cfg, device=dev)
+    blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1), cfg, dev)
+    st, _ = rx.receiver_step(params, rx.init_state(cfg, (C,), device=dev),
+                             blocks[0], cfg, precision="default")
+    rows = (_prec_front_rows(cfg, params, blocks[1], rx.front_state_of(st),
+                             dev)
+            + _prec_back_rows(cfg, params, blocks[1], st, dev))
+    timing, launches = {}, {}
+    got, timing[f"mode {mode}"] = _prec_graph(
+        f"mode {mode}", cfg, params, "rf", (blocks,), dev, smi, all_wrappers)
+    launches.update(got)
+    if mode in B6_MODES:
+        tail = torch.zeros(C, 2, cfg.num_taps - 1, device=dev)
+        i_if = torch.empty(N_BLOCKS, C, cfg.if_per_block, device=dev)
+        q_if = torch.empty_like(i_if)
+        for b in range(N_BLOCKS):
+            i_if[b], q_if[b], tail = frontend_cuda.rf_lpf_plain(
+                blocks[b], params.rf_coeff, tail, cfg.rf_decim)
+        got, timing[f"IF entry mode {mode}"] = _prec_graph(
+            f"IF entry mode {mode}", cfg, params, "if", (i_if, q_if), dev, smi,
+            all_wrappers)
+        launches.update(got)
+        del i_if, q_if
+    if mode in OPT_MODES:
+        got, _ = _prec_graph(f"mode {mode} IQ tracker", cfg, params, "rf",
+                             (blocks,), dev, smi, all_wrappers,
+                             init_kw=dict(with_iqcorr=True),
+                             launches_only=True)
+        launches.update(got)
+    if mode == 0:
+        # dy4tpu's A/B fronts, eager: B11 / B12 once a block
+        for front, wrap in (("fused-rf", frontend_cuda.fused_frontend_raw),
+                            ("fused-phase", frontend_cuda.fused_frontend)):
+            (_, outs), counts = _run_path(
+                f"mode 0 frontend={front!r} default", cfg,
+                lambda f=front: rx.run_blocks(
+                    params, rx.init_state(cfg, (C,), device=dev), blocks,
+                    cfg, frontend=f, precision="default"),
+                all_wrappers, phase="phase 12",
+                front=front)
+            _check_outputs(f"mode 0 frontend={front!r} default", cfg, outs,
+                           phase="phase 12")
+            launches[wrap] = counts[wrap]
+            del outs
+    done = [r.finish(smi, mode) for r in rows]
+    for r in done:
+        r["launches"] = launches.get(r["wrapper"], 0)
+    del blocks
+    torch.cuda.empty_cache()
+    return done, timing
+
+
+def _prec_wideband(dev, smi, all_wrappers) -> tuple[list, dict]:
+    """Phase 12's wideband cell (32 bands x 16 channels, 32 steps) at
+    "default": B7 against its plain version at "default" on 32 random
+    band rows; the step through ``graph.run_wideband_blocks`` at chunk
+    PREC_K bitwise the eager loop, launches exact, no plain version
+    called, channel 3 of bands 0 and 31 decoded; both precisions timed.
+    Returns (B7's JSON row, {label: timed rows})."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import channelizer_cuda as chc
+    from dy4tpu_torch.pipeline import graph
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.pipeline import wideband as wb
+
+    cfg = get_mode(0)
+    chan = wb.make_wideband(cfg, WB_C, taps_per_branch=WB_T, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.randint(0, 256, (WB_BANDS, 2 * WB_C * cfg.if_per_block),
+                      generator=gen, device=dev, dtype=torch.uint8)
+    ti, tq = (torch.randn(WB_BANDS, WB_C * WB_T - 1, generator=gen,
+                          device=dev) for _ in range(2))
+    args = (x, chan.p, ti, tq)
+    k_out = chc.channelize_branches(*args, precision="default")
+    p_out = chc.channelize_branches_plain(*args, precision="default")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out[1:], p_out[1:])):
+        raise AssertionError("phase 12: B7: tails differ")
+    row = _Row("B7 channelizer", f"C={WB_C} T={WB_T} default",
+               "dy4tpu_torch/csrc/channelizer.cu",
+               "dy4tpu/ops/channelizer.py:344", chc.channelize_branches,
+               _max_err(k_out, p_out), 1e-5,
+               lambda: chc.channelize_branches(*args, precision="default"),
+               lambda: chc.channelize_branches_plain(*args,
+                                                     precision="default"),
+               where=f"{WB_BANDS} bands", nbytes=_nbytes(args, k_out),
+               flops=2 * k_out[0].numel() * WB_T,
+               extra={"precision": "default"}, phase="phase 12")
+    del k_out, p_out
+
+    blocks = _wideband_capture(cfg, dev)
+    params = rx.make_params(cfg, device=dev)
+    label = f"wideband {WB_BANDS} bands x {WB_C} channels"
+    path = _path(cfg, "wideband")
+
+    def init():
+        return wb.wideband_init(cfg, chan, (WB_BANDS,))
+
+    def graphed(**kw):
+        return graph.run_wideband_blocks(params, chan, init(), blocks, cfg,
+                                         chunk=PREC_K, **kw)
+
+    eager = wb.run_wideband_blocks(params, chan, init(), blocks, cfg,
+                                   precision="default")
+    graph.clear()
+    got, peak = {}, {}
+    for name in ("default", "highest"):
+        runner = graph.cached_wideband_runner(params, chan, init(), cfg,
+                                              {"precision": name})
+        warm0 = runner.warm_blocks
+        _zero(all_wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        with _plain_calls() as calls:
+            got[name] = graphed(precision=name)
+            torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+        n = WB_STEPS + runner.warm_blocks - warm0
+        off = _launches_off(all_wrappers, {w: n for w in path})
+        if off or calls:
+            raise AssertionError(f"phase 12: {label} {name}: launches {off}, "
+                                 f"plain versions called {calls}")
+        if name == "default":
+            launches = n
+        _wideband_decoded(f"{label} graph chunk {PREC_K} {name}", cfg,
+                          got[name][1], "phase 12")
+    diffs = (_tree_diffs(got["default"][1], eager[1], "outputs.")
+             + _tree_diffs(got["default"][0], eager[0], "state."))
+    if diffs:
+        raise AssertionError(f"phase 12: {label}: the default graph is not "
+                             f"bitwise eager: {diffs}")
+    del eager
+    samples = WB_STEPS * WB_BANDS * WB_C * cfg.if_per_block
+    timed = _timed_rows({k: (lambda k=k: graphed(precision=k))
+                         for k in ("highest", "default")}, WB_STEPS,
+                        samples, peak)
+    _say(f"phase 12: {label}: the default graph bitwise its eager loop; "
+         f"launches {launches} a path kernel ({WB_STEPS} steps + the "
+         f"warm-up), no plain version; graph chunk {PREC_K}, medians of "
+         f"{GRAPH_REPS}: " + "; ".join(
+             f"{k} {r['ms']:.4f} ms a step, {r['msps']:.1f} MS/s, device "
+             f"busy {r['busy']:.4f} (span {r['span']:.4f})"
+             for k, r in timed.items())
+         + f"; default / highest "
+         f"{timed['default']['ms'] / timed['highest']['ms']:.3f} on {smi}")
+    graph.clear()
+    out = row.finish(smi, 0)
+    out["launches"] = launches
+    return [out], {label: timed}
+
+
+def _prec_sharded(dev, smi, all_wrappers) -> None:
+    """Phase 12's sharded cell (phase 5's point, C=128, S=6, exact) at
+    "default": ``graph.sharded_runner`` over 4 steps bitwise the eager
+    step loop and ``run_blocks`` at "default" over the same 24 blocks,
+    exact launches, no plain version called, channel 0 decoded."""
+    import torch
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll_cuda,
+                                  resample_cuda)
+    from dy4tpu_torch.parallel import ShardedReceiver, make_mesh
+    from dy4tpu_torch.pipeline import graph
+    from dy4tpu_torch.pipeline import receiver as rx
+    from dy4tpu_torch.tx import fm
+
+    cfg = get_mode(0)
+    params = rx.make_params(cfg, device=dev)
+    blocks = _channels(fm.stereo_rds_broadcast(cfg, N_BLOCKS + 1), cfg, dev,
+                       SH_C)
+    pieces = torch.stack([blocks[k * SH_S:(k + 1) * SH_S].permute(1, 0, 2)
+                          .reshape(SH_C, -1) for k in range(SH_STEPS)])
+    r = ShardedReceiver(cfg, make_mesh(), shard_blocks=SH_S,
+                        precision="default")
+    carry, outs = r.init(SH_C), []
+    for piece in pieces:
+        carry, out = r.step(params, carry, piece)
+        outs.append(out)
+    ref, ref_carry = graph._stack(outs), carry
+    runner = graph.sharded_runner(r, params, r.init(SH_C))
+    _zero(all_wrappers)
+    with _plain_calls() as calls:
+        got = runner.run_stream(pieces, chunk=1)
+        got_carry = runner.read()
+        torch.cuda.synchronize()
+    n = (SH_STEPS + runner.warm_blocks) * (SH_S + 1)
+    want = {frontend_cuda.fused_frontend_full: n,
+            backend_cuda.fused_audio_backend: n,
+            resample_cuda.fused_rds_backend: n,
+            pll_cuda.phase_scan_coded: SH_STEPS + runner.warm_blocks}
+    off = _launches_off(all_wrappers, want)
+    if off or calls:
+        raise AssertionError(f"phase 12: sharded: launches {off}, plain "
+                             f"versions called {calls}")
+    _, seq = rx.run_blocks(params, rx.init_state(cfg, (SH_C,), device=dev),
+                           blocks, cfg, precision="default")
+
+    def stream(x):      # [STEPS, C, S*n] -> [C, STEPS*S*n]
+        return x.movedim(0, -2).reshape(SH_C, -1)
+
+    diffs = (_tree_diffs(got, ref, "outputs.")
+             + _tree_diffs(got_carry, ref_carry, "carry."))
+    for f in ("mono", "left", "right", "rds_symbols"):
+        want_f = getattr(seq, f).movedim(0, -2).reshape(SH_C, -1)
+        if not torch.equal(stream(getattr(got, f)), want_f):
+            diffs.append((f"run_blocks {f}", "differs", 0.0))
+    if diffs:
+        raise AssertionError(f"phase 12: the sharded step at default is not "
+                             f"bitwise its eager step and run_blocks: {diffs}")
+    dec = fm.check_reception(
+        cfg, got.left[:, 0].reshape(N_BLOCKS, -1).cpu().numpy(),
+        got.right[:, 0].reshape(N_BLOCKS, -1).cpu().numpy(),
+        got.rds_symbols[:, 0].reshape(N_BLOCKS, -1).cpu().numpy(),
+        got.rds_resync[:, 0].reshape(N_BLOCKS).cpu().numpy())
+    _say(f"phase 12: sharded exact step at default, C={SH_C}, S={SH_S}, "
+         f"{SH_STEPS} steps through graph.sharded_runner: bitwise its eager "
+         f"step and run_blocks at default; launches " + ", ".join(
+             f"{w.__name__} {v}" for w, v in want.items())
+         + f", nothing else, no plain version; channel 0 decoded: "
+         f"separation L {dec['sep_l_db']:.1f} dB, R {dec['sep_r_db']:.1f} "
+         f"dB, PI {dec['pi']}, PS {dec['ps']!r}")
+    graph.clear()
+
+
+def _run_precision(dev, smi, all_wrappers, results) -> None:
+    """Phase 12: dy4tpu's precision="default" (bf16 operands, float32
+    sums) on the card: modes 0-3 and the IF entry at modes 0 and 1 through
+    the graphs, each rounded kernel against its plain version, the
+    wideband and the sharded cells; the rounded kernels' rows join
+    ``results`` with their launches at "default"."""
+    import torch
+    t_phase = time.perf_counter()
+    timing = {}
+    for mode in (0, 1, 2, 3):
+        rows, t = _prec_mode(mode, dev, smi, all_wrappers)
+        results += rows
+        timing.update(t)
+    rows, t = _prec_wideband(dev, smi, all_wrappers)
+    results += rows
+    timing.update(t)
+    _prec_sharded(dev, smi, all_wrappers)
+    _say("phase 12: graphed, default / highest by ms a block (a step): "
+         + ", ".join(f"{k} {v['default']['ms'] / v['highest']['ms']:.3f}"
+                     for k, v in timing.items())
+         + f"; phase 12 {time.perf_counter() - t_phase:.1f} s on {smi}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -5155,7 +5859,7 @@ def main() -> None:
     from dy4tpu_torch.pipeline import graph
     from dy4tpu_torch.runtime import kernels
 
-    # float32 throughout (dy4tpu's precision=HIGHEST): no TF32 anywhere
+    # float32 sums at every precision (bf16 only rounds operands): no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -5200,6 +5904,7 @@ def main() -> None:
     timed("9", _run_recovery, dev, smi, all_wrappers)
     timed("10", _run_graphs, dev, smi, all_wrappers)
     timed("11", _run_graph_slice, dev, smi, all_wrappers, results)
+    timed("12", _run_precision, dev, smi, all_wrappers, results)
     _say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in took.items()))
 

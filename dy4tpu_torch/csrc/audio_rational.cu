@@ -42,7 +42,10 @@
 // Numerics: nco * sb * 2 is the plain version's product in its order, so
 // the stereo tail is exact (the mono tail is a copy); every output is one
 // chain of fmaf over its taps in order from +0, whatever the plan; all
-// match the plain torch version to float32 tolerance.
+// match the plain torch version to float32 tolerance.  With `bf16` (dy4tpu's
+// mm_dtype=bf16) both legs are rounded to bf16 as they are staged, after
+// the mix, as dy4tpu's _kernel / _audio_kernel cast them before the dot;
+// the tails stay float32.
 
 #include "rational.cuh"
 
@@ -57,9 +60,11 @@ struct AudioIo {
   const float *mono_tail, *stereo_tail;    // [c, s]
   float *mono, *left, *right;              // [c, m_out]
   float *mono_tail_out, *stereo_tail_out;  // [c, s]
+  bool bf16;                               // stage both legs at bf16
 
   __device__ __forceinline__ float2 tail(long long row, int w, int s) const {
-    return make_float2(mono_tail[row * s + w], stereo_tail[row * s + w]);
+    return rational::bf16(
+        make_float2(mono_tail[row * s + w], stereo_tail[row * s + w]), bf16);
   }
   __device__ __forceinline__ void fetch(long long i, float& a, float& b,
                                         float& c) const {
@@ -78,8 +83,12 @@ struct AudioIo {
              reinterpret_cast<uintptr_t>(nco + i) |
              reinterpret_cast<uintptr_t>(sb + i)) & 15) == 0;
   }
-  __device__ __forceinline__ float2 mix(float a, float b, float c) const {
+  __device__ __forceinline__ float2 mix_raw(float a, float b,
+                                            float c) const {
     return make_float2(a, __fmul_rn(__fmul_rn(b, c), 2.0f));
+  }
+  __device__ __forceinline__ float2 mix(float a, float b, float c) const {
+    return rational::bf16(mix_raw(a, b, c), bf16);
   }
 
   __device__ __forceinline__ void prologue(const Plan&, const Item&, float*,
@@ -100,17 +109,8 @@ struct AudioIo {
       left[at] = __fadd_rn(vm, vs);
       right[at] = __fsub_rn(vm, vs);
     }
-    // the new tails: the row's last s samples of each leg, in the last tile
-    if (it.c_hi * p.step == p.n_in) {
-      const int w0 = p.n_in - it.c_lo * p.step;   // window slot of x_ext[n]
-      for (int i = ctid; i < it.nrows * p.s; i += p.compute_threads) {
-        const int r = i / p.s;
-        const int j = i - r * p.s;
-        const float2 v = xw[r * (p.guard + p.window) + w0 + j];
-        mono_tail_out[(it.row0 + r) * p.s + j] = v.x;
-        stereo_tail_out[(it.row0 + r) * p.s + j] = v.y;
-      }
-    }
+    rational::store_input_tails(*this, p, it, xw, mono_tail_out,
+                                stereo_tail_out, ctid);
   }
 };
 
@@ -131,17 +131,18 @@ struct Kernel {
 }  // namespace
 
 // fmd, sb, nco: [c, n_in]; h: [k]; tails [c, (k-1)/up]; outputs
-// [c, n_in*up/down] and the new tails; then resample_cuda._tile_plan's
-// plan.  Returns cudaGetLastError() after the launch (0 = launched;
+// [c, n_in*up/down] and the new tails; bf16 != 0 stages both legs at bf16
+// (the note; h comes rounded); then resample_cuda._tile_plan's plan.
+// Returns cudaGetLastError() after the launch (0 = launched;
 // cudaErrorInvalidValue, launching nothing, for a plan the kernel cannot
 // run).
 extern "C" int dy4_audio_rational(
     const float* fmd, const float* sb, const float* nco, const float* h,
     const float* mono_tail, const float* stereo_tail, float* mono,
     float* left, float* right, float* mono_tail_out, float* stereo_tail_out,
-    long long c, int n_in, int up, int down, int k, int span, int dinv,
-    int phases, int tmul, int tinv, int lead_group, int lead_mod, int lx,
-    int guard, int rows, int cycles, int n_tiles, int halo_cycles,
+    long long c, int n_in, int up, int down, int k, int bf16, int span,
+    int dinv, int phases, int tmul, int tinv, int lead_group, int lead_mod,
+    int lx, int guard, int rows, int cycles, int n_tiles, int halo_cycles,
     int window, int ystride, int yhead, int chunk, int groups,
     int compute_threads, int threads, int ctas, int items, int smem,
     void* stream) {
@@ -152,6 +153,6 @@ extern "C" int dy4_audio_rational(
       smem);
   const AudioIo io{h,    nullptr, fmd,   sb,    nco,           mono_tail,
                    stereo_tail, mono, left, right, mono_tail_out,
-                   stereo_tail_out};
+                   stereo_tail_out, bf16 != 0};
   return rational::launch<Kernel>(io, p, stream);
 }

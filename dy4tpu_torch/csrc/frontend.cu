@@ -20,10 +20,16 @@
 // B6 frontend_if_kernel replaces fused_frontend_if (_kernel_front_if): its
 // stage 1 reads float32 IF I/Q rows (a channelizer's output, already band-
 // limited and decimated) instead of running the u8 read and the RF LPF;
-// stages 2-4 are the same device routine, band_stages<kRds>.  Both kernels
-// are templated on RDS: without it the bank has two rows, stage 4 is
-// skipped, and neither the carrier taps nor the RDS tails and outputs are
-// touched (their pointers may be null).
+// stages 2-4 are the same device routine, band_stages<kRds, kBf16>.  Both
+// kernels are templated on RDS: without it the bank has two rows, stage 4
+// is skipped, and neither the carrier taps nor the RDS tails and outputs
+// are touched (their pointers may be null).  And on kBf16, dy4tpu's
+// mm_dtype=bf16 (precision "default" / "high", ops/precision.py): the bank
+// reads fm rounded to bf16 and the carrier BPF the squared RDS band
+// rounded to bf16, as dy4tpu's _band_stages casts both before its dots;
+// the wrapper passes bf16-rounded taps (the RF taps too: the u8 window is
+// exact in bf16, so the RF stage needs no change).  The mono and RDS
+// delays and every carried tail stay float32.
 //
 // What bounds it on the card: the float32 multiply-adds (2 x 101 per IF
 // sample for the RF legs, 4 x 101 for the bank and the carrier); the u8
@@ -302,8 +308,9 @@ __device__ void corr_stage(const Smem& s, const Geometry& g, const Tile& t,
 
 // Stages 2-4 of one tile.  On entry iq_i/iq_q hold the tile's I/Q from
 // l0 on (and tile 0's carried prev at s_b), visible to every thread, and
-// the bank (and carrier) taps are in shared memory.
-template <bool kRds>
+// the bank (and carrier) taps are in shared memory.  kBf16: the bank's fm
+// and the carrier BPF's squared band rounded to bf16 (the note above).
+template <bool kRds, bool kBf16>
 __device__ void band_stages(const Smem& s, const Geometry& g, const Tile& t,
                             long long row, int tid, const BandIO& io) {
   constexpr int kNb = kRds ? 3 : 2;
@@ -324,12 +331,31 @@ __device__ void band_stages(const Smem& s, const Geometry& g, const Tile& t,
   }
   __syncthreads();  // i / q are dead from here on
 
-  // ---- 3. band bank over fm, mono delay; with RDS the RDS band goes to
-  // rb and its square to sq = [carrier_tail || sq] (tile 0) or sq
+  // ---- 3. mono delay and the fm tails, from the float32 fm; then the
+  // band bank over fm (kBf16: over fm rounded in place, once those reads
+  // are done).  With RDS the RDS band goes to rb and its square to sq =
+  // [carrier_tail || sq] (tile 0) or sq, rounded on kBf16
+  for (int m = t.m0 + tid; m < t.m1; m += kThreads)
+    io.fmd[ro + m] = t.first && m < g.dly ? io.mono_delay[row * g.dly + m]
+                                          : fm[m - g.dly - t.f_base];
+  if (t.last) {
+    for (int k = tid; k < g.s_b; k += kThreads)
+      io.bank_tail_out[row * g.s_b + k] = fm[g.n_out - g.s_b + k - t.f_base];
+    for (int d = tid; d < g.dly; d += kThreads)
+      io.mono_delay_out[row * g.dly + d] =
+          fm[g.n_out - g.dly + d - t.f_base];
+  }
+  if (kBf16) {
+    __syncthreads();
+    for (int l = tid; l < n_fm; l += kThreads) fm[l] = rf::bf16(fm[l]);
+    __syncthreads();
+  }
   const int sq_off = t.first ? g.s_b : 0;
   if (kRds && t.first)
-    for (int k = tid; k < g.s_b; k += kThreads)
-      s.sq[k] = io.carrier_tail[row * g.s_b + k];
+    for (int k = tid; k < g.s_b; k += kThreads) {
+      const float v = io.carrier_tail[row * g.s_b + k];
+      s.sq[k] = kBf16 ? rf::bf16(v) : v;
+    }
   for (int c = tid; c < round4(t.n_bank) / kR; c += kThreads) {
     const int t0 = c * kR;
     float acc[kNb][kR] = {};
@@ -344,21 +370,12 @@ __device__ void band_stages(const Smem& s, const Geometry& g, const Tile& t,
           io.stereo[ro + m] = acc[1][k];
         }
         if (kRds) {
+          const float v = acc[kNb - 1][k] * acc[kNb - 1][k];
           s.rb[tt] = acc[kNb - 1][k];
-          s.sq[tt + sq_off] = acc[kNb - 1][k] * acc[kNb - 1][k];
+          s.sq[tt + sq_off] = kBf16 ? rf::bf16(v) : v;
         }
       }
     }
-  }
-  for (int m = t.m0 + tid; m < t.m1; m += kThreads)
-    io.fmd[ro + m] = t.first && m < g.dly ? io.mono_delay[row * g.dly + m]
-                                          : fm[m - g.dly - t.f_base];
-  if (t.last) {
-    for (int k = tid; k < g.s_b; k += kThreads)
-      io.bank_tail_out[row * g.s_b + k] = fm[g.n_out - g.s_b + k - t.f_base];
-    for (int d = tid; d < g.dly; d += kThreads)
-      io.mono_delay_out[row * g.dly + d] =
-          fm[g.n_out - g.dly + d - t.f_base];
   }
   if (!kRds) return;
   const int n_c = t.m1 - t.m0;
@@ -379,14 +396,17 @@ __device__ void band_stages(const Smem& s, const Geometry& g, const Tile& t,
     io.rdsdel[ro + m] = t.first && m < g.dly ? io.rds_delay[row * g.dly + m]
                                              : s.rb[m - g.dly - t.b0];
   if (t.last) {
-    for (int k = tid; k < g.s_b; k += kThreads)
-      io.carrier_tail_out[row * g.s_b + k] = s.sq[g.n_out - t.m0 + k];
+    // the float32 square of the row's last s_b RDS-band samples
+    for (int k = tid; k < g.s_b; k += kThreads) {
+      const float v = s.rb[g.n_out - g.s_b + k - t.b0];
+      io.carrier_tail_out[row * g.s_b + k] = v * v;
+    }
     for (int d = tid; d < g.dly; d += kThreads)
       io.rds_delay_out[row * g.dly + d] = s.rb[g.n_out - g.dly + d - t.b0];
   }
 }
 
-template <bool kRds, bool kCorr>
+template <bool kRds, bool kCorr, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kFullBlocks)
     frontend_full_kernel(
     const uint8_t* __restrict__ iq_u8, const float* __restrict__ h_rf,
@@ -422,10 +442,10 @@ __global__ void __launch_bounds__(kThreads, kFullBlocks)
           norm(x[g.bs - 2 * g.s_rf + 2 * k + leg]);
     }
   if (kCorr) corr_stage(s, g, t, row, tile, tid, corr, mom, partial, count);
-  band_stages<kRds>(s, g, t, row, tid, io);
+  band_stages<kRds, kBf16>(s, g, t, row, tid, io);
 }
 
-template <bool kRds>
+template <bool kRds, bool kBf16>
 __global__ void __launch_bounds__(kThreads) frontend_if_kernel(
     const float* __restrict__ i_if, const float* __restrict__ q_if,
     const float* __restrict__ h_bank, const float* __restrict__ h_carrier,
@@ -448,10 +468,10 @@ __global__ void __launch_bounds__(kThreads) frontend_if_kernel(
     s.iq_q[m - t.q_base] = q_if[ro + m];
   }
   __syncthreads();
-  band_stages<kRds>(s, g, t, row, tid, io);
+  band_stages<kRds, kBf16>(s, g, t, row, tid, io);
 }
 
-template <bool kRds, bool kCorr>
+template <bool kRds, bool kCorr, bool kBf16>
 int launch_full(const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
                 const float* h_carrier, const float* iq_tail,
                 float* iq_tail_out, const float* corr, float* mom,
@@ -460,7 +480,7 @@ int launch_full(const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
   if (!plan_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_floats(g, kRds, kCorr) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      frontend_full_kernel<kRds, kCorr>,
+      frontend_full_kernel<kRds, kCorr, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (kCorr) {
@@ -469,26 +489,42 @@ int launch_full(const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>(c), static_cast<unsigned>(g.n_tiles));
-  frontend_full_kernel<kRds, kCorr><<<grid, kThreads, smem, stream>>>(
+  frontend_full_kernel<kRds, kCorr, kBf16><<<grid, kThreads, smem, stream>>>(
       iq_u8, h_rf, h_bank, h_carrier, iq_tail, iq_tail_out, corr, mom,
       partial, count, io, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kRds>
+template <bool kRds, bool kBf16>
 int launch_if(const float* i_if, const float* q_if, const float* h_bank,
               const float* h_carrier, const BandIO& io, const Geometry& g,
               long long c, cudaStream_t stream) {
   if (!plan_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_floats(g, kRds, false) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      frontend_if_kernel<kRds>,
+      frontend_if_kernel<kRds, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(c), static_cast<unsigned>(g.n_tiles));
-  frontend_if_kernel<kRds><<<grid, kThreads, smem, stream>>>(
+  frontend_if_kernel<kRds, kBf16><<<grid, kThreads, smem, stream>>>(
       i_if, q_if, h_bank, h_carrier, io, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of launch_full for rds and bf16.
+template <bool kCorr>
+int launch_full_for(bool rds, bool bf16, const uint8_t* iq_u8,
+                    const float* h_rf, const float* h_bank,
+                    const float* h_carrier, const float* iq_tail,
+                    float* iq_tail_out, const float* corr, float* mom,
+                    float* partial, int* count, const BandIO& io,
+                    const Geometry& g, long long c, cudaStream_t st) {
+  auto launch = rds ? (bf16 ? launch_full<true, kCorr, true>
+                            : launch_full<true, kCorr, false>)
+                    : (bf16 ? launch_full<false, kCorr, true>
+                            : launch_full<false, kCorr, false>);
+  return launch(iq_u8, h_rf, h_bank, h_carrier, iq_tail, iq_tail_out, corr,
+                mom, partial, count, io, g, c, st);
 }
 
 }  // namespace
@@ -514,9 +550,11 @@ extern "C" long long dy4_frontend_smem(int tile, int sub, int decim,
 // carrier_tail [c, kb-1], rds_delay [c, kb/2]; the five outputs
 // [c, bs/2/decim] and the new tails in the shapes of the old ones.  With
 // rds = 0, h_carrier, carrier_tail, rds_delay, carrier, rdsdel and their
-// new tails are not touched and may be null.  tile, sub: the plan
-// (frontend_cuda._tile_plan).  Returns cudaGetLastError() after the
-// launch (0 = launched), cudaErrorInvalidValue for a plan it cannot run.
+// new tails are not touched and may be null.  bf16 != 0: the band stage
+// rounds its streams to bf16 (the note at the top; the taps come rounded).
+// tile, sub: the plan (frontend_cuda._tile_plan).  Returns
+// cudaGetLastError() after the launch (0 = launched),
+// cudaErrorInvalidValue for a plan it cannot run.
 extern "C" int dy4_frontend_full(
     const uint8_t* iq_u8, const float* h_rf, const float* h_bank,
     const float* h_carrier, const float* iq_tail, const float* prev_i,
@@ -526,7 +564,7 @@ extern "C" int dy4_frontend_full(
     float* iq_tail_out, float* prev_i_out, float* prev_q_out,
     float* bank_tail_out, float* mono_delay_out, float* carrier_tail_out,
     float* rds_delay_out, long long c, long long bs, int decim, int k_rf,
-    int kb, int rds, int tile, int sub, void* stream) {
+    int kb, int rds, int bf16, int tile, int sub, void* stream) {
   if (c <= 0) return 0;
   const Geometry g = make_geometry(bs, decim, k_rf, kb, rds != 0, tile, sub);
   const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
@@ -534,14 +572,9 @@ extern "C" int dy4_frontend_full(
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
                   carrier_tail_out, rds_delay_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return rds ? launch_full<true, false>(iq_u8, h_rf, h_bank, h_carrier,
-                                        iq_tail, iq_tail_out, nullptr,
-                                        nullptr, nullptr, nullptr, io, g, c,
-                                        st)
-             : launch_full<false, false>(iq_u8, h_rf, h_bank, h_carrier,
-                                         iq_tail, iq_tail_out, nullptr,
-                                         nullptr, nullptr, nullptr, io, g, c,
-                                         st);
+  return launch_full_for<false>(rds != 0, bf16 != 0, iq_u8, h_rf, h_bank,
+                                h_carrier, iq_tail, iq_tail_out, nullptr,
+                                nullptr, nullptr, nullptr, io, g, c, st);
 }
 
 // B1 with the corr epilogue: the arguments of dy4_frontend_full, then
@@ -558,7 +591,7 @@ extern "C" int dy4_frontend_full_corr(
     float* bank_tail_out, float* mono_delay_out, float* carrier_tail_out,
     float* rds_delay_out, const float* corr, float* mom, float* partial,
     int* count, long long c, long long bs, int decim, int k_rf, int kb,
-    int rds, int tile, int sub, void* stream) {
+    int rds, int bf16, int tile, int sub, void* stream) {
   if (c <= 0) return 0;
   const Geometry g = make_geometry(bs, decim, k_rf, kb, rds != 0, tile, sub);
   const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
@@ -566,12 +599,9 @@ extern "C" int dy4_frontend_full_corr(
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
                   carrier_tail_out, rds_delay_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return rds ? launch_full<true, true>(iq_u8, h_rf, h_bank, h_carrier,
-                                       iq_tail, iq_tail_out, corr, mom,
-                                       partial, count, io, g, c, st)
-             : launch_full<false, true>(iq_u8, h_rf, h_bank, h_carrier,
-                                        iq_tail, iq_tail_out, corr, mom,
-                                        partial, count, io, g, c, st);
+  return launch_full_for<true>(rds != 0, bf16 != 0, iq_u8, h_rf, h_bank,
+                               h_carrier, iq_tail, iq_tail_out, corr, mom,
+                               partial, count, io, g, c, st);
 }
 
 // B6.  i_if, q_if: [c, n_out] float32; the rest as for B1 without the RF
@@ -584,7 +614,8 @@ extern "C" int dy4_frontend_if(
     float* pilot, float* stereo, float* carrier, float* rdsdel,
     float* prev_i_out, float* prev_q_out, float* bank_tail_out,
     float* mono_delay_out, float* carrier_tail_out, float* rds_delay_out,
-    long long c, int n_out, int kb, int rds, int tile, void* stream) {
+    long long c, int n_out, int kb, int rds, int bf16, int tile,
+    void* stream) {
   if (c <= 0) return 0;
   const Geometry g = make_geometry(2LL * n_out, 1, 0, kb, rds != 0, tile, 0);
   const BandIO io{prev_i, prev_q, bank_tail, mono_delay, carrier_tail,
@@ -592,6 +623,8 @@ extern "C" int dy4_frontend_if(
                   prev_i_out, prev_q_out, bank_tail_out, mono_delay_out,
                   carrier_tail_out, rds_delay_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return rds ? launch_if<true>(i_if, q_if, h_bank, h_carrier, io, g, c, st)
-             : launch_if<false>(i_if, q_if, h_bank, h_carrier, io, g, c, st);
+  auto launch = rds ? (bf16 ? launch_if<true, true> : launch_if<true, false>)
+                    : (bf16 ? launch_if<false, true>
+                            : launch_if<false, false>);
+  return launch(i_if, q_if, h_bank, h_carrier, io, g, c, st);
 }

@@ -59,6 +59,13 @@
 //     named barrier of theirs; one __syncthreads of the whole block ends
 //     an item and hands the buffers over.
 //
+// Precision.  At dy4tpu's mm_dtype=bf16 (precision "default" / "high",
+// ops/precision.py) an Io's `bf16` flag rounds each mixed input sample to
+// bf16 as the copy warps store it (Io::mix, the tail-fill slots Io::tail
+// too), and B4 also rounds its resampled stream before the RRC; the
+// wrapper passes bf16-rounded taps.  The new input tails are the float32
+// samples all the same (store_input_tails).
+//
 // Numerics: every output is one chain of fmaf over its taps t = 0..S in
 // that order, from +0, whatever the plan: a zero tap of a shifted row
 // adds 0 * x, which leaves a sum that starts at +0 (and so is never -0)
@@ -71,6 +78,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#endif
 
 namespace rational {
 
@@ -198,6 +208,16 @@ inline bool plan_ok(const Plan& p) {
          4 * layout(p).total == p.smem;
 }
 
+// x rounded to bf16 (round to nearest even) and back to float32.
+__device__ __forceinline__ float bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Both of a staged pair rounded to bf16 where `on`.
+__device__ __forceinline__ float2 bf16(float2 v, bool on) {
+  return on ? make_float2(bf16(v.x), bf16(v.y)) : v;
+}
+
 // Work item `it`: rows [row0, row0 + nrows) and outputs [m0, m1) of
 // tile `tile`; its resampler runs cycles [c_lo, c_hi), the halo's first.
 struct Item {
@@ -284,6 +304,35 @@ __device__ __forceinline__ void load_window(const Io& io, const Plan& p,
         if (v < len) dst[v] = io.mix(a[q], b[q], c[q]);
       }
     }
+  }
+}
+
+// Compute thread `ctid`: the new input tails of the item's rows, the last
+// S mixed samples of each (a and b: the two streams), where the item is
+// its row's last tile: from the window, or at bf16, which stages the
+// rounded samples, from the inputs themselves (Io::fetch, Io::mix_raw).
+template <class Io>
+__device__ __forceinline__ void store_input_tails(const Io& io, const Plan& p,
+                                                  const Item& it,
+                                                  const float2* xw,
+                                                  float* out_a, float* out_b,
+                                                  int ctid) {
+  if (it.c_hi * p.step != p.n_in) return;
+  const int w0 = p.n_in - it.c_lo * p.step;   // window slot of x_ext[n]
+  for (int i = ctid; i < it.nrows * p.s; i += p.compute_threads) {
+    const int r = i / p.s;
+    const int j = i - r * p.s;
+    const long long row = it.row0 + r;
+    float2 v;
+    if (io.bf16) {
+      float a, b, c;
+      io.fetch(row * p.n_in + p.n_in - p.s + j, a, b, c);
+      v = io.mix_raw(a, b, c);
+    } else {
+      v = xw[r * (p.guard + p.window) + w0 + j];
+    }
+    out_a[row * p.s + j] = v.x;
+    out_b[row * p.s + j] = v.y;
   }
 }
 

@@ -48,7 +48,11 @@
 // so the LPF tails are exact; each half of the RRC sum runs its taps in
 // order as one chain of fmaf, and the halves are added in one order, so
 // the baseband and the RRC tails do not depend on the plan either.  All
-// match the plain torch version to float32 tolerance.
+// match the plain torch version to float32 tolerance.  With `bf16`
+// (dy4tpu's mm_dtype=bf16, as its _rds_kernel casts): the mixed legs are
+// rounded to bf16 as they are staged, and the resampled stream (the
+// carried RRC tail or the halo before it too) once the new RRC tail is
+// stored, before the RRC; every tail stays float32.
 
 #include "rational.cuh"
 
@@ -115,9 +119,11 @@ struct RdsIo {
   const float *rrc_i, *rrc_q;              // [c, k2 - 1]
   float *bb_i, *bb_q;                      // [c, m_out]
   float *lpf_i_out, *lpf_q_out, *rrc_i_out, *rrc_q_out;
+  bool bf16;                               // stage at bf16 (the note)
 
   __device__ __forceinline__ float2 tail(long long row, int w, int s) const {
-    return make_float2(lpf_i[row * s + w], lpf_q[row * s + w]);
+    return rational::bf16(
+        make_float2(lpf_i[row * s + w], lpf_q[row * s + w]), bf16);
   }
   __device__ __forceinline__ void fetch(long long i, float& a, float& b,
                                         float& c) const {
@@ -136,8 +142,12 @@ struct RdsIo {
              reinterpret_cast<uintptr_t>(nco_i + i) |
              reinterpret_cast<uintptr_t>(nco_q + i)) & 15) == 0;
   }
-  __device__ __forceinline__ float2 mix(float a, float b, float c) const {
+  __device__ __forceinline__ float2 mix_raw(float a, float b,
+                                            float c) const {
     return make_float2(__fmul_rn(b, a), __fmul_rn(c, a));
+  }
+  __device__ __forceinline__ float2 mix(float a, float b, float c) const {
+    return rational::bf16(mix_raw(a, b, c), bf16);
   }
 
   // tile 0 of a row: the carried RRC tail before the tile
@@ -156,7 +166,7 @@ struct RdsIo {
 
   __device__ __forceinline__ void epilogue(const Plan& p, const Item& it,
                                            const float2* xw, const float* hr,
-                                           const float* ye, float* bb,
+                                           float* ye, float* bb,
                                            int ctid) const {
     constexpr int G = kRrcGroup;
     const int n = it.m1 - it.m0;
@@ -165,6 +175,27 @@ struct RdsIo {
     const int split = rrc_split(p.k2);
     const int half = 2 * it.nrows * ng;    // groups of one half
     float* bb2 = bb + 2 * p.rows * tstride;
+    // the new RRC tail: this tile's outputs among the row's last s2
+    const int s2 = p.k2 - 1;
+    const int lo = it.m0 > p.m_out - s2 ? it.m0 : p.m_out - s2;
+    for (int i = ctid; i < 2 * it.nrows * (it.m1 - lo);
+         i += p.compute_threads) {
+      const int st = i / (it.m1 - lo);
+      const int m = lo + i - st * (it.m1 - lo);
+      const long long row = it.row0 + (st >> 1);
+      (st & 1 ? rrc_q_out : rrc_i_out)[row * s2 + m - (p.m_out - s2)] =
+          ye[st * p.ystride + p.yhead + m - it.m0];
+    }
+    if (bf16) {
+      // the RRC reads [s2 samples before the tile || the tile] at bf16
+      rational::sync_compute(p.compute_threads);
+      for (int i = ctid; i < 2 * it.nrows * (s2 + n); i += p.compute_threads) {
+        const int st = i / (s2 + n);
+        float& v = ye[st * p.ystride + p.yhead - s2 + i - st * (s2 + n)];
+        v = rational::bf16(v);
+      }
+      rational::sync_compute(p.compute_threads);
+    }
     for (int f = ctid; f < 2 * half; f += p.compute_threads) {
       const bool second = f >= half;
       const int g0 = second ? f - half : f;
@@ -190,28 +221,8 @@ struct RdsIo {
       (st & 1 ? bb_q : bb_i)[row * p.m_out + it.m0 + o] =
           __fadd_rn(bb[st * tstride + o], bb2[st * tstride + o]);
     }
-    // the new RRC tail: this tile's outputs among the row's last s2
-    const int s2 = p.k2 - 1;
-    const int lo = it.m0 > p.m_out - s2 ? it.m0 : p.m_out - s2;
-    for (int i = ctid; i < 2 * it.nrows * (it.m1 - lo);
-         i += p.compute_threads) {
-      const int st = i / (it.m1 - lo);
-      const int m = lo + i - st * (it.m1 - lo);
-      const long long row = it.row0 + (st >> 1);
-      (st & 1 ? rrc_q_out : rrc_i_out)[row * s2 + m - (p.m_out - s2)] =
-          ye[st * p.ystride + p.yhead + m - it.m0];
-    }
-    // the new LPF tail: the row's last s mixed samples, in the last tile
-    if (it.c_hi * p.step == p.n_in) {
-      const int w0 = p.n_in - it.c_lo * p.step;   // window slot of x_ext[n]
-      for (int i = ctid; i < it.nrows * p.s; i += p.compute_threads) {
-        const int r = i / p.s;
-        const int j = i - r * p.s;
-        const float2 v = xw[r * (p.guard + p.window) + w0 + j];
-        lpf_i_out[(it.row0 + r) * p.s + j] = v.x;
-        lpf_q_out[(it.row0 + r) * p.s + j] = v.y;
-      }
-    }
+    rational::store_input_tails(*this, p, it, xw, lpf_i_out, lpf_q_out,
+                                ctid);
   }
 };
 
@@ -233,7 +244,8 @@ struct Kernel {
 
 // rds, nco_i, nco_q: [c, n_in]; h_lpf [k]; h_rrc [k2]; lpf tails
 // [c, (k-1)/up]; rrc tails [c, k2-1]; bb_i/bb_q [c, n_in*up/down] and the
-// new tails; then resample_cuda._tile_plan's plan.  Returns
+// new tails; bf16 != 0 stages at bf16 (the note; h_lpf and h_rrc come
+// rounded); then resample_cuda._tile_plan's plan.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, launching
 // nothing, for a plan the kernel cannot run).
 extern "C" int dy4_rds_backend(
@@ -243,7 +255,7 @@ extern "C" int dy4_rds_backend(
     const float* rrc_tail_q, float* bb_i, float* bb_q,
     float* lpf_tail_i_out, float* lpf_tail_q_out, float* rrc_tail_i_out,
     float* rrc_tail_q_out, long long c, int n_in, int up, int down, int k,
-    int k2, int span, int dinv, int phases, int tmul, int tinv,
+    int k2, int bf16, int span, int dinv, int phases, int tmul, int tinv,
     int lead_group, int lead_mod, int lx, int guard, int rows, int cycles,
     int n_tiles, int halo_cycles, int window, int ystride, int yhead,
     int chunk, int groups, int compute_threads, int threads, int ctas,
@@ -258,6 +270,7 @@ extern "C" int dy4_rds_backend(
   const RdsIo io{h_lpf,          h_rrc,          rds,        nco_i,
                  nco_q,          lpf_tail_i,     lpf_tail_q, rrc_tail_i,
                  rrc_tail_q,     bb_i,           bb_q,       lpf_tail_i_out,
-                 lpf_tail_q_out, rrc_tail_i_out, rrc_tail_q_out};
+                 lpf_tail_q_out, rrc_tail_i_out, rrc_tail_q_out,
+                 bf16 != 0};
   return rational::launch<Kernel>(io, p, stream);
 }

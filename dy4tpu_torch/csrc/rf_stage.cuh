@@ -38,6 +38,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#endif
 
 namespace rf {
 
@@ -74,6 +77,13 @@ struct Bufs {
   float* iq_i;
   float* iq_q;
 };
+
+// x rounded to bf16 (round to nearest even) and back to float32: an
+// operand of dy4tpu's mm_dtype=bf16 (ops/precision.py).  B1 / B6's band
+// stage (frontend.cu) rounds its streams with it.
+__device__ __forceinline__ float bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

@@ -9,42 +9,39 @@ rational audio back end's (``csrc/audio_rational.cu`` over
 consecutive outputs, a thread owns P consecutive outputs whose shifted
 tap rows share each input read, and the plan comes from
 ``resample_cuda._tile_plan``.  It matches the plain version to float32
-tolerance; the tails are exact.
+tolerance; the tails are exact.  ``precision`` rounds as
+``resample_cuda``'s back ends do.
 """
 
 from __future__ import annotations
 
-import torch
-
-from dy4tpu_torch.ops import fir, mix, resample_cuda
+from dy4tpu_torch.ops import resample_cuda
 
 
 def fused_audio_backend_plain(fm_delayed, stereo_band, nco, h_audio,
-                              mono_tail, stereo_tail, decim: int):
+                              mono_tail, stereo_tail, decim: int,
+                              precision: str = "highest"):
     """Plain torch version of ``fused_audio_backend`` (any leading batch
-    dims, any device): mix, one stacked resampler call, stereo matrix."""
-    stereo_mixed = mix.mix(nco, stereo_band, gain=2.0)
-    audio_in = torch.stack([fm_delayed, stereo_mixed], dim=-2)
-    tails = torch.stack([mono_tail, stereo_tail], dim=-2)
-    out, tails = fir.block_fir_resample(audio_in, h_audio, tails,
-                                        down=decim)
-    mono, stereo_lp = out[..., 0, :], out[..., 1, :]
-    left, right = mix.stereo_matrix(mono, stereo_lp)
-    return mono, left, right, tails[..., 0, :], tails[..., 1, :]
+    dims, any device): the rational back end's plain version at U = 1."""
+    return resample_cuda.fused_audio_backend_rational_plain(
+        fm_delayed, stereo_band, nco, h_audio, mono_tail, stereo_tail, 1,
+        decim, precision)
 
 
 def fused_audio_backend(fm_delayed, stereo_band, nco, h_audio, mono_tail,
-                        stereo_tail, decim: int):
+                        stereo_tail, decim: int, precision: str = "highest"):
     """Returns ``(mono, left, right, new_mono_tail, new_stereo_tail)``:
     the kernel for CUDA tensors, the plain version for CPU ones.
 
     ``fm_delayed``, ``stereo_band``, ``nco``: [C, N]; ``h_audio`` [K];
     tails [C, K-1]; all float32 and contiguous.  Outputs [C, N/decim].
+    ``precision``: "highest" (default), "high" or "default"
+    (``ops/precision.py``).
     """
     args = (fm_delayed, stereo_band, nco, h_audio, mono_tail, stereo_tail)
     if fm_delayed.device.type == "cpu":
-        return fused_audio_backend_plain(*args, decim)
-    outs = resample_cuda._audio_launch(args, 1, decim)
+        return fused_audio_backend_plain(*args, decim, precision)
+    outs = resample_cuda._audio_launch(args, 1, decim, precision=precision)
     fused_audio_backend.launches += 1
     return outs
 

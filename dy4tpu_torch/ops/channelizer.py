@@ -16,15 +16,21 @@ batch axis (``pipeline/wideband.py``).
 routes:
 
   * the plain route (``impl="plain"``, and ``"auto"`` on a CPU tensor):
-    normalize, ``channelize_block_interleaved``, then the post-bank IQ
-    correction ``iqcorr.apply_channelized`` when ``corr`` is given;
+    B7's plain version (normalize, the branch FIRs), the DFT, then the
+    post-bank IQ correction ``iqcorr.apply_channelized`` when ``corr`` is
+    given;
   * the kernel route (``"auto"`` on a CUDA tensor): the branch FIRs through
     the hand-written kernel B7 (``ops/channelizer_cuda.py``), then the DFT
     as a float32 matmul with the widened matrices of
     ``_dft_mats_corrected``, the IQ correction folded into them.
 
-Everything is float32 (dy4tpu's ``precision=HIGHEST``); the matmul
-assumes TF32 is off, PyTorch's default for float32 matmuls.
+``precision`` (``ops/precision.py``): at "highest" (the default, dy4tpu's
+HIGHEST) everything is float32.  Below it the branch taps are rounded to
+bf16 on both routes (dy4tpu's kernel rounds them), and the DFT takes
+dy4tpu's einsum precision as the TPU computes it (``_matmul``): at
+"default" bf16 operands, at "high" bf16_3x, the products summed in
+float32.  The matmuls assume TF32 is off, PyTorch's default for float32
+matmuls.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from dy4tpu_torch.ops import channelizer_cuda, firdes, iqcorr
+from dy4tpu_torch.ops.precision import bf16, rounds
 
 Tensor = torch.Tensor
 
@@ -95,14 +102,15 @@ def init_channelizer_state(params: ChannelizerParams,
 
 
 def channelize_block(params: ChannelizerParams, state: ChannelizerState,
-                     x_i: Tensor, x_q: Tensor
+                     x_i: Tensor, x_q: Tensor, *, precision: str = "highest"
                      ) -> tuple[tuple[Tensor, Tensor], ChannelizerState]:
     """One block of planar wideband complex baseband -> C channel blocks.
 
     ``x_i``/``x_q``: [..., n_w] with ``C | n_w``.  Returns ``((y_i, y_q),
     new_state)`` with y_* shaped [..., C, n_w // C]: channel c is the band
     around carrier ``+c * fs_w / C`` (negative offsets alias to ``C - c``),
-    downconverted and decimated to f_if."""
+    downconverted and decimated to f_if.  ``precision``: the DFT's, as
+    dy4tpu's einsum takes it (``_matmul``)."""
     c, t = params.channels, params.taps_per_branch
     k = c * t
     n_w = x_i.shape[-1]
@@ -126,8 +134,9 @@ def channelize_block(params: ChannelizerParams, state: ChannelizerState,
     w_q, tail_q = branches(x_q, state.tail_q)
 
     # complex DFT across branches: y = E @ w, E = exp(+j 2pi c r / C)
-    y_i = params.e_r @ w_i - params.e_i @ w_q
-    y_q = params.e_r @ w_q + params.e_i @ w_i
+    mm = lambda a, b: _matmul(a, b, precision)  # noqa: E731
+    y_i = mm(params.e_r, w_i) - mm(params.e_i, w_q)
+    y_q = mm(params.e_r, w_q) + mm(params.e_i, w_i)
     return (y_i, y_q), ChannelizerState(tail_i=tail_i, tail_q=tail_q)
 
 
@@ -140,13 +149,31 @@ def dc_response(params: ChannelizerParams) -> tuple[Tensor, Tensor]:
     return params.e_r @ br, params.e_i @ br
 
 
-def _dft(g: Tensor, w: Tensor) -> Tensor:
-    """``einsum("...cj,...mj->...cm", g, w)``: [..., C, M]."""
-    return torch.matmul(g, w.transpose(-1, -2))
+def _matmul(a: Tensor, b: Tensor, precision: str = "highest") -> Tensor:
+    """``a @ b`` as a TPU's matrix unit computes it at dy4tpu's
+    ``precision``: float32 at "highest"; at "default" both operands
+    rounded to bf16 (their products are exact in float32), summed in
+    float32; at "high" bf16_3x, ``hi_a hi_b + hi_a lo_b + lo_a hi_b`` with
+    ``hi = bf16(x)``, ``lo = bf16(x - hi)``."""
+    if not rounds(precision):
+        return torch.matmul(a, b)
+    a_hi, b_hi = bf16(a), bf16(b)
+    y = torch.matmul(a_hi, b_hi)
+    if precision == "high":
+        y = y + (torch.matmul(a_hi, bf16(b - b_hi))
+                 + torch.matmul(bf16(a - a_hi), b_hi))
+    return y
+
+
+def _dft(g: Tensor, w: Tensor, precision: str = "highest") -> Tensor:
+    """``einsum("...cj,...mj->...cm", g, w)`` at ``precision``:
+    [..., C, M]."""
+    return _matmul(g, w.transpose(-1, -2), precision)
 
 
 def channelize_block_interleaved(params: ChannelizerParams,
-                                 state: ChannelizerState, x: Tensor
+                                 state: ChannelizerState, x: Tensor, *,
+                                 precision: str = "highest"
                                  ) -> tuple[tuple[Tensor, Tensor],
                                             ChannelizerState]:
     """``channelize_block`` consuming interleaved float32 IQ, with no
@@ -155,12 +182,20 @@ def channelize_block_interleaved(params: ChannelizerParams,
     and the DFT contracts over the widened 2C branch-pair axis,
     ``y[c] = sum_{r'} E[c, C-1-r'] (w[2r'] + j w[2r'+1])``.
 
-    ``x``: [..., 2*n_w] normalized float32, I even / Q odd."""
+    ``x``: [..., 2*n_w] normalized float32, I even / Q odd.
+    ``precision``: the DFT's (``_matmul``), as dy4tpu's."""
     w, tail_i, tail_q = channelizer_cuda.branch_fir_interleaved(
         params.p, state.tail_i, state.tail_q, x)
-    g_i, g_q, _, _ = _dft_mats_corrected(params, None)
-    return ((_dft(g_i, w), _dft(g_q, w)),
+    return (_dft_plain(params, w, precision),
             ChannelizerState(tail_i=tail_i, tail_q=tail_q))
+
+
+def _dft_plain(params: ChannelizerParams, w: Tensor, precision: str
+               ) -> tuple[Tensor, Tensor]:
+    """The DFT of branch outputs ``w`` [..., M, 2C] with the widened
+    matrices, no correction folded in."""
+    g_i, g_q, _, _ = _dft_mats_corrected(params, None)
+    return _dft(g_i, w, precision), _dft(g_q, w, precision)
 
 
 def _dft_mats_corrected(params: ChannelizerParams, corr):
@@ -203,23 +238,24 @@ def _dft_mats_corrected(params: ChannelizerParams, corr):
 
 def channelize_u8_folded(params: ChannelizerParams, state: ChannelizerState,
                          x_u8: Tensor, corr=None,
-                         branches: Optional[Callable] = None
+                         branches: Optional[Callable] = None,
+                         precision: str = "highest"
                          ) -> tuple[tuple[Tensor, Tensor], ChannelizerState]:
     """The kernel route of ``channelize_block_u8``: ``branches`` (default
     the kernel, ``channelizer_cuda.channelize_branches``) over the band
-    rows, then the DFT with the correction folded into its matrices.
-    ``branches=channelizer_cuda.channelize_branches_plain`` runs the same
-    route on any device."""
+    rows, then the DFT with the correction folded into its matrices, both
+    at ``precision``.  ``branches=channelizer_cuda.channelize_branches_
+    plain`` runs the same route on any device."""
     branches = branches or channelizer_cuda.channelize_branches
     c = params.channels
     batch = x_u8.shape[:-1]
     k1 = params.h.shape[0] - 1
     flat = lambda a: a.reshape(-1, a.shape[-1]).contiguous()  # noqa: E731
     w, tail_i, tail_q = branches(flat(x_u8), params.p, flat(state.tail_i),
-                                 flat(state.tail_q))
+                                 flat(state.tail_q), precision=precision)
     w = w.reshape(*batch, -1, 2 * c)
     g_i, g_q, kg_r, kg_i = _dft_mats_corrected(params, corr)
-    y_i, y_q = _dft(g_i, w), _dft(g_q, w)
+    y_i, y_q = _dft(g_i, w, precision), _dft(g_q, w, precision)
     if kg_r is not None:
         y_i = y_i - kg_r[..., :, None]
         y_q = y_q - kg_i[..., :, None]
@@ -229,7 +265,8 @@ def channelize_u8_folded(params: ChannelizerParams, state: ChannelizerState,
 
 
 def channelize_block_u8(params: ChannelizerParams, state: ChannelizerState,
-                        x_u8: Tensor, *, impl: str = "auto", corr=None
+                        x_u8: Tensor, *, impl: str = "auto", corr=None,
+                        precision: str = "highest"
                         ) -> tuple[tuple[Tensor, Tensor], ChannelizerState]:
     """``channelize_block_interleaved`` consuming the raw u8 block.
 
@@ -239,16 +276,20 @@ def channelize_block_u8(params: ChannelizerParams, state: ChannelizerState,
     raises, and the plain route for a CPU one) or "plain" (the plain
     route on any device).  ``corr``: optional ``iqcorr.IQCorrCoeffs``
     (leading dims = the band axes), the pre-bank tuner-fault correction.
+    ``precision``: "highest" (default), "high" or "default" (the module
+    docstring says what it rounds).
     """
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if impl == "auto" and x_u8.device.type != "cpu":
-        return channelize_u8_folded(params, state, x_u8, corr)
-    x = (x_u8.to(torch.float32) - 128.0) / 128.0
-    y, st = channelize_block_interleaved(params, state, x)
+        return channelize_u8_folded(params, state, x_u8, corr,
+                                    precision=precision)
+    w, tail_i, tail_q = channelizer_cuda.channelize_branches_plain(
+        x_u8, params.p, state.tail_i, state.tail_q, precision)
+    y = _dft_plain(params, w, precision)
     if corr is not None:
         y = iqcorr.apply_channelized(y[0], y[1], corr, *dc_response(params))
-    return y, st
+    return y, ChannelizerState(tail_i=tail_i, tail_q=tail_q)
 
 
 def rssi_dbfs(y_i: Tensor, y_q: Tensor) -> Tensor:

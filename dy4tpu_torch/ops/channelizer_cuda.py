@@ -20,6 +20,13 @@ gives the same bits.
 ``channelize_branches`` takes CUDA tensors only and raises on any other:
 the choice of route is ``channelize_block_u8``'s (``impl="auto"``: this
 kernel for a CUDA tensor, the plain route for a CPU one).
+
+Both take dy4tpu's ``precision=`` (``ops/precision.py``), "highest" by
+default, the receiver's default (dy4tpu's ``channelize_block_u8`` defaults
+to HIGHEST too).  Below "highest" the branch taps are rounded to bf16, as
+dy4tpu's kernel rounds ``p / 128`` with the u8 normalisation folded in;
+the u8 window and the carried tail are exact in bf16, so the kernel is
+unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import typing
 
 import torch
 
+from dy4tpu_torch.ops.precision import taps
 from dy4tpu_torch.runtime import kernels
 
 Tensor = torch.Tensor
@@ -235,13 +243,13 @@ def branch_fir_interleaved(p: Tensor, tail_i: Tensor, tail_q: Tensor,
 
 
 def channelize_branches_plain(x_u8: Tensor, p: Tensor, tail_i: Tensor,
-                              tail_q: Tensor
+                              tail_q: Tensor, precision: str = "highest"
                               ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain torch version of ``channelize_branches`` (any leading batch
     dims, any device): ``(x - 128) / 128``, then
-    ``branch_fir_interleaved``."""
+    ``branch_fir_interleaved`` (its taps rounded below "highest")."""
     x = (x_u8.to(torch.float32) - 128.0) / 128.0
-    return branch_fir_interleaved(p, tail_i, tail_q, x)
+    return branch_fir_interleaved(taps(p, precision), tail_i, tail_q, x)
 
 
 def _takes(t: Tensor, shape: tuple, dtype: torch.dtype,
@@ -254,16 +262,18 @@ def _takes(t: Tensor, shape: tuple, dtype: torch.dtype,
 
 
 def channelize_branches(x_u8: Tensor, p: Tensor, tail_i: Tensor,
-                        tail_q: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+                        tail_q: Tensor, precision: str = "highest"
+                        ) -> tuple[Tensor, Tensor, Tensor]:
     """The branch FIRs of one wideband block through the kernel.
 
     ``x_u8`` [bands, 2 n_w] uint8 with ``C | n_w`` and ``n_w >= C``;
     ``p`` [C, T]; ``tail_i``/``tail_q`` [bands, C*T-1] float32, all
     contiguous CUDA tensors on one device.  Returns ``(w [bands, n_w/C,
     2C], tail_i, tail_q)`` as ``channelize_branches_plain`` does, under
-    ``_tile_plan``'s plan.  Raises on a tensor that is not on a CUDA
-    device, on a geometry the kernel does not take, and when a block
-    would need more shared memory than the card has.
+    ``_tile_plan``'s plan, its taps rounded below "highest".  Raises on a
+    tensor that is not on a CUDA device, on a geometry the kernel does not
+    take, and when a block would need more shared memory than the card
+    has.
     """
     if x_u8.dim() != 2 or p.dim() != 2:
         raise ValueError(f"expected x_u8 [bands, 2 n_w] and p [C, T], got "
@@ -286,6 +296,7 @@ def channelize_branches(x_u8: Tensor, p: Tensor, tail_i: Tensor,
         kernels.require(tail_i, "tail_i", (bands, k - 1), device=dev)
         kernels.require(tail_q, "tail_q", (bands, k - 1), device=dev)
     launch = _launch_args(bands, n2, c, t, _sms(dev))
+    p = taps(p, precision)
     w = torch.empty(bands, m, 2 * c, dtype=f32, device=dev)
     new_i = torch.empty(bands, k - 1, dtype=f32, device=dev)
     new_q = torch.empty(bands, k - 1, dtype=f32, device=dev)

@@ -39,6 +39,12 @@ def init_state(num_taps: int, up: int = 1, batch: tuple[int, ...] = (),
                        device=device)
 
 
+def tail(x: Tensor, n: int) -> Tensor:
+    """The last ``n`` samples of ``x`` [..., N] (N >= n): the state a
+    block FIR carries on after ``x``."""
+    return x[..., x.shape[-1] - n:]
+
+
 def _no_tf32(x: Tensor) -> None:
     """Keep plain float32 work in float32 on the card.  A float32 conv1d
     goes through cuDNN in TF32 by default, and TF32 keeps only about three

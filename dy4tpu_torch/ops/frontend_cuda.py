@@ -52,10 +52,18 @@ delayed by ``Kb // 2``).
 dy4tpu's banded tap-parity matrices, its ``split`` window/dot interleave,
 ``mm_dtype``, ``bc_rows``, ``vmem_limit_bytes`` and its 128-lane geometry
 gate are TPU (MXU and VMEM) devices: neither these wrappers nor their plain
-versions take them, and every geometry runs.  Everything is float32
-(dy4tpu's ``HIGHEST``).  fm matches the plain versions to float32
-tolerance where the decimated power is not near zero, ``iq_tail`` is
-exact.
+versions take them, and every geometry runs.  fm matches the plain versions
+to float32 tolerance where the decimated power is not near zero,
+``iq_tail`` is exact.
+
+Every wrapper and plain version takes dy4tpu's ``precision=``
+(``ops/precision.py``), "highest" by default, the receiver's default (dy4tpu's
+direct Pallas entries default to ``mm_dtype=bf16``; the port's wrappers do
+not).  Below "highest" the taps are rounded to bf16 (the u8 window is exact
+in bf16, so the RF stage is the float32 stage fed rounded taps), and B1 / B6's
+band stage rounds fm before the bank and the squared RDS band before the
+carrier BPF, as dy4tpu's ``mm_dtype=bf16`` kernels do; the delays and every
+carried tail stay float32.
 """
 
 from __future__ import annotations
@@ -67,16 +75,17 @@ import torch
 import torch.nn.functional as F
 
 from dy4tpu_torch.ops import demod, fir, iqcorr, mix
+from dy4tpu_torch.ops.precision import rounding, rounds, taps
 from dy4tpu_torch.runtime import kernels
 
 Tensor = torch.Tensor
 
 _ARGS = ([ctypes.c_void_p] * 23 + [ctypes.c_longlong] * 2
-         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _CORR_ARGS = ([ctypes.c_void_p] * 27 + [ctypes.c_longlong] * 2
-              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+              + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _IF_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_longlong]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _RF_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # the u8 block's way into the RF kernel (csrc/frontend_rf.cu's Source)
@@ -210,31 +219,41 @@ def _rf_smem_bytes(plan: RfPlan, decim: int, k: int) -> int:
                 + 2 * decim * _window_row(plan.sub + nq))
 
 
-def rf_lpf_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor, decim: int):
+def rf_lpf_plain(iq_u8: Tensor, h_rf: Tensor, iq_tail: Tensor, decim: int,
+                 precision: str = "highest"):
     """u8 [..., bs] -> (i_ds, q_ds [..., bs/2/decim], iq_tail): normalize,
-    deinterleave, decimating RF LPF on both legs."""
+    deinterleave, decimating RF LPF on both legs (its taps rounded below
+    "highest")."""
     bs = iq_u8.shape[-1]
     x = (iq_u8.to(torch.float32) - 128.0) / 128.0
     iq = x.reshape(*x.shape[:-1], bs // 2, 2).movedim(-1, -2)  # I row 0
-    iq_ds, iq_tail = fir.block_fir_decim(iq, h_rf, iq_tail, decim)
+    iq_ds, iq_tail = fir.block_fir_decim(iq, taps(h_rf, precision), iq_tail,
+                                         decim)
     return iq_ds[..., 0, :], iq_ds[..., 1, :], iq_tail
 
 
 def band_stages_plain(fm: Tensor, h_bank: Tensor, h_carrier, bank_tail,
-                      mono_delay, carrier_tail, rds_delay, *, rds: bool):
+                      mono_delay, carrier_tail, rds_delay, *, rds: bool,
+                      precision: str = "highest"):
     """The post-demod stages: mono delay, band bank over fm, and (with
-    ``rds``) squaring + carrier BPF and the RDS delay.  Returns
-    ``(fm_delayed, pilot, stereo, carrier, rds_delayed, new_bank_tail,
-    new_mono_delay, new_carrier_tail, new_rds_delay)``, the RDS entries
-    None without ``rds``."""
+    ``rds``) squaring + carrier BPF and the RDS delay.  Below "highest"
+    the bank reads fm, its history and its taps rounded to bf16, the
+    carrier BPF the squared band, its history and its taps; the delays and
+    the new tails are float32.  Returns ``(fm_delayed, pilot, stereo,
+    carrier, rds_delayed, new_bank_tail, new_mono_delay, new_carrier_tail,
+    new_rds_delay)``, the RDS entries None without ``rds``."""
+    rnd = rounding(precision)
     fm_delayed, mono_delay = mix.delay_block(fm, mono_delay)
-    bands, bank_tail = fir.block_fir_bank(fm, h_bank, bank_tail)
+    bands, _ = fir.block_fir_bank(rnd(fm), taps(h_bank, precision),
+                                  rnd(bank_tail))
+    bank_tail = fir.tail(fm, h_bank.shape[-1] - 1)
     carrier = rds_delayed = carrier_tail_out = rds_delay_out = None
     if rds:
         rds_band = bands[..., 2, :]
         squared = mix.squaring_nonlinearity(rds_band)
-        carrier, carrier_tail_out = fir.block_fir(squared, h_carrier,
-                                                  carrier_tail)
+        carrier, _ = fir.block_fir(rnd(squared), taps(h_carrier, precision),
+                                   rnd(carrier_tail))
+        carrier_tail_out = fir.tail(squared, h_carrier.shape[-1] - 1)
         rds_delayed, rds_delay_out = mix.delay_block(rds_band, rds_delay)
     return (fm_delayed, bands[..., 0, :], bands[..., 1, :], carrier,
             rds_delayed, bank_tail, mono_delay, carrier_tail_out,
@@ -244,14 +263,16 @@ def band_stages_plain(fm: Tensor, h_bank: Tensor, h_carrier, bank_tail,
 def fused_frontend_full_plain(iq_u8, h_rf, h_bank, h_carrier, iq_tail,
                               prev_i, prev_q, bank_tail, mono_delay,
                               carrier_tail, rds_delay, decim: int, *,
-                              rds: bool = True, corr=None):
+                              rds: bool = True, corr=None,
+                              precision: str = "highest"):
     """Plain torch version of ``fused_frontend_full`` (any leading batch
     dims, any device): the RF LPF; with ``corr`` [..., 4] the moments of
     the decimated I/Q (``iqcorr.moments``) and the correction
     (``iqcorr.apply``), as dy4tpu's stock ``front_step(corr=...,
     corr_moments=True)``; then ``fused_frontend_if_plain``.  Returns B1's
     outputs, and ``mom`` last with ``corr``."""
-    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h_rf, iq_tail, decim)
+    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h_rf, iq_tail, decim,
+                                       precision)
     mom = ()
     if corr is not None:
         mom = (iqcorr.moments(i_ds, q_ds),)
@@ -259,7 +280,8 @@ def fused_frontend_full_plain(iq_u8, h_rf, h_bank, h_carrier, iq_tail,
                                   iqcorr.IQCorrCoeffs(*corr.unbind(-1)))
     outs = fused_frontend_if_plain(i_ds, q_ds, prev_i, prev_q, h_bank,
                                    h_carrier, bank_tail, mono_delay,
-                                   carrier_tail, rds_delay, rds=rds)
+                                   carrier_tail, rds_delay, rds=rds,
+                                   precision=precision)
     return (*outs[:5], iq_tail, *outs[5:], *mom)
 
 
@@ -289,11 +311,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_full(args, decim: int, rds: bool, corr=None):
+def _launch_full(args, decim: int, rds: bool, corr=None,
+                 precision: str = "highest"):
     """Check the inputs and launch B1 (with the corr epilogue when ``corr``
-    is given).  ``args``: the eleven tensors of ``fused_frontend_full``.
-    Returns the twelve outputs, and ``mom`` [C, 14] as a thirteenth with
-    ``corr``."""
+    is given) at ``precision``.  ``args``: the eleven tensors of
+    ``fused_frontend_full``.  Returns the twelve outputs, and ``mom``
+    [C, 14] as a thirteenth with ``corr``."""
     iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i, prev_q = args[:7]
     bank_tail, mono_delay, carrier_tail, rds_delay = args[7:]
     c, bs = iq_u8.shape
@@ -327,6 +350,7 @@ def _launch_full(args, decim: int, rds: bool, corr=None):
             rds_new(c, kb // 2)]
     if not rds:
         args = args[:3] + (None,) + args[4:9] + (None, None)
+    args = (args[0], *(taps(h, precision) for h in args[1:4]), *args[4:])
     ptrs = [_ptr(t) for t in (*args, *outs)]
     if with_corr:
         mom = new(c, MOMENTS)
@@ -338,8 +362,9 @@ def _launch_full(args, decim: int, rds: bool, corr=None):
     else:
         fn = kernels.entry("frontend", "dy4_frontend_full", _ARGS)
     with torch.cuda.device(dev):
-        status = fn(*ptrs, c, bs, decim, k, kb, int(rds), plan.tile,
-                    plan.sub, kernels.stream_of(iq_u8))
+        status = fn(*ptrs, c, bs, decim, k, kb, int(rds),
+                    int(rounds(precision)), plan.tile, plan.sub,
+                    kernels.stream_of(iq_u8))
     kernels.check_launch(status, "frontend fused_frontend_full")
     return (*outs, mom) if with_corr else tuple(outs)
 
@@ -347,7 +372,7 @@ def _launch_full(args, decim: int, rds: bool, corr=None):
 def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
                         prev_q, bank_tail, mono_delay, carrier_tail,
                         rds_delay, decim: int, *, rds: bool = True,
-                        corr=None):
+                        corr=None, precision: str = "highest"):
     """The whole front half of one block: the kernel for CUDA tensors,
     the plain version for CPU ones.
 
@@ -367,6 +392,9 @@ def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
     returns ``mom`` [C, 14] as a thirteenth output, the means E[i^p q^r]
     of the I/Q before the correction in ``iqcorr._POWERS`` order.
 
+    ``precision``: "highest" (default), "high" or "default"
+    (``ops/precision.py``; the module docstring says what it rounds).
+
     Launches are counted per variant: ``fused_frontend_full.launches``
     for the stock kernel, ``fused_frontend_full.corr.launches`` for the
     corr variant.
@@ -374,8 +402,9 @@ def fused_frontend_full(iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i,
     args = (iq_u8, h_rf, h_bank, h_carrier, iq_tail, prev_i, prev_q,
             bank_tail, mono_delay, carrier_tail, rds_delay)
     if iq_u8.device.type == "cpu":
-        return fused_frontend_full_plain(*args, decim, rds=rds, corr=corr)
-    outs = _launch_full(args, decim, rds, corr)
+        return fused_frontend_full_plain(*args, decim, rds=rds, corr=corr,
+                                         precision=precision)
+    outs = _launch_full(args, decim, rds, corr, precision)
     (fused_frontend_full if corr is None
      else fused_frontend_full.corr).launches += 1
     return outs
@@ -387,21 +416,21 @@ fused_frontend_full.corr = kernels.Variant("fused_frontend_full[corr]")
 
 def fused_frontend_if_plain(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
                             bank_tail, mono_delay, carrier_tail, rds_delay,
-                            *, rds: bool = True):
+                            *, rds: bool = True, precision: str = "highest"):
     """Plain torch version of ``fused_frontend_if`` (any leading batch
     dims, any device): the demod, then ``band_stages_plain``."""
     fm, prev_i, prev_q = demod.fm_demod_diff(i_if, q_if, prev_i, prev_q)
     (fmd, pilot, stereo, carrier, rdsdel, bank_tail, mono_delay,
      carrier_tail, rds_delay) = band_stages_plain(
         fm, h_bank, h_carrier, bank_tail, mono_delay, carrier_tail,
-        rds_delay, rds=rds)
+        rds_delay, rds=rds, precision=precision)
     return (fmd, pilot, stereo, carrier, rdsdel, prev_i, prev_q, bank_tail,
             mono_delay, carrier_tail, rds_delay)
 
 
 def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
                       bank_tail, mono_delay, carrier_tail, rds_delay, *,
-                      rds: bool = True):
+                      rds: bool = True, precision: str = "highest"):
     """The IF-entry front half of one block: the kernel for CUDA tensors,
     the plain version for CPU ones.
 
@@ -409,12 +438,13 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
     [C]; the bank and RDS taps and tails as for ``fused_frontend_full``.
     Returns ``(fm_delayed, pilot, stereo, carrier, rds_delayed, prev_i,
     prev_q, bank_tail, mono_delay, carrier_tail, rds_delay)``, the streams
-    [C, N]; the RDS entries are None without ``rds``.
+    [C, N]; the RDS entries are None without ``rds``.  ``precision`` as
+    for ``fused_frontend_full``.
     """
     args = (i_if, q_if, prev_i, prev_q, h_bank, h_carrier, bank_tail,
             mono_delay, carrier_tail, rds_delay)
     if i_if.device.type == "cpu":
-        return fused_frontend_if_plain(*args, rds=rds)
+        return fused_frontend_if_plain(*args, rds=rds, precision=precision)
     c, n = i_if.shape
     kb = h_bank.shape[-1]
     if n < kb:
@@ -435,13 +465,15 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
     outs = [new(c, n), new(c, n), new(c, n), rds_new(c, n), rds_new(c, n),
             new(c), new(c), new(c, kb - 1), new(c, kb // 2),
             rds_new(c, kb - 1), rds_new(c, kb // 2)]
-    ins = (i_if, q_if, h_bank, h_carrier if rds else None, prev_i, prev_q,
+    ins = (i_if, q_if, taps(h_bank, precision),
+           taps(h_carrier, precision) if rds else None, prev_i, prev_q,
            bank_tail, mono_delay, carrier_tail if rds else None,
            rds_delay if rds else None)
     fn = kernels.entry("frontend", "dy4_frontend_if", _IF_ARGS)
     with torch.cuda.device(dev):
         status = fn(*(_ptr(t) for t in ins), *(_ptr(t) for t in outs), c, n,
-                    kb, int(rds), plan.tile, kernels.stream_of(i_if))
+                    kb, int(rds), int(rounds(precision)), plan.tile,
+                    kernels.stream_of(i_if))
     kernels.check_launch(status, "frontend fused_frontend_if")
     fused_frontend_if.launches += 1
     return tuple(outs)
@@ -450,11 +482,12 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
 fused_frontend_if.launches = 0
 
 
-def fused_frontend_raw_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+def fused_frontend_raw_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int,
+                             precision: str = "highest"):
     """Plain torch version of B11 (any leading batch dims, any device):
     ``rf_lpf_plain`` then ``demod.fm_demod_diff``.  Returns ``(fm,
     iq_tail, prev_i, prev_q)``."""
-    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h, iq_tail, decim)
+    i_ds, q_ds, iq_tail = rf_lpf_plain(iq_u8, h, iq_tail, decim, precision)
     fm, prev_i, prev_q = demod.fm_demod_diff(i_ds, q_ds, prev_i, prev_q)
     return fm, iq_tail, prev_i, prev_q
 
@@ -467,7 +500,8 @@ def phase_planes(iq_u8: Tensor, decim: int) -> Tensor:
     return iq_u8.reshape(c, bs // (2 * decim), 2 * decim).permute(2, 0, 1)
 
 
-def fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+def fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int,
+                         precision: str = "highest"):
     """Plain torch version of B12 (``iq_u8`` [C, bs], any device): the
     phase planes, each phase of each leg extended by its tail phase
     (``iq_tail.reshape(C, 2, S/D, D)``), then the decimating LPF as one
@@ -478,6 +512,7 @@ def fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
     k = h.shape[0]
     s = k - 1
     _require_phase_aligned(k, decim)
+    h = taps(h, precision)
     x = (phase_planes(iq_u8, decim).to(torch.float32) - 128.0) / 128.0
     planes = x.reshape(decim, 2, c, -1).permute(2, 1, 0, 3)  # [C, 2, D, M]
     tail_ph = iq_tail.reshape(c, 2, s // decim, decim).movedim(-1, -2)
@@ -485,9 +520,9 @@ def fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
     q = torch.arange(s // decim + 1, device=h.device)
     r = torch.arange(decim, device=h.device)
     a = q[None, :] * decim + r[:, None]             # [D, Q]: a = qD + r
-    taps = torch.where(a <= s, h[(s - a).clamp(min=0)], 0.0)
+    rows = torch.where(a <= s, h[(s - a).clamp(min=0)], 0.0)
     fir._no_tf32(x)
-    y = F.conv1d(ext.reshape(c * 2, decim, -1), taps[None])
+    y = F.conv1d(ext.reshape(c * 2, decim, -1), rows[None])
     y = y.reshape(c, 2, -1)
     fm, prev_i, prev_q = demod.fm_demod_diff(y[:, 0], y[:, 1], prev_i,
                                              prev_q)
@@ -497,7 +532,7 @@ def fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
 
 
 def fused_frontend_raw_pm_plain(iq_u8, h, iq_tail, prev_i, prev_q,
-                                decim: int):
+                                decim: int, precision: str = "highest"):
     """Plain torch version of B13 (``iq_u8`` [C, bs], ``bs % 4 == 0``, any
     device): the row as int32 words, each word's four bytes taken apart
     (little-endian: bytes 0 and 2 are I, 1 and 3 are Q), then B11's plain
@@ -505,7 +540,8 @@ def fused_frontend_raw_pm_plain(iq_u8, h, iq_tail, prev_i, prev_q,
     words = _words(iq_u8)
     parts = [(words >> (8 * b)) & 0xFF for b in range(4)]
     raw = torch.stack(parts, dim=-1).reshape(iq_u8.shape).to(torch.uint8)
-    return fused_frontend_raw_plain(raw, h, iq_tail, prev_i, prev_q, decim)
+    return fused_frontend_raw_plain(raw, h, iq_tail, prev_i, prev_q, decim,
+                                    precision)
 
 
 def _require_phase_aligned(k: int, decim: int) -> None:
@@ -524,11 +560,12 @@ def _words(iq_u8: Tensor) -> Tensor:
 
 
 def _launch_rf(source: int, iq_u8: Tensor, h, iq_tail, prev_i, prev_q,
-               decim: int, what: str, plan: RfPlan | None = None):
+               decim: int, what: str, plan: RfPlan | None = None,
+               precision: str = "highest"):
     """Check the inputs and launch the RF kernel on ``iq_u8``'s rows, read
     as 16-bit pairs (``_PAIRS``) or 32-bit words (``_WORDS``), under
-    ``plan`` (``_rf_plan``'s by default).  Counts no launch.  Returns
-    ``(fm, iq_tail, prev_i, prev_q)``."""
+    ``plan`` (``_rf_plan``'s by default), its taps rounded below "highest".
+    Counts no launch.  Returns ``(fm, iq_tail, prev_i, prev_q)``."""
     c, bs = iq_u8.shape
     k = h.shape[0]
     n_out = bs // 2 // decim
@@ -548,6 +585,7 @@ def _launch_rf(source: int, iq_u8: Tensor, h, iq_tail, prev_i, prev_q,
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     outs = (new(c, n_out), new(c, 2, k - 1), new(c), new(c))
+    h = taps(h, precision)
     fn = kernels.entry("frontend_rf", "dy4_frontend_rf", _RF_ARGS)
     with torch.cuda.device(dev):
         status = fn(source, iq_u8.data_ptr(), h.data_ptr(),
@@ -558,18 +596,20 @@ def _launch_rf(source: int, iq_u8: Tensor, h, iq_tail, prev_i, prev_q,
     return outs
 
 
-def fused_frontend_raw(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+def fused_frontend_raw(iq_u8, h, iq_tail, prev_i, prev_q, decim: int,
+                       precision: str = "highest"):
     """B11, the RF stage from the interleaved u8 rows: the kernel for CUDA
     tensors, ``fused_frontend_raw_plain`` for CPU ones.
 
     ``iq_u8`` [C, bs] uint8; ``h`` [K]; ``iq_tail`` [C, 2, K-1];
     ``prev_i``/``prev_q`` [C]; all float32 and contiguous.  Returns ``(fm
-    [C, bs/2/decim], iq_tail, prev_i, prev_q)``."""
+    [C, bs/2/decim], iq_tail, prev_i, prev_q)``.  ``precision``: "highest"
+    (default), "high" or "default", which round the taps to bf16."""
     if iq_u8.device.type == "cpu":
         return fused_frontend_raw_plain(iq_u8, h, iq_tail, prev_i, prev_q,
-                                        decim)
+                                        decim, precision)
     outs = _launch_rf(_PAIRS, iq_u8, h, iq_tail, prev_i, prev_q, decim,
-                      "fused_frontend_raw")
+                      "fused_frontend_raw", precision=precision)
     fused_frontend_raw.launches += 1
     return outs
 
@@ -577,17 +617,19 @@ def fused_frontend_raw(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
 fused_frontend_raw.launches = 0
 
 
-def fused_frontend(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+def fused_frontend(iq_u8, h, iq_tail, prev_i, prev_q, decim: int,
+                   precision: str = "highest"):
     """B12, the RF stage of the phase-split front end: the kernel for CUDA
     tensors, ``fused_frontend_plain`` (the phase planes) for CPU ones; the
     contract of ``fused_frontend_raw``, with ``(K-1) % decim == 0``.  On
     the card it launches B11's kernel on the u8 rows themselves: no phase
     plane is made (see ``csrc/frontend_rf.cu``)."""
     if iq_u8.device.type == "cpu":
-        return fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim)
+        return fused_frontend_plain(iq_u8, h, iq_tail, prev_i, prev_q, decim,
+                                    precision)
     _require_phase_aligned(h.shape[0], decim)
     outs = _launch_rf(_PAIRS, iq_u8, h, iq_tail, prev_i, prev_q, decim,
-                      "fused_frontend")
+                      "fused_frontend", precision=precision)
     fused_frontend.launches += 1
     return outs
 
@@ -595,18 +637,19 @@ def fused_frontend(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
 fused_frontend.launches = 0
 
 
-def fused_frontend_raw_pm(iq_u8, h, iq_tail, prev_i, prev_q, decim: int):
+def fused_frontend_raw_pm(iq_u8, h, iq_tail, prev_i, prev_q, decim: int,
+                          precision: str = "highest"):
     """B13, the RF stage from the rows as 32-bit words: the kernel for
     CUDA tensors, ``fused_frontend_raw_pm_plain`` for CPU ones; the
     contract of ``fused_frontend_raw``, with ``bs % 4 == 0``.  On no
     receiver route (as in dy4tpu): called directly."""
     if iq_u8.device.type == "cpu":
         return fused_frontend_raw_pm_plain(iq_u8, h, iq_tail, prev_i, prev_q,
-                                           decim)
+                                           decim, precision)
     kernels.require(iq_u8, "iq_u8", iq_u8.shape, torch.uint8, iq_u8.device)
     _words(iq_u8)       # the kernel reads this view: bs % 4 == 0
     outs = _launch_rf(_WORDS, iq_u8, h, iq_tail, prev_i, prev_q, decim,
-                      "fused_frontend_raw_pm")
+                      "fused_frontend_raw_pm", precision=precision)
     fused_frontend_raw_pm.launches += 1
     return outs
 

@@ -26,6 +26,13 @@ memory over a recomputed halo.  ``_tile_plan`` sizes it.  An output's sum
 runs in one order whatever the plan, so every plan gives the same bits.
 All match their plain versions to float32 tolerance; the carried
 resampler tails are exact.
+
+Every wrapper and plain version takes dy4tpu's ``precision=``
+(``ops/precision.py``), "highest" by default, the receiver's default (dy4tpu's
+direct Pallas entries default to ``mm_dtype=bf16``; the port's wrappers do
+not).  Below "highest" the taps are rounded to bf16 and the mixed input
+legs too, after the mix, as the copy warps stage them; B4 also rounds the
+resampled stream before the RRC.  The carried tails stay float32.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import typing
 import torch
 
 from dy4tpu_torch.ops import fir, mix
+from dy4tpu_torch.ops.precision import rounding, rounds, taps
 from dy4tpu_torch.runtime import kernels
 
 Tensor = torch.Tensor
@@ -381,30 +389,34 @@ def _plan_args(plan: TilePlan, up: int, down: int) -> tuple[int, ...]:
 
 
 _PLAN_INTS = [ctypes.c_int] * 23
-_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 6
          + _PLAN_INTS + [ctypes.c_void_p])
 
 
 def fused_rds_backend_plain(rds_delayed, nco_i, nco_q, h_lpf, h_rrc,
                             lpf_tail_i, lpf_tail_q, rrc_tail_i, rrc_tail_q,
-                            up: int, down: int):
+                            up: int, down: int, precision: str = "highest"):
     """Plain torch version of ``fused_rds_backend`` (any leading batch
     dims, any device): the I and Q legs ride a stacked lane through one
-    resampler call and one RRC call."""
+    resampler call and one RRC call, their inputs, histories and taps
+    rounded below "highest"."""
+    rnd = rounding(precision)
     mixed = torch.stack([mix.mix(nco_i, rds_delayed, gain=1.0),
                          mix.mix(nco_q, rds_delayed, gain=1.0)], dim=-2)
     lpf_tails = torch.stack([lpf_tail_i, lpf_tail_q], dim=-2)
-    lp, lpf_tails = fir.block_fir_resample(mixed, h_lpf, lpf_tails,
-                                           up=up, down=down)
+    lp, _ = fir.block_fir_resample(rnd(mixed), taps(h_lpf, precision),
+                                   rnd(lpf_tails), up=up, down=down)
+    lpf_tails = fir.tail(mixed, lpf_tails.shape[-1])
     rrc_tails = torch.stack([rrc_tail_i, rrc_tail_q], dim=-2)
-    bb, rrc_tails = fir.block_fir(lp, h_rrc, rrc_tails)
+    bb, _ = fir.block_fir(rnd(lp), taps(h_rrc, precision), rnd(rrc_tails))
+    rrc_tails = fir.tail(lp, rrc_tails.shape[-1])
     return (bb[..., 0, :], bb[..., 1, :], lpf_tails[..., 0, :],
             lpf_tails[..., 1, :], rrc_tails[..., 0, :], rrc_tails[..., 1, :])
 
 
 def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
                       lpf_tail_q, rrc_tail_i, rrc_tail_q, up: int,
-                      down: int):
+                      down: int, precision: str = "highest"):
     """Returns ``(bb_i, bb_q, new_lpf_tail_i, new_lpf_tail_q,
     new_rrc_tail_i, new_rrc_tail_q)``: the kernel for CUDA tensors, the
     plain version for CPU ones.
@@ -412,18 +424,22 @@ def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
     ``rds_delayed``, ``nco_i``, ``nco_q``: [C, N]; ``h_lpf`` [K];
     ``h_rrc`` [K2]; LPF tails [C, (K-1)//up]; RRC tails [C, K2-1]; all
     float32 and contiguous.  ``bb_i``/``bb_q``: [C, N*up/down].
+    ``precision``: "highest" (default), "high" or "default" (the module
+    docstring says what it rounds).
     """
     args = (rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i, lpf_tail_q,
             rrc_tail_i, rrc_tail_q)
     if rds_delayed.device.type == "cpu":
-        return fused_rds_backend_plain(*args, up, down)
-    return _rds_launch(args, up, down)
+        return fused_rds_backend_plain(*args, up, down, precision)
+    return _rds_launch(args, up, down, precision=precision)
 
 
 def _rds_launch(args, up: int, down: int,
-                plan: typing.Optional[TilePlan] = None):
+                plan: typing.Optional[TilePlan] = None,
+                precision: str = "highest"):
     """B4 on CUDA tensors ``args`` (``fused_rds_backend``'s first nine)
-    under ``plan`` (``_tile_plan``'s own by default): one launch."""
+    under ``plan`` (``_tile_plan``'s own by default) at ``precision``: one
+    launch."""
     rds_delayed, _, _, h_lpf, h_rrc = args[:5]
     c, n = rds_delayed.shape
     k, k2 = h_lpf.shape[0], h_rrc.shape[0]
@@ -446,11 +462,13 @@ def _rds_launch(args, up: int, down: int,
                                      device=dev)
     outs = [new(c, m), new(c, m), new(c, s), new(c, s), new(c, k2 - 1),
             new(c, k2 - 1)]
+    args = (*args[:3], taps(h_lpf, precision), taps(h_rrc, precision),
+            *args[5:])
     fn = kernels.entry("rds_backend", "dy4_rds_backend", _ARGS)
     with torch.cuda.device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     *(t.data_ptr() for t in outs), c, n, up, down, k, k2,
-                    *_plan_args(plan, up, down),
+                    int(rounds(precision)), *_plan_args(plan, up, down),
                     kernels.stream_of(rds_delayed))
     kernels.check_launch(status, "rds_backend fused_rds_backend")
     fused_rds_backend.launches += 1
@@ -460,20 +478,25 @@ def _rds_launch(args, up: int, down: int,
 fused_rds_backend.launches = 0
 
 _AUDIO_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
-               + [ctypes.c_int] * 4 + _PLAN_INTS + [ctypes.c_void_p])
+               + [ctypes.c_int] * 5 + _PLAN_INTS + [ctypes.c_void_p])
 
 
 def fused_audio_backend_rational_plain(fm_delayed, stereo_band, nco,
                                        h_audio, mono_tail, stereo_tail,
-                                       up: int, down: int):
+                                       up: int, down: int,
+                                       precision: str = "highest"):
     """Plain torch version of ``fused_audio_backend_rational`` (any
-    leading batch dims, any device): mix, one stacked rational resampler
-    call over the mono and stereo legs, stereo matrix."""
+    leading batch dims, any device), and at ``up`` = 1 of
+    ``backend_cuda.fused_audio_backend``: mix, one stacked rational
+    resampler call over the mono and stereo legs (their inputs, histories
+    and taps rounded below "highest"), stereo matrix."""
+    rnd = rounding(precision)
     stereo_mixed = mix.mix(nco, stereo_band, gain=2.0)
     audio_in = torch.stack([fm_delayed, stereo_mixed], dim=-2)
     tails = torch.stack([mono_tail, stereo_tail], dim=-2)
-    out, tails = fir.block_fir_resample(audio_in, h_audio, tails, up=up,
-                                        down=down)
+    out, _ = fir.block_fir_resample(rnd(audio_in), taps(h_audio, precision),
+                                    rnd(tails), up=up, down=down)
+    tails = fir.tail(audio_in, tails.shape[-1])
     mono, stereo_lp = out[..., 0, :], out[..., 1, :]
     left, right = mix.stereo_matrix(mono, stereo_lp)
     return mono, left, right, tails[..., 0, :], tails[..., 1, :]
@@ -481,28 +504,29 @@ def fused_audio_backend_rational_plain(fm_delayed, stereo_band, nco,
 
 def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
                                  mono_tail, stereo_tail, up: int,
-                                 down: int):
+                                 down: int, precision: str = "highest"):
     """Returns ``(mono, left, right, new_mono_tail, new_stereo_tail)``:
     the kernel for CUDA tensors, the plain version for CPU ones.
 
     ``fm_delayed``, ``stereo_band``, ``nco``: [C, N]; ``h_audio`` [K];
     tails [C, (K-1)//up]; all float32 and contiguous.  Outputs
-    [C, N*up/down].
+    [C, N*up/down].  ``precision`` as for ``fused_rds_backend``.
     """
     args = (fm_delayed, stereo_band, nco, h_audio, mono_tail, stereo_tail)
     if fm_delayed.device.type == "cpu":
-        return fused_audio_backend_rational_plain(*args, up, down)
-    outs = _audio_launch(args, up, down)
+        return fused_audio_backend_rational_plain(*args, up, down, precision)
+    outs = _audio_launch(args, up, down, precision=precision)
     fused_audio_backend_rational.launches += 1
     return outs
 
 
 def _audio_launch(args, up: int, down: int,
-                  plan: typing.Optional[TilePlan] = None):
+                  plan: typing.Optional[TilePlan] = None,
+                  precision: str = "highest"):
     """B5, or B3 at ``up`` = 1, on CUDA tensors ``args``
     (``fused_audio_backend_rational``'s first six) under ``plan``
-    (``_tile_plan``'s own by default): one launch, which the calling
-    wrapper counts."""
+    (``_tile_plan``'s own by default) at ``precision``: one launch, which
+    the calling wrapper counts."""
     fm_delayed, h_audio = args[0], args[3]
     c, n = fm_delayed.shape
     k = h_audio.shape[0]
@@ -523,11 +547,12 @@ def _audio_launch(args, up: int, down: int,
              for _ in range(3)]
             + [torch.empty(c, s, dtype=torch.float32, device=dev)
                for _ in range(2)])
+    args = (*args[:3], taps(h_audio, precision), *args[4:])
     fn = kernels.entry("audio_rational", "dy4_audio_rational", _AUDIO_ARGS)
     with torch.cuda.device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     *(t.data_ptr() for t in outs), c, n, up, down, k,
-                    *_plan_args(plan, up, down),
+                    int(rounds(precision)), *_plan_args(plan, up, down),
                     kernels.stream_of(fm_delayed))
     kernels.check_launch(status, f"audio_rational at {up}/{down}")
     return tuple(outs)

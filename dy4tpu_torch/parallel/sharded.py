@@ -45,6 +45,7 @@ import torch.distributed as dist
 
 from dy4tpu_torch.config import ModeConfig
 from dy4tpu_torch.ops import mix, pll, trig
+from dy4tpu_torch.ops.precision import rounds
 from dy4tpu_torch.parallel.mesh import CH_AXIS, TIME_AXIS, Mesh
 from dy4tpu_torch.pipeline import receiver
 from dy4tpu_torch.pipeline.wideband import _map
@@ -143,18 +144,24 @@ class ShardedReceiver:
                  shard_blocks: int = 4,
                  overlap_blocks: Optional[int] = None,
                  stereo: bool = True, exact: bool = True,
-                 channel_parallel_replay: bool = True):
+                 channel_parallel_replay: bool = True,
+                 precision: str = "highest"):
         """``overlap_blocks``: the warm-up halo.  ``None`` (default) in
         exact mode takes the shortest sub-block halo
         (``exact_min_halo_if``); an int takes whole-block halos, and is
         the only choice of the legacy mode (default 1).  The halo may not
         be longer than one shard's chunk (``shard_blocks`` blocks): the
         halo exchange reads it from one neighbour, and the channel-parallel
-        replay carries the chunk's last codes from the last time rank."""
+        replay carries the chunk's last codes from the last time rank.
+        ``precision``: the receiver's ("highest", "high" or "default",
+        ``ops/precision.py``), kept as ``self.precision`` as dy4tpu keeps
+        it."""
         if TIME_AXIS not in mesh.shape or CH_AXIS not in mesh.shape:
             raise ValueError(f"mesh must have axes ({CH_AXIS},{TIME_AXIS})")
+        rounds(precision)       # raises on a name it does not know
         self.cfg = cfg
         self.mesh = mesh
+        self.precision = precision
         self.t_shards = mesh.shape[TIME_AXIS]
         self.ch_shards = mesh.shape[CH_AXIS]
         self.shard_blocks = shard_blocks
@@ -343,7 +350,8 @@ class ShardedReceiver:
         outs = []
         for i in range(o_blocks + self.shard_blocks):
             state, out = receiver.receiver_step(
-                params, state, ext[:, i * bs:(i + 1) * bs], cfg)
+                params, state, ext[:, i * bs:(i + 1) * bs], cfg,
+                precision=self.precision)
             outs.append(out)
         keep = outs[o_blocks:]                # the warm-up blocks dropped
 
@@ -373,12 +381,13 @@ class ShardedReceiver:
         # only the back half's warm-up
         front = _map(lambda a: a[0], carry.front)
         front, fo_mini = receiver.front_step(
-            params, front, self._left(carry, iq), cfg, rds_enabled=rds_on)
+            params, front, self._left(carry, iq), cfg,
+            precision=self.precision, rds_enabled=rds_on)
         fos = []
         for i in range(s_blocks):
             front, fo = receiver.front_step(
                 params, front, iq[:, i * bs:(i + 1) * bs], cfg,
-                rds_enabled=rds_on)
+                precision=self.precision, rds_enabled=rds_on)
             fos.append(fo)
 
         # ---- stage 2: the global PLL replay over the sign codes
@@ -454,13 +463,14 @@ class ShardedReceiver:
         back, _ = receiver.back_step(
             params, back, fo_mini, cut(nco, 0, halo_if),
             cut(nco_i, 0, halo_if), cut(nco_q, 0, halo_if), cfg,
-            rds_enabled=rds_on)
+            precision=self.precision, rds_enabled=rds_on)
         bos = []
         for i, fo in enumerate(fos):
             lo = halo_if + i * n_if
             back, bo = receiver.back_step(
                 params, back, fo, cut(nco, lo, n_if), cut(nco_i, lo, n_if),
-                cut(nco_q, lo, n_if), cfg, rds_enabled=rds_on)
+                cut(nco_q, lo, n_if), cfg, precision=self.precision,
+                rds_enabled=rds_on)
             bos.append(bo)
 
         def cat(f):

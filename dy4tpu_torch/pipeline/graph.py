@@ -532,7 +532,8 @@ def sharded_runner(receiver, params: rx.ReceiverParams, carry
            ("mesh", tuple(sorted(mesh.shape.items()))),
            ("shard_blocks", receiver.shard_blocks),
            ("halo_if", receiver.halo_if), ("stereo", receiver.stereo),
-           ("channel_parallel_replay", receiver.channel_parallel_replay))
+           ("channel_parallel_replay", receiver.channel_parallel_replay),
+           ("precision", receiver.precision))
     collectives = receiver.t_shards > 1
     return ChunkRunner(step, carry, key=key,
                        capture_error_mode=("thread_local" if collectives

@@ -29,8 +29,16 @@ recovery.  Each stage selects its implementation:
     plain``), as dy4tpu leaves them to XLA on these routes.
 
 No environment variable picks the path, and a CUDA tensor never falls
-back to the plain version silently.  Everything is float32 (dy4tpu's
-``precision=HIGHEST``).
+back to the plain version silently.
+
+``precision`` is dy4tpu's, by name (``ops/precision.py``): "highest" (the
+default, dy4tpu's HIGHEST) is float32 throughout; "default" and "high"
+(dy4tpu's DEFAULT, which its bench serves, and HIGH) run every fused
+kernel on bf16 operands, as dy4tpu calls its kernels with
+``mm_dtype=bf16``: the filters' taps and their input streams rounded to
+bf16, the products summed in float32.  The carried state stays float32 at
+every precision, so a state hands over between them.  The PLLs, the CDR
+and the demod run in float32 at every precision, as dy4tpu's do.
 
 Opt-in features, as dy4tpu's: the narrowband IQ tracker
 (``init_state(with_iqcorr=True)``: each block is corrected with the
@@ -53,6 +61,7 @@ import torch
 from dy4tpu_torch.config import ModeConfig
 from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,
                               frontend_cuda, iqcorr, mix, pll, resample_cuda)
+from dy4tpu_torch.ops.precision import rounds
 from dy4tpu_torch.runtime import consts
 
 Tensor = torch.Tensor
@@ -210,8 +219,9 @@ def fused_phase_frontend_ok(cfg: ModeConfig) -> bool:
 
 
 def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
-               cfg: ModeConfig, *, rds_enabled: bool = True,
-               frontend: str = "auto", demod_kind: str = "diff",
+               cfg: ModeConfig, *, precision: str = "highest",
+               rds_enabled: bool = True, frontend: str = "auto",
+               demod_kind: str = "diff",
                corr: Optional[iqcorr.IQCorrCoeffs] = None,
                corr_moments: bool = False):
     """RF front end + band bank + RDS carrier recovery filters: the LTI
@@ -245,8 +255,11 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
     ``prev_q`` the last Q sample, as in dy4tpu.
 
     ``iq_u8`` [..., n]: a whole block, or any n that decimates into whole
-    IF samples (the sharded receiver's sub-block warm-up).
+    IF samples (the sharded receiver's sub-block warm-up).  ``precision``:
+    "highest", "high" or "default" (module docstring); every route rounds
+    the same operands.
     """
+    rounds(precision)           # raises on a name it does not know
     if demod_kind not in _DEMODS:
         raise ValueError(f"demod_kind must be one of {_DEMODS}, got "
                          f"{demod_kind!r}")
@@ -270,11 +283,11 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
                          f"decim={cfg.rf_decim})")
     if demod_kind == "arctan":
         return _front_step_arctan(params, fstate, iq_u8, cfg, rds_enabled,
-                                  corr, corr_moments)
+                                  corr, corr_moments, precision)
     flat, unflat, plain = _route(frontend, iq_u8.shape[:-1], _FRONTENDS)
     if frontend in _AB_FRONTENDS:
         return _front_step_ab(params, fstate, flat(iq_u8), cfg, rds_enabled,
-                              frontend, flat, unflat)
+                              frontend, flat, unflat, precision)
     args = (flat(iq_u8), params.rf_coeff, params.bank_coeff,
             params.rds_carrier_coeff, flat(fstate.rf.iq_tail),
             flat(fstate.rf.prev_i), flat(fstate.rf.prev_q),
@@ -284,7 +297,7 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
              else frontend_cuda.fused_frontend_full)
     corr_rows = (None if corr is None else
                  torch.stack([flat(c) for c in corr], dim=-1))  # [..., 4]
-    outs = front(*args, rds=rds_enabled, corr=corr_rows)
+    outs = front(*args, rds=rds_enabled, corr=corr_rows, precision=precision)
     ret = _front_state(outs[:5] + outs[6:12], unflat(outs[5]), unflat)
     return (*ret, unflat(outs[12])) if corr_moments else ret
 
@@ -292,11 +305,11 @@ def front_step(params: ReceiverParams, fstate: FrontState, iq_u8: Tensor,
 def _front_step_arctan(params: ReceiverParams, fstate: FrontState,
                        iq_u8: Tensor, cfg: ModeConfig, rds_enabled: bool,
                        corr: Optional[iqcorr.IQCorrCoeffs],
-                       corr_moments: bool):
+                       corr_moments: bool, precision: str):
     """``front_step(demod_kind="arctan")``: dy4tpu's stock front end with
     the phase-unwrap demod, in plain torch on any leading batch dims."""
     i_ds, q_ds, iq_tail = frontend_cuda.rf_lpf_plain(
-        iq_u8, params.rf_coeff, fstate.rf.iq_tail, cfg.rf_decim)
+        iq_u8, params.rf_coeff, fstate.rf.iq_tail, cfg.rf_decim, precision)
     mom = iqcorr.moments(i_ds, q_ds) if corr_moments else None
     if corr is not None:
         i_ds, q_ds = iqcorr.apply(i_ds, q_ds, corr)
@@ -305,7 +318,7 @@ def _front_step_arctan(params: ReceiverParams, fstate: FrontState,
      carrier_tail, rds_delay) = frontend_cuda.band_stages_plain(
         fm, params.bank_coeff, params.rds_carrier_coeff, fstate.bank_tail,
         fstate.mono_delay, fstate.carrier_tail, fstate.rds_delay,
-        rds=rds_enabled)
+        rds=rds_enabled, precision=precision)
     ret = _front_state((fmd, pilot, stereo, carrier, rdsdel, phase,
                         q_ds[..., -1], bank_tail, mono_delay, carrier_tail,
                         rds_delay), iq_tail, lambda a: a)
@@ -314,7 +327,7 @@ def _front_step_arctan(params: ReceiverParams, fstate: FrontState,
 
 def _front_step_ab(params: ReceiverParams, fstate: FrontState,
                    iq_u8: Tensor, cfg: ModeConfig, rds_enabled: bool,
-                   frontend: str, flat, unflat):
+                   frontend: str, flat, unflat, precision: str):
     """``front_step`` on an A/B route: B11 or B12 on the flattened
     ``iq_u8`` [C, bs] (their plain versions on a CPU tensor), then the
     post-demod band stages in plain torch."""
@@ -322,12 +335,14 @@ def _front_step_ab(params: ReceiverParams, fstate: FrontState,
           else frontend_cuda.fused_frontend)
     fm, iq_tail, prev_i, prev_q = rf(
         iq_u8, params.rf_coeff, flat(fstate.rf.iq_tail),
-        flat(fstate.rf.prev_i), flat(fstate.rf.prev_q), cfg.rf_decim)
+        flat(fstate.rf.prev_i), flat(fstate.rf.prev_q), cfg.rf_decim,
+        precision)
     (fmd, pilot, stereo, carrier, rdsdel, bank_tail, mono_delay,
      carrier_tail, rds_delay) = frontend_cuda.band_stages_plain(
         fm, params.bank_coeff, params.rds_carrier_coeff,
         flat(fstate.bank_tail), flat(fstate.mono_delay),
-        flat(fstate.carrier_tail), flat(fstate.rds_delay), rds=rds_enabled)
+        flat(fstate.carrier_tail), flat(fstate.rds_delay), rds=rds_enabled,
+        precision=precision)
     outs = (fmd, pilot, stereo, carrier, rdsdel, prev_i, prev_q, bank_tail,
             mono_delay, carrier_tail, rds_delay)
     return _front_state(outs, unflat(iq_tail), unflat)
@@ -362,7 +377,8 @@ def _front_state(outs, iq_tail: Tensor, unflat
 
 
 def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
-                  q_if: Tensor, cfg: ModeConfig, *, rds_enabled: bool = True,
+                  q_if: Tensor, cfg: ModeConfig, *,
+                  precision: str = "highest", rds_enabled: bool = True,
                   frontend: str = "auto") -> tuple[FrontState, FrontOut]:
     """IF-entry front half: complex baseband at the IF rate (e.g. one
     channel of a channelizer) instead of raw RF u8.  The RF LPF and
@@ -374,7 +390,8 @@ def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
     ``frontend``: "auto" (``frontend_cuda.fused_frontend_if``: the kernel
     on a CUDA tensor, the plain version on a CPU one) or "plain" (its
     plain version on any device).  The A/B routes are RF stages, which
-    the IF entry does not have: they raise here.
+    the IF entry does not have: they raise here.  ``precision`` as for
+    ``front_step``.
     """
     if i_if.shape[-1] != cfg.if_per_block or q_if.shape != i_if.shape:
         raise ValueError(f"IF blocks of {tuple(i_if.shape)} and "
@@ -387,13 +404,14 @@ def front_step_if(params: ReceiverParams, fstate: FrontState, i_if: Tensor,
                  flat(fstate.rf.prev_q), params.bank_coeff,
                  params.rds_carrier_coeff, flat(fstate.bank_tail),
                  flat(fstate.mono_delay), flat(fstate.carrier_tail),
-                 flat(fstate.rds_delay), rds=rds_enabled)
+                 flat(fstate.rds_delay), rds=rds_enabled, precision=precision)
     return _front_state(outs, fstate.rf.iq_tail, unflat)
 
 
 def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
               nco: Tensor, nco_i: Optional[Tensor], nco_q: Optional[Tensor],
-              cfg: ModeConfig, *, rds_enabled: bool = True,
+              cfg: ModeConfig, *, precision: str = "highest",
+              rds_enabled: bool = True,
               backend: str = "auto") -> tuple[BackState, BackOut]:
     """Audio resampling + stereo matrix + RDS matched filtering: the
     post-PLL half (project.cpp:118-133; fmMonoBlock.py:684-696).  ``nco``
@@ -403,7 +421,8 @@ def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
     ``backend``: "auto" (the ``backend_cuda``/``resample_cuda`` wrappers:
     kernels on CUDA tensors, plain versions on CPU ones) or "plain".  The
     audio leg takes the U=1 back end when ``cfg.audio_up`` is 1 (modes 0
-    and 1) and the rational one otherwise (modes 2 and 3).
+    and 1) and the rational one otherwise (modes 2 and 3).  ``precision``
+    as for ``front_step``.
     """
     if backend not in _IMPLS:
         raise ValueError(f"backend must be one of {_IMPLS}, got {backend!r}")
@@ -423,7 +442,7 @@ def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
         unflat(o) for o in audio(
             flat(fo.fm_delayed), flat(fo.stereo_band), flat(nco),
             params.audio_coeff, flat(bstate.mono_tail),
-            flat(bstate.stereo_tail), *rate))
+            flat(bstate.stereo_tail), *rate, precision=precision))
 
     bb_i = bb_q = None
     lpf_tail_i = lpf_tail_q = rrc_tail_i = rrc_tail_q = None
@@ -436,7 +455,7 @@ def back_step(params: ReceiverParams, bstate: BackState, fo: FrontOut,
                 params.rds_lpf_coeff, params.rds_rrc_coeff,
                 flat(bstate.lpf_tail_i), flat(bstate.lpf_tail_q),
                 flat(bstate.rrc_tail_i), flat(bstate.rrc_tail_q),
-                cfg.rds_up, cfg.rds_down))
+                cfg.rds_up, cfg.rds_down, precision=precision))
 
     return (BackState(mono_tail=mono_tail, stereo_tail=stereo_tail,
                       lpf_tail_i=lpf_tail_i, lpf_tail_q=lpf_tail_q,
@@ -577,7 +596,8 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
                   with_rds: Optional[bool] = None, frontend: str = "auto",
                   backend: str = "auto", pll_impl: str = "auto",
                   cdr_timing: str = "peak", pll_span: int = 1,
-                  pll_span_emit: str = "torch", demod_kind: str = "diff"
+                  pll_span_emit: str = "torch", demod_kind: str = "diff",
+                  precision: str = "highest"
                   ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of interleaved u8 IQ samples.
 
@@ -589,31 +609,33 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
     unset is "peak"); ``pll_span``: 1 (the exact per-sample PLL) or K > 1
     (the span PLL; dy4tpu's ``DY4TPU_PLL_SPAN``); ``pll_span_emit``:
     "torch" or "kernel" (B9-expand; dy4tpu's ``DY4TPU_SPAN_EMIT``), see
-    ``pll.pll``; ``demod_kind``: "diff" or "arctan" (``front_step``).  The
-    port reads no environment variable.
+    ``pll.pll``; ``demod_kind``: "diff" or "arctan" (``front_step``);
+    ``precision``: "highest" (default), "high" or "default" (module
+    docstring).  The port reads no environment variable.
 
     With an ``iqcorr`` tracker in the state, the block is corrected with
     the coefficients of the blocks before it (block 0 is the identity),
     and the front end's decimated pre-correction I/Q moments are folded
     into the tracker.
     """
-    _check_step(state, cdr_timing)
+    _check_step(state, cdr_timing, precision)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
     new_iqcorr = None
     if state.iqcorr is not None:
         corr = iqcorr.coeffs(state.iqcorr)
         fstate, fo, mom = front_step(
-            params, front_state_of(state), iq_u8, cfg,
+            params, front_state_of(state), iq_u8, cfg, precision=precision,
             rds_enabled=rds_enabled, frontend=frontend,
             demod_kind=demod_kind, corr=corr, corr_moments=True)
         new_iqcorr = iqcorr.fold(state.iqcorr, mom)
     else:
         fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
+                                precision=precision,
                                 rds_enabled=rds_enabled, frontend=frontend,
                                 demod_kind=demod_kind)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
                         backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
-                        pll_span_emit)
+                        pll_span_emit, precision)
 
 
 def receiver_step_if(params: ReceiverParams, state: ReceiverState,
@@ -621,7 +643,7 @@ def receiver_step_if(params: ReceiverParams, state: ReceiverState,
                      with_rds: Optional[bool] = None, frontend: str = "auto",
                      backend: str = "auto", pll_impl: str = "auto",
                      cdr_timing: str = "peak", pll_span: int = 1,
-                     pll_span_emit: str = "torch"
+                     pll_span_emit: str = "torch", precision: str = "highest"
                      ) -> tuple[ReceiverState, StepOutputs]:
     """Process one block of IF-rate complex baseband (I/Q at
     ``cfg.if_fs``, [..., if_per_block] float32), e.g. one channel of a
@@ -633,7 +655,7 @@ def receiver_step_if(params: ReceiverParams, state: ReceiverState,
     direct IF capture (a wideband tuner's imbalance is corrected before
     the channel bank instead).
     """
-    _check_step(state, cdr_timing)
+    _check_step(state, cdr_timing, precision)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
     new_iqcorr = None
     if state.iqcorr is not None:
@@ -641,17 +663,19 @@ def receiver_step_if(params: ReceiverParams, state: ReceiverState,
         new_iqcorr = iqcorr.estimate(i_if, q_if, state.iqcorr)
         i_if, q_if = iqcorr.apply(i_if, q_if, corr)
     fstate, fo = front_step_if(params, front_state_of(state), i_if, q_if,
-                               cfg, rds_enabled=rds_enabled,
-                               frontend=frontend)
+                               cfg, precision=precision,
+                               rds_enabled=rds_enabled, frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
                         backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
-                        pll_span_emit)
+                        pll_span_emit, precision)
 
 
-def _check_step(state: ReceiverState, cdr_timing: str) -> None:
+def _check_step(state: ReceiverState, cdr_timing: str,
+                precision: str) -> None:
     if cdr_timing not in _CDR_TIMINGS:
         raise ValueError(f"unknown cdr_timing {cdr_timing!r}; expected one "
                          f"of {_CDR_TIMINGS}")
+    rounds(precision)           # raises on a name it does not know
 
 
 def _finish_step(params: ReceiverParams, state: ReceiverState,
@@ -659,7 +683,7 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
                  rds_enabled: bool, backend: str, pll_impl: str,
                  cdr_timing: str, pll_span: int = 1,
                  new_iqcorr: Optional[iqcorr.IQCorrState] = None,
-                 pll_span_emit: str = "torch"
+                 pll_span_emit: str = "torch", precision: str = "highest"
                  ) -> tuple[ReceiverState, StepOutputs]:
     # ---- stereo + RDS PLLs (project.cpp:118-133; fmMonoBlock.py:683) ----
     if rds_enabled:
@@ -700,8 +724,8 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
     pilot_snr_db = 10.0 * torch.log10(torch.clamp(sig, min=1e-12) / noise)
 
     bstate, bo = back_step(params, back_state_of(state), fo, nco, nco_i,
-                           nco_q, cfg, rds_enabled=rds_enabled,
-                           backend=backend)
+                           nco_q, cfg, precision=precision,
+                           rds_enabled=rds_enabled, backend=backend)
 
     new_audio = AudioState(mono_delay=fstate.mono_delay,
                            mono_tail=bstate.mono_tail,
@@ -735,13 +759,14 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
 def receiver_step_pcm(params: ReceiverParams, state: ReceiverState,
                       iq_u8: Tensor, cfg: ModeConfig, stereo: bool = True,
                       with_rds: Optional[bool] = None,
-                      cdr_timing: str = "peak", pll_span: int = 1):
+                      cdr_timing: str = "peak", pll_span: int = 1,
+                      precision: str = "highest"):
     """One step returning quantised s16 PCM like the reference CLI
     (project.cpp:307-317): the counterpart of dy4tpu's
     ``receiver_step_jit``.  Returns ``(state', pcm, outputs)``."""
     new_state, out = receiver_step(params, state, iq_u8, cfg,
                                    with_rds=with_rds, cdr_timing=cdr_timing,
-                                   pll_span=pll_span)
+                                   pll_span=pll_span, precision=precision)
     if stereo:
         pcm = mix.quantize_s16(mix.interleave(out.left, out.right))
     else:
@@ -751,19 +776,19 @@ def receiver_step_pcm(params: ReceiverParams, state: ReceiverState,
 
 def run_blocks(params: ReceiverParams, state: ReceiverState,
                iq_u8_blocks: Tensor, cfg: ModeConfig, pll_span: int = 1,
-               pll_span_emit: str = "torch",
+               pll_span_emit: str = "torch", precision: str = "highest",
                **step_kwargs) -> tuple[ReceiverState, StepOutputs]:
     """Run the receiver over a [num_blocks, ..., block_size] stream.
     Returns the final state and every ``StepOutputs`` field stacked on a
     leading block axis (None fields stay None), as dy4tpu's
-    ``lax.scan`` does.  ``pll_span``, ``pll_span_emit`` and
+    ``lax.scan`` does.  ``pll_span``, ``pll_span_emit``, ``precision`` and
     ``step_kwargs`` (``frontend=`` among them) go to ``receiver_step``."""
     outs = []
     for blk in iq_u8_blocks:
         state, out = receiver_step(params, state, blk, cfg,
                                    pll_span=pll_span,
                                    pll_span_emit=pll_span_emit,
-                                   **step_kwargs)
+                                   precision=precision, **step_kwargs)
         outs.append(out)
     return state, StepOutputs(*(
         None if fields[0] is None else torch.stack(fields)

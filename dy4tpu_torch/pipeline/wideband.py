@@ -92,7 +92,8 @@ def wideband_step(params: receiver.ReceiverParams, chan: ChannelizerParams,
                   state: WidebandState, wb_u8: Tensor, cfg: ModeConfig, *,
                   with_rds: Optional[bool] = None, frontend: str = "auto",
                   backend: str = "auto", pll_impl: str = "auto",
-                  channelizer: str = "auto", afc_alpha: float = 0.5
+                  channelizer: str = "auto", afc_alpha: float = 0.5,
+                  precision: str = "highest"
                   ) -> tuple[WidebandState, WidebandOutputs]:
     """One wideband block -> every station's audio + RDS outputs + RSSI.
 
@@ -101,7 +102,9 @@ def wideband_step(params: receiver.ReceiverParams, chan: ChannelizerParams,
     with a channel axis (mono/left/right [..., C, audio_per_block], RDS
     streams [..., C, ...]); ``out.rssi`` [..., C] is the per-channel
     signal strength.  ``frontend``/``backend``/``pll_impl`` go to
-    ``receiver_step_if``; ``channelizer`` to ``channelize_block_u8``.
+    ``receiver_step_if``; ``channelizer`` to ``channelize_block_u8``;
+    ``precision`` ("highest", "high" or "default", ``ops/precision.py``)
+    to both.
     """
     c = chan.channels
     n_w = c * cfg.if_per_block
@@ -114,7 +117,8 @@ def wideband_step(params: receiver.ReceiverParams, chan: ChannelizerParams,
     corr = (iqcorr_ops.coeffs_gaussian(state.iqcorr)
             if state.iqcorr is not None else None)
     (y_i, y_q), chan_state = channelize_block_u8(
-        chan, state.chan, wb_u8, impl=channelizer, corr=corr)
+        chan, state.chan, wb_u8, impl=channelizer, corr=corr,
+        precision=precision)
     new_iqcorr = None
     if state.iqcorr is not None:
         new_iqcorr = iqcorr_ops.fold(
@@ -133,7 +137,7 @@ def wideband_step(params: receiver.ReceiverParams, chan: ChannelizerParams,
     rx_state, out = receiver.receiver_step_if(
         params, _map(fl, state.rx), fl(y_i), fl(y_q), cfg,
         with_rds=with_rds, frontend=frontend, backend=backend,
-        pll_impl=pll_impl)
+        pll_impl=pll_impl, precision=precision)
     rx_state = _map(unfl, rx_state)
     out = _map(unfl, out)
 
@@ -152,15 +156,17 @@ def wideband_step(params: receiver.ReceiverParams, chan: ChannelizerParams,
 
 def run_wideband_blocks(params, chan: ChannelizerParams,
                         state: WidebandState, wb_blocks: Tensor,
-                        cfg: ModeConfig, **step_kwargs
+                        cfg: ModeConfig, precision: str = "highest",
+                        **step_kwargs
                         ) -> tuple[WidebandState, WidebandOutputs]:
     """Run ``wideband_step`` over [num_blocks, ..., 2*C*if_per_block].
     Returns the final state and every output field stacked on a leading
-    block axis (None fields stay None), as dy4tpu's ``lax.scan`` does."""
+    block axis (None fields stay None), as dy4tpu's ``lax.scan`` does.
+    ``precision`` and ``step_kwargs`` go to ``wideband_step``."""
     outs = []
     for blk in wb_blocks:
         state, out = wideband_step(params, chan, state, blk, cfg,
-                                   **step_kwargs)
+                                   precision=precision, **step_kwargs)
         outs.append(out)
     rx_out = receiver.StepOutputs(*(
         None if fields[0] is None else torch.stack(fields)

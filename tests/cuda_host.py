@@ -9,7 +9,8 @@ smem, stream>>>(args)`` runs its blocks one after another with one
 of the block, a named barrier (``bar.sync id, count``) a ``std::barrier``
 of ``count`` threads, and the round-to-nearest intrinsics are the host's
 IEEE operations (``__fmaf_rn`` is ``std::fma``, ``__int_as_float`` a
-copy of the bits, ``__funnelshift_r`` a shift of the 64-bit pair).  Each
+copy of the bits, ``__funnelshift_r`` a shift of the 64-bit pair,
+``__float2bfloat16_rn`` a round to nearest even of the bits).  Each
 test file gives the regular-expression rewrites that turn its source's
 inline assembly and launch into calls of the shim.
 """
@@ -63,6 +64,21 @@ using std::min;
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+// cuda_bf16.h's conversions: round to nearest even (NaN kept a NaN)
+struct __nv_bfloat16 { uint16_t x; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 64)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = uint32_t(b.x) << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
   return f;
 }
 struct dim3 { unsigned x, y, z; };

@@ -41,7 +41,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from dy4tpu_torch.config import MODES  # noqa: E402
-from dy4tpu_torch.ops import backend_cuda, firdes  # noqa: E402
+from dy4tpu_torch.ops import backend_cuda, firdes, precision  # noqa: E402
 from dy4tpu_torch.ops import resample_cuda as rc  # noqa: E402
 from dy4tpu_torch.parallel.sharded import exact_min_halo_if  # noqa: E402
 from dy4tpu_torch.runtime import kernels  # noqa: E402
@@ -263,10 +263,11 @@ def host_b3(tmp_path_factory):
     return fn
 
 
-def _host_run(fn, args, down, plan=None):
+def _host_run(fn, args, down, plan=None, bf16=0):
     """One launch of the host build under ``plan`` (the wrapper's own by
     default) with one copy warp (a thread of the block is a host thread
-    here): the outputs ``fused_audio_backend`` would return, filled."""
+    here), staging at bf16 where ``bf16``: the outputs
+    ``fused_audio_backend`` would return, filled."""
     c, n = args[0].shape
     k = args[3].shape[0]
     if plan is None:
@@ -275,7 +276,7 @@ def _host_run(fn, args, down, plan=None):
     outs = [torch.full(shape, math.nan) for shape in
             ((c, n // down),) * 3 + ((c, k - 1),) * 2]
     status = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
-                c, n, 1, down, k, *rc._plan_args(plan, 1, down), None)
+                c, n, 1, down, k, bf16, *rc._plan_args(plan, 1, down), None)
     assert status == 0
     return outs
 
@@ -288,6 +289,24 @@ def test_host_kernel_matches_plain_under_two_plans(host_b3, mode):
     args = _args(np.random.default_rng(20 + mode), mode, RAGGED)
     want = backend_cuda.fused_audio_backend_plain(*args, down)
     outs = [_host_run(host_b3, args, down, p) for p in _plans(args, down)]
+    for got in outs:
+        _check(got, want)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_host_kernel_bf16_matches_rounded_plain(host_b3, mode):
+    """At bf16 (precision "default"): the kernel fed the wrapper's rounded
+    taps, both legs staged rounded, against the plain version at
+    "default" within 1e-5, its tails (the unrounded legs) exact, bit for
+    bit under two plans."""
+    down = MODES[mode].audio_down
+    args = _args(np.random.default_rng(80 + mode), mode, RAGGED)
+    want = backend_cuda.fused_audio_backend_plain(*args, down, "default")
+    kargs = args[:3] + (precision.taps(args[3], "default"),) + args[4:]
+    outs = [_host_run(host_b3, kargs, down, p, bf16=1)
+            for p in _plans(args, down)]
     for got in outs:
         _check(got, want)
     for a, b in zip(*outs):
@@ -371,6 +390,6 @@ def test_host_kernel_refuses_a_plan_it_cannot_run(host_b3, bad):
     outs = [torch.empty(2, n // down) for _ in range(3)] + [
         torch.empty(2, k - 1) for _ in range(2)]
     status = host_b3(*(t.data_ptr() for t in args),
-                     *(t.data_ptr() for t in outs), 2, n, 1, down, k,
+                     *(t.data_ptr() for t in outs), 2, n, 1, down, k, 0,
                      *rc._plan_args(plan, 1, down), None)
     assert status == 1               # cudaErrorInvalidValue, no launch

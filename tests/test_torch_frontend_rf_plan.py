@@ -364,24 +364,25 @@ inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t) {
 @pytest.fixture(scope="module")
 def host_b1(tmp_path_factory):
     """``csrc/frontend.cu`` built for the host: B1's entry point."""
-    launch = (r"frontend_full_kernel<kRds, kCorr><<<grid, kThreads, smem, "
-              r"stream>>>\((.*?)\);",
-              r"emulate(frontend_full_kernel<kRds, kCorr>, grid, kThreads, "
-              r"smem, \1);")
-    launch_if = (r"frontend_if_kernel<kRds><<<grid, kThreads, smem, "
+    launch = (r"frontend_full_kernel<kRds, kCorr, kBf16><<<grid, kThreads, "
+              r"smem, stream>>>\((.*?)\);",
+              r"emulate(frontend_full_kernel<kRds, kCorr, kBf16>, grid, "
+              r"kThreads, smem, \1);")
+    launch_if = (r"frontend_if_kernel<kRds, kBf16><<<grid, kThreads, smem, "
                  r"stream>>>\((.*?)\);",
-                 r"emulate(frontend_if_kernel<kRds>, grid, kThreads, smem, "
-                 r"\1);")
+                 r"emulate(frontend_if_kernel<kRds, kBf16>, grid, kThreads, "
+                 r"smem, \1);")
     src = cuda_host.rewrite(
         (kernels.CSRC / "frontend.cu").read_text(), "csrc/frontend.cu",
         ((r'#include "rf_stage\.cuh"', '#include "rf_stage.cuh"\n'
           + _CORR_STUBS), _SMEM, launch, launch_if) + _COMMON)
     so = cuda_host.build(tmp_path_factory.mktemp("b1_host"), "libb1_host.so",
                          {"rf_stage.cuh": _header(), "frontend.cpp": src})
-    fn = so.dy4_frontend_full
-    fn.argtypes = fc._ARGS
-    fn.restype = ctypes.c_int
-    return fn
+    for name, args in (("dy4_frontend_full", fc._ARGS),
+                       ("dy4_frontend_if", fc._IF_ARGS)):
+        getattr(so, name).argtypes = args
+        getattr(so, name).restype = ctypes.c_int
+    return so
 
 
 @pytest.mark.parametrize("mode,rds", [(0, True), (1, False)])
@@ -404,9 +405,10 @@ def test_host_b11_is_b1_bit_for_bit(host_rf, host_b1, mode, rds):
         new(c, 2, 100), new(c), new(c), new(c, kb - 1), new(c, kb // 2),
         new(c, kb - 1), new(c, kb // 2)]
     plan = fc._tile_plan(n_out, decim, 101, kb, rds)
-    assert host_b1(*(a.data_ptr() for a in ins),
-                   *(o.data_ptr() for o in outs), c, u8.shape[1], decim, 101,
-                   kb, int(rds), plan.tile, plan.sub, None) == 0
+    assert host_b1.dy4_frontend_full(
+        *(a.data_ptr() for a in ins), *(o.data_ptr() for o in outs), c,
+        u8.shape[1], decim, 101, kb, int(rds), 0, plan.tile, plan.sub,
+        None) == 0
     b11 = _host_run(host_rf, fc._PAIRS, (u8, h, tail, pi, pq), decim)
     dly = kb // 2
     assert torch.equal(b11[0][:, :n_out - dly], outs[0][:, dly:])
@@ -415,3 +417,106 @@ def test_host_b11_is_b1_bit_for_bit(host_rf, host_b1, mode, rds):
     # and B1 itself within its bar of its plain version
     plain = fc.fused_frontend_full_plain(*ins, decim, rds=rds)
     assert float((outs[0] - plain[0]).abs().max()) <= 1e-5
+
+
+def _band_case(mode: int, rds: bool):
+    """B1's inputs over two tiles and a short last one (as above), the
+    band tails random: ``(ins, c, n_out, decim, kb)``."""
+    cfg = MODES[mode]
+    c, n_out, decim = 2, 2 * fc.TILE + 60, cfg.rf_decim
+    u8, h, tail, pi, pq = _case(mode + 50, c, n_out, decim)
+    p = rx.make_params(MODES[0], device="cpu")
+    kb = p.bank_coeff.shape[-1]
+    rng = np.random.default_rng(mode + 7)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * 0.1).astype(np.float32))
+    bands = (f(c, kb - 1), f(c, kb // 2), f(c, kb - 1), f(c, kb // 2))
+    return ((u8, h, p.bank_coeff, p.rds_carrier_coeff, tail, pi, pq, *bands),
+            c, n_out, decim, kb)
+
+
+def _held_band_stage(outs, ins, fm, kb, rds):
+    """The band stage of B1 / B6 at bf16 against its plain version fed the
+    kernel's own float32 fm (and, for the carrier, its own RDS band), so
+    that no bf16 rounding flips between the two: the streams within 1e-5,
+    the tails that copy the kernel's streams exact.  ``outs``: the
+    kernel's fm_delayed, pilot, stereo, carrier, rds_delayed and its new
+    bank_tail, mono_delay, carrier_tail, rds_delay; ``ins``: the taps and
+    the old band tails; ``fm``: the kernel's fm."""
+    from dy4tpu_torch.ops import fir, precision
+    h_bank, h_c, bank_tail, mono_delay, carrier_tail, rds_delay = ins
+    fmd, pilot, stereo, carrier, rdsdel, bt, md, ct, rdl = outs
+    dly = kb // 2
+    assert torch.equal(fmd[:, :dly], mono_delay)
+    want = fc.band_stages_plain(fm, h_bank, h_c, bank_tail, mono_delay,
+                                carrier_tail, rds_delay, rds=rds,
+                                precision="default")
+    for got, w in ((pilot, want[1]), (stereo, want[2])):
+        assert float((got - w).abs().max()) <= TOL_BAND
+    assert torch.equal(bt, want[5])
+    if not rds:
+        return
+    assert torch.equal(rdsdel[:, :dly], rds_delay)
+    band = torch.cat([rdsdel[:, dly:], rdl], -1)       # the kernel's
+    assert float((band - torch.cat([want[4][:, dly:], want[8]], -1))
+                 .abs().max()) <= TOL_BAND
+    sq = band * band
+    want_c, _ = fir.block_fir(precision.bf16(sq), precision.bf16(h_c),
+                              precision.bf16(carrier_tail))
+    assert float((carrier - want_c).abs().max()) <= TOL_BAND
+    assert torch.equal(ct, sq[:, -(kb - 1):])
+
+
+TOL_BAND = 1e-5
+
+
+@pytest.mark.parametrize("mode,rds", [(0, True), (1, False)])
+def test_host_b1_b6_bf16_band_stage(host_b1, mode, rds):
+    """B1 and B6 at bf16 (precision "default"), the wrapper's rounded taps:
+    B1's fm at the RF stage's bar (``_check``: its I/Q are the float32
+    stage's on rounded taps) and its RF tail exact, and both kernels' band
+    stages held to the plain band stage on their own fm
+    (``_held_band_stage``), over two tiles and a short last one, each
+    tile's halo rounded as its own tile rounds it."""
+    from dy4tpu_torch.ops import demod, precision
+    ins, c, n_out, decim, kb = _band_case(mode, rds)
+    rt = [precision.taps(t, "default") for t in ins[1:4]]
+    new = lambda *s: torch.full(s, float("nan"))  # noqa: E731
+    outs = [new(c, n_out) for _ in range(5)] + [
+        new(c, 2, 100), new(c), new(c), new(c, kb - 1), new(c, kb // 2),
+        new(c, kb - 1), new(c, kb // 2)]
+    plan = fc._tile_plan(n_out, decim, 101, kb, rds)
+    assert plan.n_tiles == 3
+    assert host_b1.dy4_frontend_full(
+        *(a.data_ptr() for a in (ins[0], *rt, *ins[4:])),
+        *(o.data_ptr() for o in outs), c, ins[0].shape[1], decim, 101, kb,
+        int(rds), 1, plan.tile, plan.sub, None) == 0
+    plain = fc.fused_frontend_full_plain(*ins, decim, rds=rds,
+                                         precision="default")
+    dly = kb // 2
+    fm = torch.cat([outs[0][:, dly:], outs[9]], -1)
+    fm_p = torch.cat([plain[0][:, dly:], plain[9]], -1)
+    _check((fm, outs[5], outs[6], outs[7]), (fm_p, *plain[5:8]),
+           (ins[0], rt[0], ins[4]), decim)
+    sel = [0, 1, 2, 3, 4, 8, 9, 10, 11]
+    band_ins = (ins[2], ins[3], *ins[7:])
+    _held_band_stage([outs[k] for k in sel], band_ins, fm, kb, rds)
+
+    # B6 on the I/Q of the same block by the plain RF LPF
+    i_if, q_if, _ = fc.rf_lpf_plain(ins[0], ins[1], ins[4], decim)
+    i_if, q_if = i_if.contiguous(), q_if.contiguous()
+    iouts = [new(c, n_out) for _ in range(5)] + [
+        new(c), new(c), new(c, kb - 1), new(c, kb // 2), new(c, kb - 1),
+        new(c, kb // 2)]
+    assert host_b1.dy4_frontend_if(
+        *(a.data_ptr() for a in (i_if, q_if, rt[1], rt[2], ins[5], ins[6],
+                                  *ins[7:])),
+        *(o.data_ptr() for o in iouts), c, n_out, kb, int(rds), 1,
+        fc._tile_plan(n_out, 1, 0, kb, rds).tile, None) == 0
+    fm_p, pi, pq = demod.fm_demod_diff(i_if, q_if, ins[5], ins[6])
+    assert torch.equal(iouts[5], pi) and torch.equal(iouts[6], pq)
+    fm = torch.cat([iouts[0][:, dly:], iouts[8]], -1)
+    live = i_if * i_if + q_if * q_if > AB_POWER
+    assert float((fm - fm_p).abs()[live].max()) <= AB_TOL
+    _held_band_stage([iouts[k] for k in (0, 1, 2, 3, 4, 7, 8, 9, 10)],
+                     band_ins, fm, kb, rds)

@@ -180,7 +180,8 @@ def test_runner_key_names_the_step(exact):
         assert key == {"exact": exact,
                        "mesh": (("ch", 1), ("time", time_axis)),
                        "shard_blocks": S, "halo_if": r.halo_if,
-                       "stereo": True, "channel_parallel_replay": True}
+                       "stereo": True, "channel_parallel_replay": True,
+                       "precision": "highest"}
         assert not runner.on_card
 
 

@@ -44,7 +44,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from dy4tpu.ops import resample_pallas  # noqa: E402
 from dy4tpu_torch.config import MODES  # noqa: E402
-from dy4tpu_torch.ops import firdes  # noqa: E402
+from dy4tpu_torch.ops import fir, firdes, precision  # noqa: E402
 from dy4tpu_torch.ops import resample_cuda as rc  # noqa: E402
 from dy4tpu_torch.runtime import kernels  # noqa: E402
 
@@ -303,6 +303,45 @@ def test_tiled_model_matches_plain_under_two_plans(which, mode):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("which,mode", CASES,
+                         ids=[f"{w}-mode{m}" for w, m in CASES])
+def test_host_kernel_bf16_matches_rounded_plain(host_lib, which, mode):
+    """At bf16 (precision "default"), the kernel fed the wrapper's rounded
+    taps against the plain version at "default", bit for bit under two
+    plans (B4's halo rounded as its own tile rounds it).  Both round the
+    same mixed products, so B5 holds 1e-5 with its tails exact.  B4 sums
+    its resampled stream in another order than the plain version, so the
+    stream's rounding before the RRC can flip: at most 0.5% of the
+    baseband past 1e-5, each within 2^-8 max|y| sum|h_rrc|; the LPF tails
+    exact, the RRC tails (the unrounded stream) within 1e-5."""
+    args, up, down, plain, _, exact = _case(which, mode, RAGGED, 80 + mode)
+    want = plain(*args, up, down, "default")
+    n_taps = 5 if which == "B4" else 4
+    kargs = tuple(precision.taps(a, "default") if 3 <= i < n_taps else a
+                  for i, a in enumerate(args))
+    outs = [_host_run(host_lib[which], which, kargs, up, down, p, bf16=1)
+            for p in _plans(which, args, up, down, RAGGED)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    if which == "B5":
+        _check(outs[0], want, exact)
+        return
+    y, _ = fir.block_fir_resample(
+        precision.bf16(torch.stack([args[1] * args[0], args[2] * args[0]])),
+        kargs[3], precision.bf16(torch.stack(args[5:7])), up=up, down=down)
+    bound = TOL + 2.0 ** -8 * float(y.abs().max()) * float(
+        args[4].abs().sum())
+    for i, (g, w) in enumerate(zip(outs[0], want)):
+        err = (g.double() - w.double()).abs()
+        if i in exact:
+            assert torch.equal(g, w), i
+        elif i < 2:
+            assert float((err > TOL).double().mean()) <= 0.005, i
+            assert float(err.max()) <= bound, (i, float(err.max()))
+        else:
+            assert float(err.max()) <= TOL, i
+
+
 def test_tiled_model_matches_pallas():
     """B4 at mode 0, C = 3, against dy4tpu's Pallas kernel in interpret
     mode (float32), as tests/test_torch_backend.py runs it."""
@@ -341,10 +380,10 @@ def host_lib(tmp_path_factory):
     return fns
 
 
-def _host_run(fn, which, args, up, down, plan):
+def _host_run(fn, which, args, up, down, plan, bf16=0):
     """One launch of the host build under ``plan`` with one copy warp (a
-    thread of the block is a host thread here): the outputs the wrapper
-    would allocate, filled."""
+    thread of the block is a host thread here), staging at bf16 where
+    ``bf16``: the outputs the wrapper would allocate, filled."""
     plan = plan._replace(threads=plan.compute_threads + 32)
     c, n = args[0].shape
     k = args[3].shape[0]
@@ -360,7 +399,7 @@ def _host_run(fn, which, args, up, down, plan):
                 ((c, m),) * 3 + ((c, s),) * 2]
         geom = (c, n, up, down, k)
     status = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
-                *geom, *rc._plan_args(plan, up, down), None)
+                *geom, bf16, *rc._plan_args(plan, up, down), None)
     assert status == 0
     return outs
 
@@ -435,5 +474,5 @@ def test_host_kernel_refuses_a_plan_it_cannot_run(host_lib):
     status = host_lib["B5"](*(t.data_ptr() for t in args),
                             *(t.data_ptr() for t in outs), 2,
                             args[0].shape[-1], up, down, args[3].shape[0],
-                            *rc._plan_args(bad, up, down), None)
+                            0, *rc._plan_args(bad, up, down), None)
     assert status == 1               # cudaErrorInvalidValue, no launch
