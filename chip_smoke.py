@@ -400,6 +400,7 @@ FIR_GEOMS = (((2 * C,), 76800, 101, 10), ((128,), 76800, 101, 10),
 FIR_SWEEP = dict(tile=(512, 1024, 1920), sub=(256, 512), stages=(1, 2, 3))
 HBM_BYTES_S = 3.35e12                # H100 SXM device memory, bytes/s
 FP32_FLOP_S = 67e12                  # H100 SXM float32 outside tensor cores
+BF16_FLOP_S = 989e12                 # H100 SXM bf16 tensor cores, dense
 FP32_LATENCY = 4                     # cycles from one dependent float op
 # float operations per PLL step, counted in csrc/pll.cu's loop bodies:
 # all of them (B2 17; B9 18 with k*integ), and those on the loop-carried
@@ -608,6 +609,7 @@ class _Row:
     library: Optional[Callable] = None
     extra: dict = dataclasses.field(default_factory=dict)
     phase: str = "phase 2"
+    flop_rate: float = FP32_FLOP_S       # the card's peak for these flops
 
     def finish(self, smi: str, mode: int) -> dict:
         if not self.err <= self.tol:
@@ -629,7 +631,7 @@ class _Row:
             if kernel_ms is not None:
                 break
         by_bytes = self.nbytes / HBM_BYTES_S * 1e3
-        by_ops = self.flops / FP32_FLOP_S * 1e3
+        by_ops = self.flops / self.flop_rate * 1e3
         bound_ms = max(by_bytes, by_ops)
         bound_by = "bytes" if by_bytes >= by_ops else "operations"
         note = ""
@@ -695,7 +697,8 @@ def _front_corr_pair(label, fargs, corr, rds):
     return k_out, p_out
 
 
-def _moments_rel_err(label, blk, params, cfg, iq_tail, k_mom, p_mom):
+def _moments_rel_err(label, blk, params, cfg, iq_tail, k_mom, p_mom,
+                     precision="highest", phase="phase 2"):
     """The tracker moments against a relative ``MOM_TOL`` of the mean
     magnitude of their terms, E[|i|^p |q|^r]: the scale of a float32
     sum's rounding (a moment near 0 has no scale of its own).  Raises
@@ -703,12 +706,13 @@ def _moments_rel_err(label, blk, params, cfg, iq_tail, k_mom, p_mom):
     import torch
     from dy4tpu_torch.ops import frontend_cuda, iqcorr
     i_ds, q_ds, _ = frontend_cuda.rf_lpf_plain(blk, params.rf_coeff,
-                                               iq_tail, cfg.rf_decim)
+                                               iq_tail, cfg.rf_decim,
+                                               precision)
     scale = torch.stack([
         (i_ds.double().abs() ** p * q_ds.double().abs() ** r).mean(-1)
         for p, r in iqcorr._POWERS], dim=-1)
     rel = float(((k_mom.double() - p_mom.double()).abs() / scale).max())
-    _say(f"phase 2: {label}: moments {list(k_mom.shape)} within a relative "
+    _say(f"{phase}: {label}: moments {list(k_mom.shape)} within a relative "
          f"{rel:.3g} "
          f"of the plain version's (tolerance {MOM_TOL:g})")
     if not rel <= MOM_TOL:
@@ -840,21 +844,26 @@ def _front_plan(cfg) -> None:
     rds = cfg.supports_rds
     kb = cfg.num_taps
     smem = kernels.load("frontend").dy4_frontend_smem
-    smem.argtypes = [ctypes.c_int] * 7
+    smem.argtypes = [ctypes.c_int] * 8
     smem.restype = ctypes.c_longlong
     for what, k, d, corr in (("B1", cfg.num_taps, cfg.rf_decim, 0),
                              ("B1-corr", cfg.num_taps, cfg.rf_decim, 1),
                              ("B6", 0, 1, 0)):
-        plan = fc._tile_plan(cfg.if_per_block, d, k, kb, rds)
-        need = smem(plan.tile, plan.sub, d, k, kb, int(rds), corr)
-        mine = fc._smem_bytes(plan, d, k, kb, rds, bool(corr))
-        _say(f"phase 2: {what} mode{cfg.mode} plan: {plan.n_tiles} tiles of "
-             f"{plan.tile} (halo {plan.halo}, RF passes of {plan.sub}), "
-             f"{need} bytes of shared memory a block")
-        if need != mine or need > 60 * 1024 or plan.n_tiles < 2:
-            raise AssertionError(f"{what} mode{cfg.mode}: plan {plan}, "
-                                 f"{need} bytes of shared memory a block "
-                                 f"(the wrapper's formula {mine})")
+        for bf16 in (False, True):
+            plan = fc._tile_plan(cfg.if_per_block, d, k, kb, rds, bf16)
+            need = smem(plan.tile, plan.sub, d, k, kb, int(rds), corr,
+                        int(bf16))
+            mine = fc._smem_bytes(plan, d, k, kb, rds, bool(corr), bf16)
+            _say(f"phase 2: {what} mode{cfg.mode} plan"
+                 f"{' at default (tensor cores)' if bf16 else ''}: "
+                 f"{plan.n_tiles} tiles of {plan.tile} (halo {plan.halo}, "
+                 f"RF passes of {plan.sub}), {need} bytes of shared memory "
+                 f"a block")
+            if need != mine or need > 60 * 1024 or plan.n_tiles < 2:
+                raise AssertionError(f"{what} mode{cfg.mode}: plan {plan}, "
+                                     f"{need} bytes of shared memory a "
+                                     f"block (the wrapper's formula "
+                                     f"{mine})")
 
 
 def _front_cut_rows(cfg, params, fargs, corr, label) -> list:
@@ -5115,9 +5124,14 @@ def _graph_sharded(dev, smi, all_wrappers, eff_eager) -> dict:
     med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
     eff = med["sharded"] / med["plain"]
     b8_name = _device_kernels()[b8]
-    prof = {"plain": _profile(sides["plain"]),
-            "sharded": _profile(sides["sharded"], b8_name)}
-    busy, b8_ms = prof["sharded"][0], prof["sharded"][3]
+    # a profiler session can drop a graph's device events: up to three
+    # sessions, until one holds B8's
+    for _ in range(3):
+        prof = {"plain": _profile(sides["plain"]),
+                "sharded": _profile(sides["sharded"], b8_name)}
+        busy, b8_ms = prof["sharded"][0], prof["sharded"][3]
+        if 0 < b8_ms < busy:
+            break
     if not 0 < b8_ms < busy:
         raise AssertionError(f"phase 11: B8 {b8_ms:.4f} ms of a graphed "
                              f"sharded step's {busy:.4f} ms device busy")
@@ -5235,44 +5249,39 @@ def _prec_band_err(streams, taps_tails, fm, kb, rds) -> float:
     return err
 
 
-def _prec_front_rows(cfg, params, blk, fs, dev) -> list:
-    """Phase 12's B1 (and B1-corr, B6) at "default" on ``blk`` from the
-    front state ``fs``: the RF stage and demod against the plain version
-    at "default" within 1e-5 (fm, prev_i / prev_q; the RF tail exact),
-    then the band stage on the kernel's own fm (``_prec_band_err``)."""
-    import numpy as np
+def _prec_b1_b6(cfg, params, fargs, corrs, label, cold) -> list:
+    """B1 (with each of ``corrs``: None for the stock kernel, [c, 4] for
+    the corr variant) and, at B6_MODES, B6 on the plain RF stage's I/Q of
+    the same rows, at "default" on ``fargs`` (as for
+    ``fused_frontend_full``): fm and prev_i / prev_q within 1e-5 of the
+    plain version at "default", the RF tail exact (B6: prev exact), the
+    band stage on the kernel's own fm (``_prec_band_err``), the moments
+    within MOM_TOL; the bound at the bf16 tensor cores' rate; ``cold``:
+    each also alone from a cold L2.  Returns the rows."""
     import torch
     from dy4tpu_torch.ops import frontend_cuda as fc
-    from dy4tpu_torch.ops import precision as pr
 
     rds = cfg.supports_rds
+    blk = fargs[0]
+    c, bs = blk.shape
+    n = bs // 2 // cfg.rf_decim
     mode = f"mode{cfg.mode}"
     kb = cfg.num_taps
     dly = kb // 2
-    cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
-    fargs = (blk, params.rf_coeff, params.bank_coeff,
-             params.rds_carrier_coeff, *(cont(t) for t in (
-                 fs.rf.iq_tail, fs.rf.prev_i, fs.rf.prev_q, fs.bank_tail,
-                 fs.mono_delay, fs.carrier_tail, fs.rds_delay)),
-             cfg.rf_decim)
+    where = f"C={c}"
+    geom = "" if c == C else f" {label} [{c}, {n}]"
     taps_tails = (params.bank_coeff, params.rds_carrier_coeff, *fargs[7:11])
     nbytes = lambda out: _nbytes(  # noqa: E731
         fargs[:11] if rds else fargs[:3] + fargs[4:9], out)
     rows = []
-    corrs = [None]
-    if cfg.mode in OPT_MODES:
-        g = np.random.default_rng(cfg.mode)
-        corrs.append(torch.from_numpy(np.stack(
-            [g.uniform(-0.05, 0.05, C), g.uniform(-0.05, 0.05, C),
-             g.uniform(-0.2, 0.2, C), g.uniform(0.8, 1.2, C)],
-            axis=-1).astype(np.float32)).to(dev))
     for corr in corrs:
         kw = dict(rds=rds, corr=corr, precision="default")
         k_out = fc.fused_frontend_full(*fargs, **kw)
         p_out = fc.fused_frontend_full_plain(*fargs, **kw)
         torch.cuda.synchronize()
         if not torch.equal(k_out[5], p_out[5]):
-            raise AssertionError(f"phase 12: B1 {mode}: iq_tail differs")
+            raise AssertionError(f"phase 12: B1 {mode}{geom}: iq_tail "
+                                 f"differs")
         fm = torch.cat([k_out[0][:, dly:], k_out[9]], -1)
         fm_p = torch.cat([p_out[0][:, dly:], p_out[9]], -1)
         err = max(_max_err([fm, *k_out[6:8]], [fm_p, *p_out[6:8]]),
@@ -5281,25 +5290,28 @@ def _prec_front_rows(cfg, params, blk, fs, dev) -> list:
                                  taps_tails, fm, kb, rds))
         extra = {"precision": "default"}
         if corr is not None:
-            extra["mom_rel_err"] = float(
-                ((k_out[12] - p_out[12]).abs()
-                 / p_out[12].abs().clamp(min=1e-6)).max())
+            extra["mom_rel_err"] = _moments_rel_err(
+                f"B1 corr {mode}{geom} default", blk, params, cfg, fargs[4],
+                k_out[12], p_out[12], precision="default", phase="phase 12")
+        wrapper = (fc.fused_frontend_full if corr is None
+                   else fc.fused_frontend_full.corr)
+        kern = lambda kw=kw: fc.fused_frontend_full(*fargs, **kw)  # noqa
+        if cold:
+            extra["kernel_cold_ms"] = _cold_ms(kern, wrapper)
         rows.append(_Row(
             "B1 frontend" if corr is None else "B1 frontend_corr",
-            f"{mode} decim {cfg.rf_decim} rds={rds} default",
+            f"{mode}{geom} decim {cfg.rf_decim} rds={rds} default",
             "dy4tpu_torch/csrc/frontend.cu",
-            "dy4tpu/ops/frontend_pallas.py:693",
-            fc.fused_frontend_full if corr is None
-            else fc.fused_frontend_full.corr, err, 1e-5,
-            lambda kw=kw: fc.fused_frontend_full(*fargs, **kw),
+            "dy4tpu/ops/frontend_pallas.py:693", wrapper, err, 1e-5, kern,
             lambda kw=kw: fc.fused_frontend_full_plain(*fargs, **kw),
-            nbytes=nbytes(k_out),
-            flops=_front_flops(cfg, C, rds, rf=True, corr=corr is not None),
-            extra=extra, phase="phase 12"))
+            where=where, nbytes=nbytes(k_out),
+            flops=_front_flops(cfg, c, rds, rf=True, corr=corr is not None,
+                               n=n),
+            extra=extra, phase="phase 12", flop_rate=BF16_FLOP_S))
         del k_out, p_out
     if cfg.mode in B6_MODES:
-        i_if, q_if, _ = fc.rf_lpf_plain(blk, params.rf_coeff,
-                                        fs.rf.iq_tail, cfg.rf_decim)
+        i_if, q_if, _ = fc.rf_lpf_plain(blk, params.rf_coeff, fargs[4],
+                                        cfg.rf_decim)
         iargs = (i_if.contiguous(), q_if.contiguous(), *fargs[5:7],
                  params.bank_coeff, params.rds_carrier_coeff, *fargs[7:11])
         kw = dict(rds=rds, precision="default")
@@ -5308,23 +5320,68 @@ def _prec_front_rows(cfg, params, blk, fs, dev) -> list:
         torch.cuda.synchronize()
         if not (torch.equal(k_out[5], p_out[5])
                 and torch.equal(k_out[6], p_out[6])):
-            raise AssertionError(f"phase 12: B6 {mode}: prev_i/prev_q differ")
+            raise AssertionError(f"phase 12: B6 {mode}{geom}: prev_i/prev_q "
+                                 f"differ")
         fm = torch.cat([k_out[0][:, dly:], k_out[8]], -1)
         fm_p = torch.cat([p_out[0][:, dly:], p_out[8]], -1)
         err = max(_max_err([fm], [fm_p]),
                   _prec_band_err([k_out[i] for i in (0, 1, 2, 3, 4, 7, 8, 9,
                                                      10)],
                                  taps_tails, fm, kb, rds))
+        kern = lambda: fc.fused_frontend_if(*iargs, **kw)  # noqa: E731
+        extra = {"precision": "default"}
+        if cold:
+            extra["kernel_cold_ms"] = _cold_ms(kern, fc.fused_frontend_if)
         rows.append(_Row(
-            "B6 frontend_if", f"{mode} rds={rds} default",
+            "B6 frontend_if", f"{mode}{geom} rds={rds} default",
             "dy4tpu_torch/csrc/frontend.cu",
             "dy4tpu/ops/frontend_pallas.py:881", fc.fused_frontend_if, err,
-            1e-5, lambda: fc.fused_frontend_if(*iargs, **kw),
-            lambda: fc.fused_frontend_if_plain(*iargs, **kw),
+            1e-5, kern, lambda: fc.fused_frontend_if_plain(*iargs, **kw),
+            where=where,
             nbytes=_nbytes(iargs if rds else iargs[:5] + iargs[6:8], k_out),
-            flops=_front_flops(cfg, C, rds, rf=False),
-            extra={"precision": "default"}, phase="phase 12"))
+            flops=_front_flops(cfg, c, rds, rf=False, n=n),
+            extra=extra, phase="phase 12", flop_rate=BF16_FLOP_S))
         del k_out, p_out
+    return rows
+
+
+def _prec_front_rows(cfg, params, blk, fs, dev) -> list:
+    """Phase 12's B1 (and B1-corr, B6) at "default" on ``blk`` from the
+    front state ``fs`` (``_prec_b1_b6``), at C and, at OPT_MODES, at a
+    ragged 37 rows (the last tile 60 samples) and at the CLI's one
+    channel; then dy4tpu's A/B fronts B11 / B12 at mode 0."""
+    import numpy as np
+    import torch
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    from dy4tpu_torch.ops import precision as pr
+
+    mode = f"mode{cfg.mode}"
+    cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
+    fargs = (blk, params.rf_coeff, params.bank_coeff,
+             params.rds_carrier_coeff, *(cont(t) for t in (
+                 fs.rf.iq_tail, fs.rf.prev_i, fs.rf.prev_q, fs.bank_tail,
+                 fs.mono_delay, fs.carrier_tail, fs.rds_delay)),
+             cfg.rf_decim)
+    corrs = [None]
+    if cfg.mode in OPT_MODES:
+        g = np.random.default_rng(cfg.mode)
+        corrs.append(torch.from_numpy(np.stack(
+            [g.uniform(-0.05, 0.05, C), g.uniform(-0.05, 0.05, C),
+             g.uniform(-0.2, 0.2, C), g.uniform(0.8, 1.2, C)],
+            axis=-1).astype(np.float32)).to(dev))
+    rows = _prec_b1_b6(cfg, params, fargs, corrs, "", cold=True)
+    if cfg.mode in OPT_MODES:
+        n_r = 2 * fc.TILE + FRONT_RAGGED_LAST
+        cut = lambda t, r: (  # noqa: E731
+            None if t is None else t[:r].contiguous())
+        for label, r, n_b in (("ragged", FRONT_RAGGED_ROWS, n_r),
+                              ("CLI", 1, cfg.if_per_block)):
+            args = (blk[:r, :2 * cfg.rf_decim * n_b].contiguous(),
+                    *fargs[1:4], *(cut(t, r) for t in fargs[4:11]),
+                    cfg.rf_decim)
+            rows += _prec_b1_b6(cfg, params, args,
+                                [cut(c, r) for c in corrs], label,
+                                cold=False)
     if cfg.mode == 0:
         # B11 / B12 (dy4tpu's A/B front ends): the RF stage on rounded taps
         for wrap, plain, name, line in (
@@ -5824,14 +5881,124 @@ def _prec_sharded(dev, smi, all_wrappers) -> None:
     graph.clear()
 
 
-def _run_precision(dev, smi, all_wrappers, results) -> None:
+def _tc_build_start():
+    """``csrc/frontend.cu`` compiled once more for its ptxas report
+    (``nvcc -cubin -Xptxas -v``, device code only), started in the
+    background beside the other phases; ``_tc_build_report`` reads it.
+    Returns (the process, its output directory)."""
+    from dy4tpu_torch.runtime import kernels
+    out = Path(tempfile.mkdtemp(prefix="dy4_ptxas_"))
+    proc = subprocess.Popen(
+        [kernels.find_nvcc(), *kernels._ARCH, "-std=c++17", "-O3", "-cubin",
+         "-Xptxas", "-v", "-o", str(out / "frontend.cubin"),
+         str(kernels.CSRC / "frontend.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def _tc_kernel(mangled: str):
+    """(label, (if_kernel, rds, corr, bf16)) of a B1 / B6 instantiation's
+    mangled name, or None for any other function."""
+    import re
+    m = re.search(r"(frontend_full_kernel|frontend_if_kernel)I((?:Lb[01]E)+)E",
+                  mangled)
+    if m is None:
+        return None
+    flags = [f == "1" for f in re.findall(r"Lb([01])E", m.group(2))]
+    if m.group(1) == "frontend_if_kernel":
+        (rds, bf16), corr, kind = flags, False, "B6"
+    else:
+        rds, corr, bf16 = flags
+        kind = "B1-corr" if corr else "B1"
+    label = (f"{kind} rds={int(rds)} "
+             f"{'kBf16 (tensor cores)' if bf16 else 'float32'}")
+    return label, (kind == "B6", rds, corr, bf16)
+
+
+def _tc_build_report(build, smi) -> None:
+    """Phase 12's build report of B1 / B1-corr / B6: each instantiation's
+    registers, spills and static shared memory from ``-Xptxas -v``; its
+    blocks an SM (the card's occupancy calculator) at modes 0 and 1's
+    plans; and, where the toolkit has ``cuobjdump``, its HMMA
+    instructions in the built library's SASS: raises unless the kBf16
+    instantiations hold HMMA and the float32 ones none."""
+    import ctypes
+    import re
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    from dy4tpu_torch.runtime import kernels
+    proc, out = build
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 12: nvcc -Xptxas -v of frontend.cu "
+                             f"failed:\n{log}")
+    info: dict = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            current = _tc_kernel(m.group(1))
+            if current:
+                info.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info[current]["spills"] = f"{m.group(1)} / {m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[current]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            info[current]["static smem"] = int(sm.group(1)) if sm else 0
+    blocks = kernels.load("frontend").dy4_frontend_blocks
+    blocks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+    blocks.restype = ctypes.c_int
+    sass = {}
+    cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    if cuobjdump.is_file():
+        dump = subprocess.run([str(cuobjdump), "-sass",
+                               str(kernels.lib_path("frontend"))],
+                              capture_output=True, text=True).stdout
+        for sec in re.split(r"\n\s*Function : ", dump)[1:]:
+            found = _tc_kernel(sec.split("\n", 1)[0].strip())
+            if found:
+                sass[found] = sec.count("HMMA")
+    for (label, key), got in sorted(info.items()):
+        if_k, rds, corr, bf16 = key
+        cfg = get_mode(0 if rds else 1)
+        k, d = (0, 1) if if_k else (cfg.num_taps, cfg.rf_decim)
+        plan = fc._tile_plan(cfg.if_per_block, d, k, cfg.num_taps, rds, bf16)
+        smem = fc._smem_bytes(plan, d, k, cfg.num_taps, rds, corr, bf16)
+        n = blocks(int(if_k), int(rds), int(corr), int(bf16), smem)
+        hmma = sass.get((label, key))
+        _say(f"phase 12: {label}: {got.get('registers')} registers a thread, "
+             f"spills {got.get('spills')}, {got.get('static smem')} bytes of "
+             f"static shared memory (-Xptxas -v); at mode{cfg.mode}'s plan "
+             f"{smem} bytes of dynamic shared memory, {n} blocks an SM; "
+             + ("HMMA not measured (no cuobjdump)" if hmma is None
+                else f"{hmma} HMMA instructions in its SASS") + f" ({smi})")
+        if hmma is not None and (hmma > 0) != bf16:
+            raise AssertionError(f"phase 12: {label}: {hmma} HMMA "
+                                 f"instructions in its SASS")
+    if len(info) != 12:
+        raise AssertionError(f"phase 12: the ptxas report names "
+                             f"{len(info)} of the 12 B1 / B6 "
+                             f"instantiations")
+
+
+def _run_precision(dev, smi, all_wrappers, results, build=None) -> None:
     """Phase 12: dy4tpu's precision="default" (bf16 operands, float32
     sums) on the card: modes 0-3 and the IF entry at modes 0 and 1 through
     the graphs, each rounded kernel against its plain version, the
     wideband and the sharded cells; the rounded kernels' rows join
-    ``results`` with their launches at "default"."""
+    ``results`` with their launches at "default".  ``build``: the ptxas
+    report's process (``_tc_build_start``; started here if None)."""
     import torch
     t_phase = time.perf_counter()
+    _tc_build_report(build or _tc_build_start(), smi)
     timing = {}
     for mode in (0, 1, 2, 3):
         rows, t = _prec_mode(mode, dev, smi, all_wrappers)
@@ -5856,7 +6023,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "the port's kernels run only on a CUDA device")
-    from dy4tpu_torch.pipeline import graph
     from dy4tpu_torch.runtime import kernels
 
     # float32 sums at every precision (bf16 only rounds operands): no TF32
@@ -5876,6 +6042,19 @@ def main() -> None:
     libs = kernels.build_all()
     _say(f"phase 1: built {len(libs)} kernel libraries in "
          f"{time.perf_counter() - t0:.1f} s ({kernels.build_dir().name})")
+    build = _tc_build_start()       # phase 12's ptxas report, meanwhile
+    try:
+        _run_phases(dev, smi, t_start, build)
+    finally:
+        if build[0].poll() is None:
+            build[0].kill()
+            build[0].wait()
+
+
+def _run_phases(dev, smi, t_start: float, build) -> None:
+    """Phases 2-12 and the last two lines."""
+    import torch
+    from dy4tpu_torch.pipeline import graph
 
     all_wrappers = graph.counters()
 
@@ -5904,7 +6083,7 @@ def main() -> None:
     timed("9", _run_recovery, dev, smi, all_wrappers)
     timed("10", _run_graphs, dev, smi, all_wrappers)
     timed("11", _run_graph_slice, dev, smi, all_wrappers, results)
-    timed("12", _run_precision, dev, smi, all_wrappers, results)
+    timed("12", _run_precision, dev, smi, all_wrappers, results, build)
     _say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in took.items()))
 

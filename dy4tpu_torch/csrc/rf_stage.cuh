@@ -79,8 +79,8 @@ struct Bufs {
 };
 
 // x rounded to bf16 (round to nearest even) and back to float32: an
-// operand of dy4tpu's mm_dtype=bf16 (ops/precision.py).  B1 / B6's band
-// stage (frontend.cu) rounds its streams with it.
+// operand of dy4tpu's mm_dtype=bf16 (ops/precision.py).  B1's tensor-core
+// RF stage (frontend.cu) rounds the taps of its RF tail sums with it.
 __device__ __forceinline__ float bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }

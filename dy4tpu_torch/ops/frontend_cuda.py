@@ -59,11 +59,15 @@ to float32 tolerance where the decimated power is not near zero,
 Every wrapper and plain version takes dy4tpu's ``precision=``
 (``ops/precision.py``), "highest" by default, the receiver's default (dy4tpu's
 direct Pallas entries default to ``mm_dtype=bf16``; the port's wrappers do
-not).  Below "highest" the taps are rounded to bf16 (the u8 window is exact
-in bf16, so the RF stage is the float32 stage fed rounded taps), and B1 / B6's
-band stage rounds fm before the bank and the squared RDS band before the
-carrier BPF, as dy4tpu's ``mm_dtype=bf16`` kernels do; the delays and every
-carried tail stay float32.
+not).  Below "highest" the taps are rounded to bf16, and B1 / B6's band
+stage rounds fm before the bank and the squared RDS band before the carrier
+BPF, as dy4tpu's ``mm_dtype=bf16`` kernels do; the delays and every carried
+tail stay float32.  There B1 and B6 run their second design, on the tensor
+cores (``csrc/mma_bf16.cuh``): the RF LPF (on the u8 window, exact in bf16),
+the bank and the carrier BPF as bf16 ``mma.sync`` Toeplitz products with
+float32 sums, under ``_tile_plan(..., bf16=True)``'s plan, the kernel
+rounding the taps as it builds its fragments; B11-B13 stay the float32
+stage fed taps their wrappers round.
 """
 
 from __future__ import annotations
@@ -96,6 +100,10 @@ _PAIRS, _WORDS = 0, 1
 # block, window samples the threads hold for an RF pass (rf_stage.cuh's
 # kRound: one fetch round)
 TILE, THREADS, PASS_SAMPLES = 1536, 256, 20 * 256
+# the tensor-core design below "highest" (csrc/mma_bf16.cuh): outputs an
+# MMA makes, rows of outputs, window samples a k-step; RF passes of
+# TC_UNITS units, one a warp and leg
+TC_UNIT, TC_ROW, TC_K, TC_UNITS = 128, 8, 16, THREADS // 32 // 2
 # B11-B13's tiling (csrc/frontend_rf.cu): the most IF outputs a tile owns,
 # window samples a pass takes (two fetch rounds)
 RF_TILE, RF_PASS_SAMPLES = 2048, 2 * PASS_SAMPLES
@@ -136,8 +144,25 @@ def _phase_taps(decim: int, k_rf: int) -> int:
     return _round4((k_rf - 1) // decim + 1) if k_rf else 0
 
 
-def _tile_plan(n_out: int, decim: int, k_rf: int, kb: int,
-               rds: bool) -> TilePlan:
+def _round_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _ksteps(decim: int, taps: int) -> int:
+    """k-steps of a Toeplitz MMA over rows of 8 outputs at ``decim``
+    through ``taps`` taps (``tc::ksteps``)."""
+    return -(-(7 * decim + taps) // TC_K)
+
+
+def _tc_halo(kb: int, rds: bool) -> int:
+    """The tensor-core design's halo: with RDS the bank starts kb-1
+    samples before the tile, rounded down to a multiple of 8 (an MMA
+    row), then kb more for the bank's history and the demod."""
+    return (_round_to(kb - 1, TC_ROW) if rds else 0) + kb
+
+
+def _tile_plan(n_out: int, decim: int, k_rf: int, kb: int, rds: bool,
+               bf16: bool = False) -> TilePlan:
     """The kernels' plan for rows of ``n_out`` IF samples (``k_rf`` = 0
     for B6).  The halo is what one output needs before it: 2*(kb-1)+1
     with RDS (the carrier BPF over kb-1 RDS-band samples, the bank over
@@ -145,7 +170,23 @@ def _tile_plan(n_out: int, decim: int, k_rf: int, kb: int,
     least the halo, so only tile 0 reads the carried state.  B1's RF
     passes split the most RF outputs a tile makes (tile + halo) evenly
     into passes whose window (``sub`` + the phase taps, padded, times
-    decim) fits the ``PASS_SAMPLES`` the threads prefetch."""
+    decim) fits the ``PASS_SAMPLES`` the threads prefetch.
+
+    ``bf16``: the tensor-core design's plan (precision below "highest"),
+    a rule: tiles of ``TILE`` (at least the halo, ``_tc_halo``, in rows
+    of 8), RF passes of ``TC_UNITS`` MMA units, fewer where the ring of
+    two pass windows would overflow the shared memory."""
+    if bf16:
+        halo = _tc_halo(kb, rds)
+        tile = max(TILE, _round_to(halo, TC_ROW))
+        sub = 0
+        if k_rf:
+            sub = TC_UNITS * TC_UNIT
+            while sub > TC_UNIT and _smem_bytes(
+                    TilePlan(tile, 1, halo, sub), decim, k_rf, kb, rds, True,
+                    True) > kernels.SMEM_MAX:
+                sub -= TC_UNIT
+        return TilePlan(tile, -(-n_out // tile), halo, sub)
     halo = 2 * (kb - 1) + 1 if rds else kb
     tile = max(TILE, _round4(halo))
     n_tiles = -(-n_out // tile)
@@ -164,9 +205,11 @@ def _tile_plan(n_out: int, decim: int, k_rf: int, kb: int,
 
 
 def _smem_bytes(plan: TilePlan, decim: int, k_rf: int, kb: int, rds: bool,
-                corr: bool) -> int:
+                corr: bool, bf16: bool = False) -> int:
     """Shared memory one B1 / B6 block takes: ``dy4_frontend_smem``'s
-    formula (``csrc/frontend.cu``), for the CPU tests."""
+    formula (``csrc/frontend.cu``), for the plan and the CPU tests."""
+    if bf16:
+        return _tc_smem_bytes(plan, decim, k_rf, kb, rds, corr)
     kp = _round4(kb)
     nq = _phase_taps(decim, k_rf)
     lp = _window_row(plan.sub + nq)
@@ -176,6 +219,47 @@ def _smem_bytes(plan: TilePlan, decim: int, k_rf: int, kb: int, rds: bool,
     win = 2 * decim * lp if k_rf else 0
     return 4 * (taps + 2 * l_iq + max(win, l_fm)
                 + (MOMENTS * THREADS // 32 if corr else 0))
+
+
+class TcLayout(typing.NamedTuple):
+    """The tensor-core design's buffers (``make_geometry`` at bf16): k-steps
+    of the RF and band products, floats of the two I/Q buffers, bf16 of
+    the carrier BPF's input and of the bank's, bytes of one RF ring
+    buffer."""
+    ks_rf: int
+    ks_b: int
+    l_iq: int
+    l_q: int
+    l_sq: int
+    l_fmb: int
+    win_bytes: int
+
+
+def _tc_layout(plan: TilePlan, decim: int, k_rf: int, kb: int,
+               rds: bool) -> TcLayout:
+    ks_rf = _ksteps(decim, k_rf) if k_rf else 0
+    ks_b = _ksteps(1, kb)
+    shift = _round_to(kb - 1, TC_ROW) if rds else 0
+    l_iq = _round4(plan.tile + plan.halo)
+    l_sq = _round_to(_round_to(plan.tile, TC_UNIT) - 8 + TC_K * ks_b, 8)
+    win = (plan.sub - 8) * decim + TC_K * ks_rf if k_rf else 0
+    return TcLayout(
+        ks_rf, ks_b, l_iq, max(l_iq, _round4(-(-l_sq // 2))), l_sq,
+        _round_to(_round_to(plan.tile + shift, TC_UNIT) - 8 + TC_K * ks_b,
+                  8), _round_to(2 * win + 4, 16))
+
+
+def _tc_smem_bytes(plan: TilePlan, decim: int, k_rf: int, kb: int,
+                   rds: bool, corr: bool) -> int:
+    """The tensor-core design's block (``smem_bytes_tc``): the B
+    fragments (8 bytes a lane a k-step of each product), the two float32
+    I/Q buffers (the second also the bf16 carrier input), the RF ring of
+    two u8 pass windows or the bf16 bank input, the moment sums."""
+    lay = _tc_layout(plan, decim, k_rf, kb, rds)
+    frags = 256 * (lay.ks_rf + ((3 if rds else 2) + rds) * lay.ks_b)
+    ring = 2 * lay.win_bytes if k_rf else 0
+    return (frags + 4 * (lay.l_iq + lay.l_q) + max(ring, 2 * lay.l_fmb)
+            + (4 * MOMENTS * THREADS // 32 if corr else 0))
 
 
 def _rf_passes(n_rf: int, decim: int, k: int) -> int:
@@ -337,10 +421,11 @@ def _launch_full(args, decim: int, rds: bool, corr=None,
     with_corr = corr is not None
     if with_corr:
         kernels.require(corr, "corr", (c, 4), device=dev)
-    plan = _tile_plan(n_out, decim, k, kb, rds)
+    bf16 = rounds(precision)
+    plan = _tile_plan(n_out, decim, k, kb, rds, bf16)
     kernels.check_smem("frontend", "dy4_frontend_smem",
                        "fused_frontend_full", plan.tile, plan.sub, decim, k,
-                       kb, int(rds), int(with_corr))
+                       kb, int(rds), int(with_corr), int(bf16))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     rds_new = lambda *shape: new(*shape) if rds else None  # noqa: E731
@@ -350,7 +435,7 @@ def _launch_full(args, decim: int, rds: bool, corr=None,
             rds_new(c, kb // 2)]
     if not rds:
         args = args[:3] + (None,) + args[4:9] + (None, None)
-    args = (args[0], *(taps(h, precision) for h in args[1:4]), *args[4:])
+    # below "highest" the kernel rounds the taps itself (its B fragments)
     ptrs = [_ptr(t) for t in (*args, *outs)]
     if with_corr:
         mom = new(c, MOMENTS)
@@ -362,9 +447,8 @@ def _launch_full(args, decim: int, rds: bool, corr=None,
     else:
         fn = kernels.entry("frontend", "dy4_frontend_full", _ARGS)
     with torch.cuda.device(dev):
-        status = fn(*ptrs, c, bs, decim, k, kb, int(rds),
-                    int(rounds(precision)), plan.tile, plan.sub,
-                    kernels.stream_of(iq_u8))
+        status = fn(*ptrs, c, bs, decim, k, kb, int(rds), int(bf16),
+                    plan.tile, plan.sub, kernels.stream_of(iq_u8))
     kernels.check_launch(status, "frontend fused_frontend_full")
     return (*outs, mom) if with_corr else tuple(outs)
 
@@ -456,23 +540,23 @@ def fused_frontend_if(i_if, q_if, prev_i, prev_q, h_bank, h_carrier,
         kernels.require(t, name, shape, device=dev)
     _require_bands(h_bank, h_carrier, bank_tail, mono_delay, carrier_tail,
                    rds_delay, c, rds, dev)
-    plan = _tile_plan(n, 1, 0, kb, rds)
+    bf16 = rounds(precision)
+    plan = _tile_plan(n, 1, 0, kb, rds, bf16)
     kernels.check_smem("frontend", "dy4_frontend_smem", "fused_frontend_if",
-                       plan.tile, 0, 1, 0, kb, int(rds), 0)
+                       plan.tile, 0, 1, 0, kb, int(rds), 0, int(bf16))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     rds_new = lambda *shape: new(*shape) if rds else None  # noqa: E731
     outs = [new(c, n), new(c, n), new(c, n), rds_new(c, n), rds_new(c, n),
             new(c), new(c), new(c, kb - 1), new(c, kb // 2),
             rds_new(c, kb - 1), rds_new(c, kb // 2)]
-    ins = (i_if, q_if, taps(h_bank, precision),
-           taps(h_carrier, precision) if rds else None, prev_i, prev_q,
+    ins = (i_if, q_if, h_bank, h_carrier if rds else None, prev_i, prev_q,
            bank_tail, mono_delay, carrier_tail if rds else None,
            rds_delay if rds else None)
     fn = kernels.entry("frontend", "dy4_frontend_if", _IF_ARGS)
     with torch.cuda.device(dev):
         status = fn(*(_ptr(t) for t in ins), *(_ptr(t) for t in outs), c, n,
-                    kb, int(rds), int(rounds(precision)), plan.tile,
+                    kb, int(rds), int(bf16), plan.tile,
                     kernels.stream_of(i_if))
     kernels.check_launch(status, "frontend fused_frontend_if")
     fused_frontend_if.launches += 1

@@ -9,6 +9,13 @@ every new tail.  The CUDA code cannot run here, so this file holds
     a tile is at least the halo, the tiles cover [0, n_out) exactly, and
     a B1 / B6 block's shared memory lets at least 3 blocks share an SM
     (at most 60 KB) in all four modes;
+  * the tensor-core design's plan (``bf16=True``, precision below
+    "highest"): its walk (tiles, the RF MMA units and passes, the bank's
+    and carrier's units) makes every output once and reads inside its
+    buffers, at the modes, ragged rows, one tile, other filters and RF
+    passes that shrink to fit; 4 blocks an SM by shared memory at every
+    mode; and ``_smem_bytes`` is ``dy4_frontend_smem`` (``csrc/frontend.cu``
+    built for the host) at both designs;
   * ``_tiled_model``: the plain ops run per tile over the tile's halo, in
     the kernel's index arithmetic (b0, f_base, q_base, g0), then
     concatenated, with the corr moments summed per tile in the kernel's
@@ -35,6 +42,7 @@ from dy4tpu_torch.config import MODES  # noqa: E402
 from dy4tpu_torch.ops import demod, fir, iqcorr, mix  # noqa: E402
 from dy4tpu_torch.ops import frontend_cuda as fc  # noqa: E402
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
+from dy4tpu_torch.runtime import kernels  # noqa: E402
 
 KB = 101                     # band / carrier taps (every mode)
 K_RF = 101                   # RF LPF taps
@@ -294,3 +302,132 @@ def test_tiled_model_matches_pallas_interpret():
         else:
             np.testing.assert_allclose(a.numpy(), b, atol=2e-3, rtol=2e-3,
                                        err_msg=f"output {k}")
+
+
+# ---- the tensor-core design's plan (precision below "highest") ----
+
+TC_BLOCKS = 4        # B1 / B6 blocks an SM at "default" (PERF.md's bar)
+
+
+def _check_tc_plan(plan, n_out: int, decim: int, k_rf: int, kb: int,
+                   rds: bool) -> None:
+    """The tensor-core kernels' walk (``csrc/frontend.cu``, kBf16) over
+    one row: tiles [m0, m1) own every output once; a tile's bank starts
+    at b0 (m0 - (kb-1) with RDS, rounded down to a multiple of 8), its
+    halo covers what the carrier, the bank and the demod read before m0;
+    the RF MMA units from g0 rounded down to 8, in passes of ``sub``,
+    make every I/Q sample [g0, m1) once, each into its own slot, every
+    pass's window inside a ring buffer; the bank's and the carrier's
+    units cover their outputs and read inside their buffers."""
+    lay = fc._tc_layout(plan, decim, k_rf, kb, rds)
+    s_b = kb - 1
+    assert plan.halo == fc._tc_halo(kb, rds)
+    assert plan.tile >= plan.halo and plan.tile % 8 == 0
+    assert plan.n_tiles == -(-n_out // plan.tile)
+    owned = np.zeros(n_out, np.int32)
+    for tile in range(plan.n_tiles):
+        m0, m1 = tile * plan.tile, min((tile + 1) * plan.tile, n_out)
+        owned[m0:m1] += 1
+        b0 = 0 if tile == 0 else (m0 - (s_b if rds else 0)) & ~7
+        assert b0 % 8 == 0
+        q_base = b0 - s_b - 1
+        g0 = 0 if tile == 0 else q_base
+        assert tile == 0 or m0 - q_base <= plan.halo
+        assert m1 - q_base <= lay.l_iq
+        if k_rf:
+            g0a = g0 & ~7
+            units = -(-(m1 - g0a) // fc.TC_UNIT)
+            per = plan.sub // fc.TC_UNIT
+            made = np.zeros(m1 - g0a, np.int32)
+            for p in range(-(-units // per)):
+                here = min(per, units - p * per)
+                lo = p * plan.sub
+                made[lo:lo + here * fc.TC_UNIT] += 1
+                # the window read (rows of the last unit, all k-steps)
+                # and its staged words from up to a sample before
+                samp = (here * fc.TC_UNIT - 8) * decim + fc.TC_K * lay.ks_rf
+                assert 4 * ((1 + samp + 1) // 2) <= lay.win_bytes
+            assert (made[g0 - g0a:] == 1).all()
+        n_bank = m1 - b0
+        n_ub = -(-n_bank // fc.TC_UNIT)
+        # the bank's rows read fm_ext up to row 15 of the last unit, all
+        # k-steps; the demod fills n_bank + s_b of it
+        assert n_ub * fc.TC_UNIT - 8 + fc.TC_K * lay.ks_b <= lay.l_fmb
+        assert n_bank + s_b <= n_ub * fc.TC_UNIT - 8 + fc.TC_K * lay.ks_b
+        assert 7 + kb <= fc.TC_K * lay.ks_b
+        if rds:
+            n_c = m1 - m0
+            n_uc = -(-n_c // fc.TC_UNIT)
+            assert n_uc * fc.TC_UNIT - 8 + fc.TC_K * lay.ks_b <= lay.l_sq
+            assert 2 * lay.l_sq <= 4 * lay.l_q and n_bank <= lay.l_iq
+            # sq[i] (the square at m0 - s_b + i) comes from bank output
+            # i + (m0 - b0) - s_b, which the bank makes
+            assert tile == 0 or m0 - b0 - s_b >= 0
+    assert (owned == 1).all()
+
+
+TC_PLAN_CASES = [(f"mode{m} {what}", MODES[m].if_per_block, d, k,
+                  MODES[m].supports_rds)
+                 for m in sorted(MODES)
+                 for what, d, k in (("B1", MODES[m].rf_decim, K_RF),
+                                    ("B6", 1, 0))] + [
+    ("ragged D10", RAGGED, 10, K_RF, True),
+    ("ragged D5", RAGGED, 5, K_RF, False), ("one tile", 150, 10, K_RF, True),
+    ("C=1 row", 700, 10, K_RF, True), ("ragged B6", RAGGED, 1, 0, True)]
+
+
+@pytest.mark.parametrize("label,n_out,decim,k_rf,rds", TC_PLAN_CASES,
+                         ids=[c[0] for c in TC_PLAN_CASES])
+def test_tc_plan_makes_every_output_once(label, n_out, decim, k_rf, rds):
+    plan = fc._tile_plan(n_out, decim, k_rf, KB, rds, bf16=True)
+    _check_tc_plan(plan, n_out, decim, k_rf, KB, rds)
+    if k_rf:
+        assert plan.sub == fc.TC_UNITS * fc.TC_UNIT
+    for corr in ((False, True) if k_rf else (False,)):
+        smem = fc._smem_bytes(plan, decim, k_rf, KB, rds, corr, True)
+        assert smem <= kernels.SMEM_MAX
+        if label.startswith("mode"):
+            assert TC_BLOCKS * (smem + BLOCK_RESERVED) <= SM_BYTES, smem
+
+
+@pytest.mark.parametrize("decim,k_rf,kb,rds", [(4, 51, 33, True),
+                                                (3, 75, 11, False),
+                                                (8, 129, 101, True)])
+def test_tc_plan_other_geometries(decim, k_rf, kb, rds):
+    """Filters other than the modes' (the fuzz (K, D) of the RF tests,
+    short and long band filters): the walk as above."""
+    for n_out in (kb + 3, 2 * fc.TILE + 37):
+        plan = fc._tile_plan(n_out, decim, k_rf, kb, rds, bf16=True)
+        _check_tc_plan(plan, n_out, decim, k_rf, kb, rds)
+
+
+def test_tc_plan_passes_shrink_to_fit():
+    """A long RF filter at a high decimation: RF passes of fewer MMA
+    units, within the card's shared memory."""
+    plan = fc._tile_plan(2000, 64, 4001, KB, True, bf16=True)
+    assert plan.sub < fc.TC_UNITS * fc.TC_UNIT
+    assert fc._smem_bytes(plan, 64, 4001, KB, True, True,
+                          True) <= kernels.SMEM_MAX
+    _check_tc_plan(plan, 2000, 64, 4001, KB, True)
+
+
+@pytest.fixture(scope="module")
+def host_smem(tmp_path_factory):
+    """``dy4_frontend_smem`` of ``csrc/frontend.cu`` built for the host."""
+    import cuda_host
+    return cuda_host.build_frontend(
+        tmp_path_factory.mktemp("frontend_host")).dy4_frontend_smem
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["highest", "default"])
+def test_smem_formula_is_the_kernels(host_smem, bf16):
+    """``_smem_bytes`` is ``dy4_frontend_smem``'s own formula at every
+    plan above, for B1, B1-corr and B6, at both designs."""
+    cases = [(c[1], c[2], c[3], c[4]) for c in TC_PLAN_CASES] + (
+        [(2000, 64, 4001, True)] if bf16 else [])
+    for n_out, d, k, rds in cases:
+        plan = fc._tile_plan(n_out, d, k, KB, rds, bf16)
+        for corr in ((0, 1) if k else (0,)):
+            assert host_smem(plan.tile, plan.sub, d, k, KB, int(rds), corr,
+                             int(bf16)) == fc._smem_bytes(
+                plan, d, k, KB, rds, bool(corr), bf16), (n_out, d, k, rds)

@@ -26,7 +26,17 @@ where ``chip_smoke.py`` holds it to its plain versions.  Here:
    mode; a plan it cannot run refused;
 3. ``csrc/frontend.cu`` built for the host too: B11's fm, ``prev_i``/
    ``prev_q`` and ``iq_tail`` bit for bit B1's (fm delayed by B1's mono
-   delay), with and without RDS.
+   delay), with and without RDS;
+4. B1, B1-corr and B6 at precision "default", the tensor-core design
+   (``csrc/mma_bf16.cuh``: bf16 ``mma.sync`` Toeplitz products), through
+   the shim's warp-wide ``mma.sync``, ``ldmatrix`` and shuffles: each
+   lane's B fragment and the shim's instructions against numpy by the
+   PTX fragment layout; B1 with and without RDS at modes 0 and 1, C = 1,
+   C = 37, a short last tile (rows that start off a word: the funnel
+   shift) and one tile, held to the plain version (fm, the RF tail and
+   prev at ``_check``'s bars, the band stage on its own fm at 1e-5) and,
+   at modes 0 and 1, bit for bit under a second plan; B1-corr's moments
+   within 1e-5 of their scale; B6; plans it cannot run refused.
 """
 
 import ctypes
@@ -43,10 +53,12 @@ import jax.numpy as jnp  # noqa: E402
 from dy4tpu.ops import frontend_pallas  # noqa: E402
 from dy4tpu_torch.config import MODES  # noqa: E402
 from dy4tpu_torch.ops import frontend_cuda as fc  # noqa: E402
+from dy4tpu_torch.ops import iqcorr  # noqa: E402
 from dy4tpu_torch.pipeline import receiver as rx  # noqa: E402
 from dy4tpu_torch.runtime import kernels  # noqa: E402
 
 AB_TOL, AB_POWER, PREV_TOL = 1e-3, 1e-3, 1e-5
+MOM_TOL = 1e-5       # the tracker moments, relative to E[|i|^p |q|^r]
 SM_BYTES = 233472            # shared memory of one H100 SM (228 KB)
 BLOCK_RESERVED = 1024        # the card's own shared memory per block
 FUZZ = [(51, 4), (129, 8), (75, 3)]   # test_raw_geometry_fuzz's (K, D)
@@ -150,9 +162,6 @@ _SMEM = (r"extern __shared__ float4 smem4\[\];",
          "float4* smem4 = reinterpret_cast<float4*>(g_smem);")
 
 
-def _header() -> str:
-    return cuda_host.rewrite((kernels.CSRC / "rf_stage.cuh").read_text(),
-                             "csrc/rf_stage.cuh", _COMMON)
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +175,7 @@ def host_rf(tmp_path_factory):
                            r"emulate(rf_tile_kernel<Src, kLong>, grid, "
                            r"kThreads, smem, \1);")))
     so = cuda_host.build(tmp_path_factory.mktemp("rf_host"), "librf_host.so",
-                         {"rf_stage.cuh": _header(),
+                         {"rf_stage.cuh": cuda_host.rf_stage_header(),
                           "frontend_rf.cpp": src})
     fn = so.dy4_frontend_rf
     fn.argtypes = fc._RF_ARGS
@@ -349,40 +358,11 @@ def test_host_kernel_matches_pallas_interpret(host_rf):
 
 # ---- 3. csrc/frontend.cu (B1) on the host ----
 
-# the corr epilogue's device calls, compiled but not run here
-_CORR_STUBS = """
-inline float __shfl_down_sync(unsigned, float v, int) { return v; }
-inline int atomicAdd(int* p, int v) { const int o = *p; *p += v; return o; }
-inline void __threadfence() {}
-inline float __ldcg(const float* p) { return *p; }
-inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t) {
-  return 0;
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def host_b1(tmp_path_factory):
-    """``csrc/frontend.cu`` built for the host: B1's entry point."""
-    launch = (r"frontend_full_kernel<kRds, kCorr, kBf16><<<grid, kThreads, "
-              r"smem, stream>>>\((.*?)\);",
-              r"emulate(frontend_full_kernel<kRds, kCorr, kBf16>, grid, "
-              r"kThreads, smem, \1);")
-    launch_if = (r"frontend_if_kernel<kRds, kBf16><<<grid, kThreads, smem, "
-                 r"stream>>>\((.*?)\);",
-                 r"emulate(frontend_if_kernel<kRds, kBf16>, grid, kThreads, "
-                 r"smem, \1);")
-    src = cuda_host.rewrite(
-        (kernels.CSRC / "frontend.cu").read_text(), "csrc/frontend.cu",
-        ((r'#include "rf_stage\.cuh"', '#include "rf_stage.cuh"\n'
-          + _CORR_STUBS), _SMEM, launch, launch_if) + _COMMON)
-    so = cuda_host.build(tmp_path_factory.mktemp("b1_host"), "libb1_host.so",
-                         {"rf_stage.cuh": _header(), "frontend.cpp": src})
-    for name, args in (("dy4_frontend_full", fc._ARGS),
-                       ("dy4_frontend_if", fc._IF_ARGS)):
-        getattr(so, name).argtypes = args
-        getattr(so, name).restype = ctypes.c_int
-    return so
+    """``csrc/frontend.cu`` built for the host: B1's and B6's entry
+    points (``cuda_host.build_frontend``)."""
+    return cuda_host.build_frontend(tmp_path_factory.mktemp("b1_host"))
 
 
 @pytest.mark.parametrize("mode,rds", [(0, True), (1, False)])
@@ -485,7 +465,7 @@ def test_host_b1_b6_bf16_band_stage(host_b1, mode, rds):
     outs = [new(c, n_out) for _ in range(5)] + [
         new(c, 2, 100), new(c), new(c), new(c, kb - 1), new(c, kb // 2),
         new(c, kb - 1), new(c, kb // 2)]
-    plan = fc._tile_plan(n_out, decim, 101, kb, rds)
+    plan = fc._tile_plan(n_out, decim, 101, kb, rds, bf16=True)
     assert plan.n_tiles == 3
     assert host_b1.dy4_frontend_full(
         *(a.data_ptr() for a in (ins[0], *rt, *ins[4:])),
@@ -512,7 +492,7 @@ def test_host_b1_b6_bf16_band_stage(host_b1, mode, rds):
         *(a.data_ptr() for a in (i_if, q_if, rt[1], rt[2], ins[5], ins[6],
                                   *ins[7:])),
         *(o.data_ptr() for o in iouts), c, n_out, kb, int(rds), 1,
-        fc._tile_plan(n_out, 1, 0, kb, rds).tile, None) == 0
+        fc._tile_plan(n_out, 1, 0, kb, rds, bf16=True).tile, None) == 0
     fm_p, pi, pq = demod.fm_demod_diff(i_if, q_if, ins[5], ins[6])
     assert torch.equal(iouts[5], pi) and torch.equal(iouts[6], pq)
     fm = torch.cat([iouts[0][:, dly:], iouts[8]], -1)
@@ -520,3 +500,354 @@ def test_host_b1_b6_bf16_band_stage(host_b1, mode, rds):
     assert float((fm - fm_p).abs()[live].max()) <= AB_TOL
     _held_band_stage([iouts[k] for k in (0, 1, 2, 3, 4, 7, 8, 9, 10)],
                      band_ins, fm, kb, rds)
+
+
+# ---- 4. the tensor-core design (precision "default") on the host ----
+
+_HARNESS = r"""
+#include "mma_bf16.cuh"
+// every lane's B fragment of the Toeplitz product through `taps` taps h
+// at decimation `decim`, k-steps [0, ks), in the quad layout or not:
+// out[(32 kk + lane) * 2 + i]
+extern "C" void toeplitz_frags(const float* h, int taps, int decim, int ks,
+                               int quad, unsigned* out) {
+  for (int kk = 0; kk < ks; ++kk)
+    for (int lane = 0; lane < 32; ++lane) {
+      auto tap = [&](int a) { return h[a]; };
+      const uint2 b =
+          quad ? tc::toeplitz_frag<true>(tap, taps, decim, kk, lane)
+               : tc::toeplitz_frag<false>(tap, taps, decim, kk, lane);
+      out[2 * (32 * kk + lane)] = b.x;
+      out[2 * (32 * kk + lane) + 1] = b.y;
+    }
+}
+// one warp: a [16, 16] bf16 tile (rows `stride` apart) through ldsm_x4,
+// times b [16, 8] bf16 (each lane's fragment from the PTX layout), into
+// d [16, 8] float32; a's fragments out as regs [32, 4]
+static void warp_mma(const uint16_t* a, int stride, const uint16_t* b,
+                     float* d, unsigned* regs) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  unsigned r[4];
+  tc::ldsm_x4(r, a + tc::ldsm_row(lane, stride));
+  for (int i = 0; i < 4; ++i) regs[4 * lane + i] = r[i];
+  auto bb = [&](int k) { return unsigned(b[8 * k + g]); };
+  const uint2 bf = make_uint2(bb(2 * t) | bb(2 * t + 1) << 16,
+                              bb(2 * t + 8) | bb(2 * t + 9) << 16);
+  float acc[4] = {d[8 * g + 2 * t], d[8 * g + 2 * t + 1],
+                  d[8 * (g + 8) + 2 * t], d[8 * (g + 8) + 2 * t + 1]};
+  tc::mma(acc, r, bf);
+  d[8 * g + 2 * t] = acc[0];
+  d[8 * g + 2 * t + 1] = acc[1];
+  d[8 * (g + 8) + 2 * t] = acc[2];
+  d[8 * (g + 8) + 2 * t + 1] = acc[3];
+}
+extern "C" void one_mma(const uint16_t* a, int stride, const uint16_t* b,
+                        float* d, unsigned* regs) {
+  emulate(warp_mma, 1, 32, 0, a, stride, b, d, regs);
+}
+// u8_leg_pair of every word in w: out[2 j + leg]
+extern "C" void leg_pairs(const unsigned* w, int n, unsigned* out) {
+  for (int j = 0; j < n; ++j)
+    for (int leg = 0; leg < 2; ++leg)
+      out[2 * j + leg] = tc::u8_leg_pair(w[j], leg);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    """``csrc/mma_bf16.cuh`` alone, built for the host with the shim's
+    warp exchange."""
+    so = cuda_host.build(tmp_path_factory.mktemp("mma_host"),
+                         "libmma_host.so",
+                         {"mma_bf16.cuh": cuda_host.mma_header(),
+                          "harness.cpp": '#include "shim.h"\n' + _HARNESS})
+    p = ctypes.c_void_p
+    so.toeplitz_frags.argtypes = [p] + [ctypes.c_int] * 4 + [p]
+    so.one_mma.argtypes = [p, ctypes.c_int, p, p, p]
+    so.leg_pairs.argtypes = [p, ctypes.c_int, p]
+    return so
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 bits, round to nearest even (as torch)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return (t.to(torch.bfloat16).view(torch.int16).numpy()
+            .astype(np.uint16))
+
+
+def _bf16_value(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+@pytest.mark.parametrize("quad", [False, True], ids=["bank", "rf quad"])
+@pytest.mark.parametrize("taps,decim", [(101, 10), (101, 5), (101, 1),
+                                        (50, 3)])
+def test_toeplitz_fragments_hold_the_band(harness, taps, decim, quad):
+    """Each lane's B fragment at k-step kk holds H[j][n] = h[j - n*D]
+    (bf16, zero off the band) at n = g and j = 16 kk + 2t (+1, +8, +9),
+    or in the RF stage's quad layout j = 16 kk + 4t (+1, +2, +3): the
+    numpy matrix, entry by entry, and its product with a window row is
+    the decimating FIR's 8 outputs."""
+    rng = np.random.default_rng(taps + decim)
+    h = (rng.standard_normal(taps) * 0.1).astype(np.float32)
+    ks = -(-(7 * decim + taps) // 16)
+    out = np.zeros((ks, 32, 2), np.uint32)
+    harness.toeplitz_frags(h.ctypes.data, taps, decim, ks, int(quad),
+                           out.ctypes.data)
+    hb = _bf16_bits(h)
+    want = np.zeros((16 * ks, 8), np.uint16)          # H[j][n], bf16 bits
+    for n in range(8):
+        want[n * decim:n * decim + taps, n] = hb
+    for kk in range(ks):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            j = 16 * kk + (4 if quad else 2) * t
+            hi = 2 if quad else 8
+            for reg, js in ((0, (j, j + 1)), (1, (j + hi, j + hi + 1))):
+                got = out[kk, lane, reg]
+                assert got & 0xFFFF == want[js[0], g]
+                assert got >> 16 == want[js[1], g]
+    x = rng.standard_normal(16 * ks)
+    y = x @ _bf16_value(want).astype(np.float64)
+    ref = [float(np.dot(_bf16_value(hb).astype(np.float64),
+                        x[n * decim:n * decim + taps])) for n in range(8)]
+    np.testing.assert_allclose(y, ref, rtol=1e-12, atol=1e-12)
+
+
+def test_host_mma_and_ldmatrix_follow_the_ptx_layout(harness):
+    """The shim's ldmatrix (each lane at ``tc::ldsm_row``) and mma.sync
+    against numpy: the A fragments hold the tile's pairs where the PTX
+    layout puts them (a0 row g, a1 row g+8, a2 / a3 columns 8 on), and D
+    = C + A B."""
+    rng = np.random.default_rng(9)
+    stride = 24                                       # rows 48 bytes apart
+    buf = _bf16_bits(rng.standard_normal(16 * stride + 8))
+    tile = buf[(np.arange(16)[:, None] * stride + np.arange(16))]
+    b = _bf16_bits(rng.standard_normal((16, 8)))
+    d = rng.standard_normal((16, 8)).astype(np.float32)
+    want = d.astype(np.float64) + (_bf16_value(tile).astype(np.float64)
+                                   @ _bf16_value(b))
+    regs = np.zeros((32, 4), np.uint32)
+    harness.one_mma(buf.ctypes.data, stride, b.ctypes.data, d.ctypes.data,
+                    regs.ctypes.data)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for i, (row, col) in enumerate(((g, 2 * t), (g + 8, 2 * t),
+                                        (g, 2 * t + 8), (g + 8, 2 * t + 8))):
+            assert regs[lane, i] == tile[row, col] | (
+                np.uint32(tile[row, col + 1]) << 16)
+    np.testing.assert_allclose(d, want, rtol=1e-6, atol=1e-6)
+
+
+def test_u8_leg_pairs_are_exact(harness):
+    """``tc::u8_leg_pair``: bytes 0, 2 (I) and 1, 3 (Q) of a word as the
+    bf16 pair (b - 128), for every byte value."""
+    b = np.arange(256, dtype=np.uint32)
+    w = b | (b[::-1] << 8) | (((b + 7) % 256) << 16) | (((b * 5) % 256) << 24)
+    out = np.zeros((256, 2), np.uint32)
+    harness.leg_pairs(w.ctypes.data, 256, out.ctypes.data)
+    for leg in range(2):
+        lo = (w >> (8 * leg)) & 0xFF
+        hi = (w >> (8 * (leg + 2))) & 0xFF
+        assert (_bf16_value((out[:, leg] & 0xFFFF).astype(np.uint16))
+                == lo.astype(np.float32) - 128).all()
+        assert (_bf16_value((out[:, leg] >> 16).astype(np.uint16))
+                == hi.astype(np.float32) - 128).all()
+
+
+def _tc_full(host, ins, decim, rds, plan=None, corr=None, status=0):
+    """One launch of B1's host build at bf16 (``ins``: the eleven tensors
+    of ``fused_frontend_full``, the taps unrounded, as the wrapper passes
+    them: the kernel rounds them; ``corr`` [C, 4] selects the corr entry)
+    under ``plan`` (the wrapper's by default): the twelve outputs (and
+    ``mom``), filled with NaN before."""
+    u8, h = ins[0], ins[1]
+    c, bs = u8.shape
+    k, kb = h.shape[0], ins[2].shape[-1]
+    n_out = bs // 2 // decim
+    if plan is None:
+        plan = fc._tile_plan(n_out, decim, k, kb, rds, bf16=True)
+    nan = lambda *s: torch.full(s, float("nan"))  # noqa: E731
+    outs = [nan(c, n_out) for _ in range(5)] + [
+        nan(c, 2, k - 1), nan(c), nan(c), nan(c, kb - 1), nan(c, kb // 2),
+        nan(c, kb - 1), nan(c, kb // 2)]
+    ptrs = [a.data_ptr() for a in ins] + [o.data_ptr() for o in outs]
+    if corr is None:
+        got = host.dy4_frontend_full(*ptrs, c, bs, decim, k, kb, int(rds), 1,
+                                     plan.tile, plan.sub, None)
+    else:
+        mom = nan(c, fc.MOMENTS)
+        partial = nan(c, plan.n_tiles, fc.MOMENTS)
+        count = torch.zeros(c, dtype=torch.int32)
+        got = host.dy4_frontend_full_corr(
+            *ptrs, corr.data_ptr(), mom.data_ptr(), partial.data_ptr(),
+            count.data_ptr(), c, bs, decim, k, kb, int(rds), 1, plan.tile,
+            plan.sub, None)
+        outs.append(mom)
+    assert got == status
+    return outs
+
+
+def _tc_ins(seed: int, c: int, n_out: int, decim: int):
+    """B1's eleven tensors: ``_case``'s signal, mode 0's RF taps and
+    random RF state, mode 0's bank and carrier taps, random band tails."""
+    u8, h, tail, pi, pq = _case(seed, c, n_out, decim)
+    p = rx.make_params(MODES[0], device="cpu")
+    kb = p.bank_coeff.shape[-1]
+    rng = np.random.default_rng(seed + 1)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * 0.1).astype(np.float32))
+    return (u8, h, p.bank_coeff, p.rds_carrier_coeff, tail, pi, pq,
+            f(c, kb - 1), f(c, kb // 2), f(c, kb - 1), f(c, kb // 2))
+
+
+def _held_tc(outs, ins, decim, rds):
+    """B1 at bf16 against the plain version at "default": ``_check``'s
+    bars on fm, the RF tail and prev (the card's), fm within 1e-5 where
+    the power is above 0.1 (the host's MMA sums in k order, so only
+    float32 rounding stays), the band stage on its own fm
+    (``_held_band_stage``), no output left unwritten."""
+    from dy4tpu_torch.ops import precision
+    kb = ins[2].shape[-1]
+    dly = kb // 2
+    plain = fc.fused_frontend_full_plain(*ins, decim, rds=rds,
+                                         precision="default")
+    fm = torch.cat([outs[0][:, dly:], outs[9]], -1)
+    fm_p = torch.cat([plain[0][:, dly:], plain[9]], -1)
+    rt = precision.taps(ins[1], "default")
+    _check((fm, *outs[5:8]), (fm_p, *plain[5:8]), (ins[0], rt, ins[4]),
+           decim)
+    i_ds, q_ds, _ = fc.rf_lpf_plain(ins[0], rt, ins[4], decim)
+    strong = i_ds * i_ds + q_ds * q_ds > 0.1
+    assert float((fm - fm_p).abs()[strong].max()) <= 1e-5
+    sel = [0, 1, 2, 3, 4, 8, 9, 10, 11] if rds else [0, 1, 2, 8, 9]
+    for k in sel:
+        assert not bool(outs[k].isnan().any()), k
+    if rds:
+        _held_band_stage([outs[k] for k in sel], (ins[2], ins[3], *ins[7:]),
+                         fm, kb, rds)
+    else:
+        got = [outs[0], outs[1], outs[2], None, None, outs[8], outs[9], None,
+               None]
+        _held_band_stage(got, (ins[2], None, ins[7], ins[8], None, None), fm,
+                         kb, rds)
+    return plain
+
+
+TC_CASES = [("mode0", 2, MODES[0].if_per_block, 10),
+            ("mode1", 2, MODES[1].if_per_block, 5),
+            ("C=1", 1, 700, 10), ("C=37", 37, 256, 5),
+            # D = 5 and an odd sample count a row: every other row starts
+            # 2 bytes off a word (the funnel shift)
+            ("last tile short", 2, 2 * fc.TILE + 37, 5),
+            ("one tile", 3, 150, 10)]
+
+
+@pytest.mark.parametrize("rds", [True, False], ids=["rds", "no rds"])
+@pytest.mark.parametrize("label,c,n_out,decim", TC_CASES,
+                         ids=[t[0] for t in TC_CASES])
+def test_host_b1_tensor_cores(host_b1, label, c, n_out, decim, rds):
+    """B1 at "default" on the tensor-core design (the shim's mma.sync,
+    ldmatrix and cp.async) against the plain version (``_held_tc``); at
+    modes 0 and 1 also bit for bit under a second plan (tiles of 1024,
+    RF passes of 256: a recomputed halo sample is its own tile's)."""
+    ins = _tc_ins(n_out + decim, c, n_out, decim)
+    outs = _tc_full(host_b1, ins, decim, rds)
+    _held_tc(outs, ins, decim, rds)
+    if label in ("mode0", "mode1"):
+        own = fc._tile_plan(n_out, decim, 101, 101, rds, bf16=True)
+        other = own._replace(tile=1024, n_tiles=-(-n_out // 1024), sub=256)
+        again = _tc_full(host_b1, ins, decim, rds, other)
+        for k, (a, b) in enumerate(zip(outs, again)):
+            assert torch.equal(a, b) or not rds and k in (3, 4, 10, 11)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_host_b1_corr_tensor_cores(host_b1, mode):
+    """B1-corr at "default": the 14 moments of the I/Q before the
+    correction within MOM_TOL of E[|i|^p |q|^r] (``chip_smoke.py``'s bar)
+    of the plain version's, and the corrected stream's fm and band stage
+    as ``_held_tc`` holds B1's."""
+    from dy4tpu_torch.ops import precision
+    cfg = MODES[mode]
+    rds = cfg.supports_rds
+    n_out, decim = 2 * fc.TILE + 60, cfg.rf_decim
+    ins = _tc_ins(mode + 70, 2, n_out, decim)
+    g = np.random.default_rng(mode)
+    corr = torch.from_numpy(np.stack(
+        [g.uniform(-0.05, 0.05, 2), g.uniform(-0.05, 0.05, 2),
+         g.uniform(-0.2, 0.2, 2), g.uniform(0.8, 1.2, 2)],
+        axis=-1).astype(np.float32))
+    outs = _tc_full(host_b1, ins, decim, rds, corr=corr)
+    i_ds, q_ds, _ = fc.rf_lpf_plain(ins[0], precision.taps(ins[1], "default"),
+                                    ins[4], decim)
+    want = fc.fused_frontend_full_plain(*ins, decim, rds=rds, corr=corr,
+                                        precision="default")
+    scale = torch.stack([(i_ds.double().abs() ** p
+                          * q_ds.double().abs() ** r).mean(-1)
+                         for p, r in iqcorr._POWERS], -1)
+    rel = ((outs[12].double() - want[12].double()).abs() / scale).max()
+    assert float(rel) <= MOM_TOL
+    kb = ins[2].shape[-1]
+    dly = kb // 2
+    fm = torch.cat([outs[0][:, dly:], outs[9]], -1)
+    fm_p = torch.cat([want[0][:, dly:], want[9]], -1)
+    i_c = i_ds - corr[:, :1]
+    q_c = (q_ds - corr[:, 1:2] - corr[:, 2:3] * i_c) * corr[:, 3:]
+    live = i_c * i_c + q_c * q_c > AB_POWER
+    assert float((fm - fm_p).abs()[live].max()) <= AB_TOL
+    assert torch.equal(outs[5], want[5])
+    for a, b in zip(outs[6:8], want[6:8]):
+        assert float((a - b).abs().max()) <= PREV_TOL
+
+
+B6_CASES = [("mode0", 2, MODES[0].if_per_block, True),
+            ("mode1", 2, MODES[1].if_per_block, False),
+            ("ragged", 3, 2 * fc.TILE + 60, True), ("C=1", 1, 700, False)]
+
+
+@pytest.mark.parametrize("label,c,n,rds", B6_CASES,
+                         ids=[t[0] for t in B6_CASES])
+def test_host_b6_tensor_cores(host_b1, label, c, n, rds):
+    """B6 at "default" on the tensor-core band stage (the taps unrounded,
+    as the wrapper passes them): prev_i / prev_q exact, fm (its demod)
+    within AB_TOL where live, the band stage on its own fm
+    (``_held_band_stage``), nothing left unwritten."""
+    from dy4tpu_torch.ops import demod
+    ins = _tc_ins(c + n, c, n, 10)
+    i_if, q_if, _ = fc.rf_lpf_plain(ins[0], ins[1], ins[4], 10)
+    i_if, q_if = i_if.contiguous(), q_if.contiguous()
+    kb = ins[2].shape[-1]
+    nan = lambda *s: torch.full(s, float("nan"))  # noqa: E731
+    outs = [nan(c, n) for _ in range(5)] + [
+        nan(c), nan(c), nan(c, kb - 1), nan(c, kb // 2), nan(c, kb - 1),
+        nan(c, kb // 2)]
+    assert host_b1.dy4_frontend_if(
+        *(a.data_ptr() for a in (i_if, q_if, *ins[2:4], ins[5], ins[6],
+                                  *ins[7:])),
+        *(o.data_ptr() for o in outs), c, n, kb, int(rds), 1,
+        fc._tile_plan(n, 1, 0, kb, rds, bf16=True).tile, None) == 0
+    fm_p, pi, pq = demod.fm_demod_diff(i_if, q_if, ins[5], ins[6])
+    assert torch.equal(outs[5], pi) and torch.equal(outs[6], pq)
+    dly = kb // 2
+    fm = torch.cat([outs[0][:, dly:], outs[8]], -1)
+    live = i_if * i_if + q_if * q_if > AB_POWER
+    assert float((fm - fm_p).abs()[live].max()) <= AB_TOL
+    sel = (0, 1, 2, 3, 4, 7, 8, 9, 10) if rds else (0, 1, 2, 7, 8)
+    for k in sel:
+        assert not bool(outs[k].isnan().any()), k
+    got = [outs[k] for k in (0, 1, 2, 3, 4, 7, 8, 9, 10)]
+    band = (ins[2], ins[3], *ins[7:]) if rds else (
+        ins[2], None, ins[7], ins[8], None, None)
+    _held_band_stage(got, band, fm, kb, rds)
+
+
+def test_host_b1_tensor_cores_refuses_what_it_cannot_run(host_b1):
+    """RF passes that are not whole MMA units, a tile not in rows of 8:
+    refused (cudaErrorInvalidValue), nothing written."""
+    ins = _tc_ins(1, 2, 700, 10)
+    plan = fc._tile_plan(700, 10, 101, 101, True, bf16=True)
+    for bad in (plan._replace(sub=100), plan._replace(tile=plan.tile - 4)):
+        outs = _tc_full(host_b1, ins, 10, True, bad, status=1)
+        assert all(bool(o.isnan().all()) for o in outs[:5])
