@@ -1112,7 +1112,7 @@ def _entry_ms(which: str, args, plan, reps: int = 20) -> float:
           else kernels.entry("audio_rational", "dy4_audio_rational",
                              rc._AUDIO_ARGS))
     call = (*(t.data_ptr() for t in args[:9 if b4 else 6]),
-            *(t.data_ptr() for t in outs), *geom, 0,
+            *(t.data_ptr() for t in outs), *geom,
             *rc._plan_args(plan, up, down),
             torch.cuda.current_stream().cuda_stream)
     for _ in range(3):
@@ -5414,17 +5414,90 @@ def _prec_front_rows(cfg, params, blk, fs, dev) -> list:
     return rows
 
 
-def _prec_back_rows(cfg, params, blk, st, dev) -> list:
-    """Phase 12's B3 / B5 and B4 at "default" on block ``blk``'s front
-    outputs from state ``st``: B3 / B5 within 1e-5 of the plain version
-    at "default" (both round the same mixed products), their tails exact;
-    B4 whose resampled stream, summed in another order, can flip a bf16
-    rounding before the RRC: at most PREC_SHARE of its baseband past
-    1e-5, each within 1e-5 + 2^-8 max|y| sum|h_rrc|, its LPF tails
-    exact."""
+def _prec_tc_plans(name, launch, plain, args, rate, n_t, b4) -> None:
+    """The tensor-core design (``csrc/rational_tc.cuh``) of B3 / B4 / B5
+    at "default" beyond C=512: at RESAMPLE_RAGGED_ROWS rows (``args``'
+    first; the rule's tiles, B4's recomputed halos) held to the plain
+    version at phase 12's bars (``_prec_b4_check`` for B4), and under a
+    second plan (row groups of 2, tiles of half the cycles) bitwise the
+    rule's.  ``launch``: ``resample_cuda._rds_launch`` /
+    ``_audio_launch``; ``n_t``: tensors before the rate."""
     import torch
-    from dy4tpu_torch.ops import (backend_cuda, fir, frontend_cuda, pll,
-                                  precision, resample_cuda)
+    from dy4tpu_torch.ops import resample_cuda as rc
+    r = RESAMPLE_RAGGED_ROWS
+    cut = tuple(t if t.dim() == 1 else t[:r].contiguous()
+                for t in args[:n_t])
+    up, down = (1, rate[0]) if len(rate) == 1 else rate
+    n, k = cut[0].shape[1], cut[3].numel()
+    k2 = cut[4].numel() if b4 else 0
+    own = rc._tc_plan(r, n, up, down, k, k2, sms=rc._sms(cut[0].device))
+    other = rc._tc_plan(r, n, up, down, k, k2, rows=2, cycles=max(
+        -(-(k2 + 6) // own.span) if k2 else 1, own.cycles // 2))
+    got = launch(cut, up, down, plan=own, precision="default")
+    again = launch(cut, up, down, plan=other, precision="default")
+    want = plain(*cut, *rate, precision="default")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"phase 12: {name} [{r}, {n}] default: two "
+                             f"tensor-core plans differ ({own}, {other})")
+    if b4:
+        _prec_b4_check(f"{name} [{r}, {n}]", cut, got, want, up, down)
+    else:
+        err = _max_err(got[:3], want[:3])
+        if err > 1e-5 or not all(torch.equal(a, b) for a, b in
+                                 zip(got[3:], want[3:])):
+            raise AssertionError(f"phase 12: {name} [{r}, {n}] default: "
+                                 f"{err:.3g} off the plain version, or its "
+                                 f"tails differ")
+    _say(f"phase 12: {name} [{r}, {n}] default on the tensor cores: held to "
+         f"the plain version ({own.n_tiles} tiles of {own.cycles} cycles, "
+         f"halo {own.halo}); bitwise under rows 2 x {other.cycles} cycles "
+         f"({other.n_tiles} tiles)")
+
+
+def _prec_b4_check(label, rargs, k_out, p_out, up, down) -> tuple:
+    """B4 at "default" against its plain version: its LPF tails exact, at
+    most PREC_SHARE of its baseband past 1e-5 (its resampled stream,
+    summed in another order, can flip a bf16 rounding before the RRC),
+    each within the flip bound 1e-5 + 2^-8 max|y| sum|h_rrc|, its RRC
+    tails within 1e-5.  Returns (the share, the flip bound, the RRC tails'
+    error)."""
+    import torch
+    from dy4tpu_torch.ops import fir, precision
+    rds, nco_i, nco_q = rargs[:3]
+    y, _ = fir.block_fir_resample(
+        precision.bf16(torch.stack([nco_i * rds, nco_q * rds])),
+        precision.bf16(rargs[3]), precision.bf16(torch.stack(rargs[5:7])),
+        up=up, down=down)
+    bound = 1e-5 + PREC_STEP * float(y.abs().max()) * float(
+        rargs[4].abs().sum())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k_out[2:4], p_out[2:4])):
+        raise AssertionError(f"phase 12: {label}: LPF tails differ")
+    share = max(float(((a - b).abs() > 1e-5).double().mean())
+                for a, b in zip(k_out[:2], p_out[:2]))
+    worst = _max_err(k_out[:2], p_out[:2])
+    rrc_err = _max_err(k_out[4:], p_out[4:])
+    if share > PREC_SHARE or worst > bound or rrc_err > 1e-5:
+        raise AssertionError(f"phase 12: {label}: {share:.4%} of the "
+                             f"baseband past 1e-5 (at most "
+                             f"{PREC_SHARE:.0%}), {worst:.3g} at most (the "
+                             f"flip bound {bound:.3g}), RRC tails "
+                             f"{rrc_err:.3g}")
+    return share, bound, rrc_err
+
+
+def _prec_back_rows(cfg, params, blk, st, dev) -> list:
+    """Phase 12's B3 / B5 and B4 at "default" (the tensor-core design,
+    ``csrc/rational_tc.cuh``) on block ``blk``'s front outputs from state
+    ``st``: B3 / B5 within 1e-5 of the plain version at "default" (both
+    round the same mixed products), their tails exact; B4 at
+    ``_prec_b4_check``'s bars; each also alone from a cold L2, its bound
+    at the bf16 tensor cores' rate, and at RESAMPLE_RAGGED_ROWS rows and
+    under a second plan (``_prec_tc_plans``)."""
+    import torch
+    from dy4tpu_torch.ops import (backend_cuda, frontend_cuda, pll,
+                                  resample_cuda)
     from dy4tpu_torch.pipeline import receiver as rx
 
     rds = cfg.supports_rds
@@ -5465,14 +5538,18 @@ def _prec_back_rows(cfg, params, blk, st, dev) -> list:
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k_out[3:], p_out[3:])):
         raise AssertionError(f"phase 12: {name} {mode}: tails differ")
+    kern = lambda: wrap(*aargs, precision="default")  # noqa: E731
     rows.append(_Row(
         name, geometry, "dy4tpu_torch/csrc/audio_rational.cu",
-        f"dy4tpu/ops/{line}", wrap, _max_err(k_out, p_out), 1e-5,
-        lambda: wrap(*aargs, precision="default"),
+        f"dy4tpu/ops/{line}", wrap, _max_err(k_out, p_out), 1e-5, kern,
         lambda: plain(*aargs, precision="default"),
         nbytes=_nbytes(aargs[:6], k_out),
         flops=_rational_flops(name.split()[0], aargs),
-        extra={"precision": "default"}, phase="phase 12"))
+        extra={"precision": "default",
+               "kernel_cold_ms": _cold_ms(kern, wrap)},
+        phase="phase 12", flop_rate=BF16_FLOP_S))
+    _prec_tc_plans(name.split()[0], resample_cuda._audio_launch, plain,
+                   aargs, rate, 6, False)
     if rds:
         nco_i = nco_i2[:, 1].contiguous()
         nco_q = nco_q2[:, 1].contiguous()
@@ -5483,42 +5560,32 @@ def _prec_back_rows(cfg, params, blk, st, dev) -> list:
         k_out = resample_cuda.fused_rds_backend(*rargs, precision="default")
         p_out = resample_cuda.fused_rds_backend_plain(*rargs,
                                                       precision="default")
-        y, _ = fir.block_fir_resample(
-            precision.bf16(torch.stack([nco_i * rdsdel, nco_q * rdsdel])),
-            precision.bf16(params.rds_lpf_coeff),
-            precision.bf16(torch.stack([rargs[5], rargs[6]])),
-            up=cfg.rds_up, down=cfg.rds_down)
-        bound = 1e-5 + PREC_STEP * float(y.abs().max()) * float(
-            params.rds_rrc_coeff.abs().sum())
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(k_out[2:4],
-                                                     p_out[2:4])):
-            raise AssertionError(f"phase 12: B4 {mode}: LPF tails differ")
-        share = max(float(((a - b).abs() > 1e-5).double().mean())
-                    for a, b in zip(k_out[:2], p_out[:2]))
-        rrc_err = _max_err(k_out[4:], p_out[4:])
-        if share > PREC_SHARE or rrc_err > 1e-5:
-            raise AssertionError(f"phase 12: B4 {mode}: {share:.4%} of the "
-                                 f"baseband past 1e-5 (at most "
-                                 f"{PREC_SHARE:.0%}), RRC tails "
-                                 f"{rrc_err:.3g}")
+        share, bound, rrc_err = _prec_b4_check(f"B4 {mode}", rargs, k_out,
+                                               p_out, cfg.rds_up,
+                                               cfg.rds_down)
         _say(f"phase 12: B4 {mode} default: {share:.4%} of the baseband past "
              f"1e-5 of the plain version (bf16 flips of the resampled "
              f"stream), the flip bound {bound:.3g}; RRC tails within "
              f"{rrc_err:.3g}, LPF tails exact")
+        kern = lambda: resample_cuda.fused_rds_backend(  # noqa: E731
+            *rargs, precision="default")
         rows.append(_Row(
             "B4 rds_backend", f"{mode} {cfg.rds_up}/{cfg.rds_down} default",
             "dy4tpu_torch/csrc/rds_backend.cu",
             "dy4tpu/ops/resample_pallas.py:275",
             resample_cuda.fused_rds_backend, _max_err(k_out, p_out), bound,
-            lambda: resample_cuda.fused_rds_backend(*rargs,
-                                                    precision="default"),
+            kern,
             lambda: resample_cuda.fused_rds_backend_plain(
                 *rargs, precision="default"),
             nbytes=_nbytes(rargs[:9], k_out),
             flops=_rational_flops("B4", rargs),
-            extra={"precision": "default", "share_past_1e-5": share},
-            phase="phase 12"))
+            extra={"precision": "default", "share_past_1e-5": share,
+                   "kernel_cold_ms": _cold_ms(
+                       kern, resample_cuda.fused_rds_backend)},
+            phase="phase 12", flop_rate=BF16_FLOP_S))
+        _prec_tc_plans("B4", resample_cuda._rds_launch,
+                       resample_cuda.fused_rds_backend_plain, rargs,
+                       (cfg.rds_up, cfg.rds_down), 9, True)
     return rows
 
 
@@ -5881,19 +5948,25 @@ def _prec_sharded(dev, smi, all_wrappers) -> None:
     graph.clear()
 
 
+# the sources whose instantiations phase 12's build report reads
+TC_SOURCES = ("frontend", "rds_backend", "audio_rational")
+
+
 def _tc_build_start():
-    """``csrc/frontend.cu`` compiled once more for its ptxas report
-    (``nvcc -cubin -Xptxas -v``, device code only), started in the
-    background beside the other phases; ``_tc_build_report`` reads it.
-    Returns (the process, its output directory)."""
+    """``csrc/frontend.cu``, ``rds_backend.cu`` and ``audio_rational.cu``
+    compiled once more for their ptxas report (``nvcc -cubin -Xptxas
+    -v``, device code only), all started in the background beside the
+    other phases; ``_tc_build_report`` reads them.  Returns ({source: the
+    process}, their output directory)."""
     from dy4tpu_torch.runtime import kernels
     out = Path(tempfile.mkdtemp(prefix="dy4_ptxas_"))
-    proc = subprocess.Popen(
+    procs = {name: subprocess.Popen(
         [kernels.find_nvcc(), *kernels._ARCH, "-std=c++17", "-O3", "-cubin",
-         "-Xptxas", "-v", "-o", str(out / "frontend.cubin"),
-         str(kernels.CSRC / "frontend.cu")],
+         "-Xptxas", "-v", "-o", str(out / f"{name}.cubin"),
+         str(kernels.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out
+        for name in TC_SOURCES}
+    return procs, out
 
 
 def _tc_kernel(mangled: str):
@@ -5915,30 +5988,18 @@ def _tc_kernel(mangled: str):
     return label, (kind == "B6", rds, corr, bf16)
 
 
-def _tc_build_report(build, smi) -> None:
-    """Phase 12's build report of B1 / B1-corr / B6: each instantiation's
-    registers, spills and static shared memory from ``-Xptxas -v``; its
-    blocks an SM (the card's occupancy calculator) at modes 0 and 1's
-    plans; and, where the toolkit has ``cuobjdump``, its HMMA
-    instructions in the built library's SASS: raises unless the kBf16
-    instantiations hold HMMA and the float32 ones none."""
-    import ctypes
+def _ptxas_info(log: str, kernel_of) -> dict:
+    """{kernel_of(name): {registers, spills, static smem}} of every
+    function of an ``nvcc -Xptxas -v`` log that ``kernel_of`` names (None
+    for the others)."""
     import re
-    from dy4tpu_torch.config import get_mode
-    from dy4tpu_torch.ops import frontend_cuda as fc
-    from dy4tpu_torch.runtime import kernels
-    proc, out = build
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise AssertionError(f"phase 12: nvcc -Xptxas -v of frontend.cu "
-                             f"failed:\n{log}")
     info: dict = {}
     current = None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w$]+)'?", line)
         if m:
-            current = _tc_kernel(m.group(1))
+            current = kernel_of(m.group(1))
             if current:
                 info.setdefault(current, {})
             continue
@@ -5953,19 +6014,60 @@ def _tc_build_report(build, smi) -> None:
             info[current]["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             info[current]["static smem"] = int(sm.group(1)) if sm else 0
+    return info
+
+
+def _hmma_counts(lib: str, kernel_of) -> Optional[dict]:
+    """{kernel_of(name): HMMA instructions} in the SASS of the built
+    library ``lib`` (``kernels.lib_path``), where the toolkit has
+    ``cuobjdump``; else None."""
+    import re
+    from dy4tpu_torch.runtime import kernels
+    cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    if not cuobjdump.is_file():
+        return None
+    dump = subprocess.run([str(cuobjdump), "-sass",
+                           str(kernels.lib_path(lib))],
+                          capture_output=True, text=True).stdout
+    sass = {}
+    for sec in re.split(r"\n\s*Function : ", dump)[1:]:
+        found = kernel_of(sec.split("\n", 1)[0].strip())
+        if found:
+            sass[found] = sec.count("HMMA")
+    return sass
+
+
+def _tc_build_report(build, smi) -> None:
+    """Phase 12's build report (the logs of ``_tc_build_start``): B1 /
+    B1-corr / B6 (``_front_build_report``) and B3 / B4 / B5
+    (``_rational_build_report``)."""
+    procs, _ = build
+    logs = {}
+    for name, proc in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 12: nvcc -Xptxas -v of {name}.cu "
+                                 f"failed:\n{logs[name]}")
+    _front_build_report(logs["frontend"], smi)
+    _rational_build_report(logs, smi)
+
+
+def _front_build_report(log: str, smi) -> None:
+    """B1 / B1-corr / B6's build report: each instantiation's registers,
+    spills and static shared memory from ``-Xptxas -v``; its blocks an SM
+    (the card's occupancy calculator) at modes 0 and 1's plans; and, where
+    the toolkit has ``cuobjdump``, its HMMA instructions in the built
+    library's SASS: raises unless the kBf16 instantiations hold HMMA and
+    the float32 ones none."""
+    import ctypes
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import frontend_cuda as fc
+    from dy4tpu_torch.runtime import kernels
+    info = _ptxas_info(log, _tc_kernel)
     blocks = kernels.load("frontend").dy4_frontend_blocks
     blocks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
     blocks.restype = ctypes.c_int
-    sass = {}
-    cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
-    if cuobjdump.is_file():
-        dump = subprocess.run([str(cuobjdump), "-sass",
-                               str(kernels.lib_path("frontend"))],
-                              capture_output=True, text=True).stdout
-        for sec in re.split(r"\n\s*Function : ", dump)[1:]:
-            found = _tc_kernel(sec.split("\n", 1)[0].strip())
-            if found:
-                sass[found] = sec.count("HMMA")
+    sass = _hmma_counts("frontend", _tc_kernel) or {}
     for (label, key), got in sorted(info.items()):
         if_k, rds, corr, bf16 = key
         cfg = get_mode(0 if rds else 1)
@@ -5987,6 +6089,92 @@ def _tc_build_report(build, smi) -> None:
         raise AssertionError(f"phase 12: the ptxas report names "
                              f"{len(info)} of the 12 B1 / B6 "
                              f"instantiations")
+
+
+def _rational_kernel(mangled: str):
+    """(label, (source, tensor cores, P, QT)) of a B3 / B4 / B5
+    instantiation's mangled name (the float32 walk's (P, QT), or the
+    tensor-core design's), or None for any other function."""
+    import re
+    m = re.search(r"(rds_backend|audio_rational)_kernel(_tc)?"
+                  r"(?:ILi(\d)ELi(\d)E)?", mangled)
+    if m is None:
+        return None
+    tc = bool(m.group(2))
+    kind = "B4" if m.group(1) == "rds_backend" else "B3 / B5"
+    label = (f"{kind} tensor cores" if tc else
+             f"{kind} float32 P={m.group(3)} QT={m.group(4)}")
+    return label, (m.group(1), tc, int(m.group(3) or 0),
+                   int(m.group(4) or 0))
+
+
+def _rational_build_report(logs: dict, smi) -> None:
+    """B3 / B4 / B5's build report: the tensor-core instantiation of each
+    file (registers, spills, static shared memory; blocks an SM at each
+    mode's plan at C=512; its HMMA count) and the float32 walk's eleven
+    (registers and spills summed up, blocks an SM at the plan each mode
+    picks, no HMMA): raises unless the tensor-core ones hold HMMA and the
+    float32 ones none, or where an instantiation is missing."""
+    import ctypes
+    from dy4tpu_torch.config import get_mode
+    from dy4tpu_torch.ops import resample_cuda as rc
+    from dy4tpu_torch.runtime import kernels
+    for src in ("rds_backend", "audio_rational"):
+        info = {k: v for k, v in _ptxas_info(logs[src],
+                                             _rational_kernel).items()
+                if k[1][0] == src}
+        sass = _hmma_counts(src, _rational_kernel)
+        blocks = getattr(kernels.load(src), f"dy4_{src}_blocks")
+        blocks.argtypes = rc._BLOCKS_ARGS
+        blocks.restype = ctypes.c_int
+        geoms = []
+        for mode in ((0, 2) if src == "rds_backend" else (0, 1, 2, 3)):
+            cfg = get_mode(mode)
+            if src == "rds_backend":
+                g = (cfg.if_per_block, cfg.rds_up, cfg.rds_down,
+                     cfg.rds_taps, cfg.rds_rrc_taps)
+            else:
+                g = (cfg.if_per_block, cfg.audio_up, cfg.audio_down,
+                     cfg.audio_taps, 0)
+            geoms.append((mode, rc._tc_plan(C, *g), rc._tile_plan(C, *g)))
+        tc_keys = [k for k in info if k[1][1]]
+        f32_keys = [k for k in info if not k[1][1]]
+        if len(tc_keys) != 1 or len(f32_keys) != len(rc.SHAPES):
+            raise AssertionError(f"phase 12: the ptxas report of {src}.cu "
+                                 f"names {len(tc_keys)} tensor-core and "
+                                 f"{len(f32_keys)} float32 instantiations")
+        (label, key), = tc_keys
+        got = info[(label, key)]
+        at = "; ".join(
+            f"mode{m} {tp.smem} bytes, "
+            f"{blocks(1, 0, 0, tp.threads, tp.smem)} blocks an SM"
+            for m, tp, _ in geoms)
+        hmma = None if sass is None else sass.get((label, key))
+        _say(f"phase 12: {label} ({src}.cu): {got.get('registers')} "
+             f"registers a thread, spills {got.get('spills')}, "
+             f"{got.get('static smem')} bytes of static shared memory "
+             f"(-Xptxas -v); at C={C}: {at}; "
+             + ("HMMA not measured (no cuobjdump)" if hmma is None
+                else f"{hmma} HMMA instructions in its SASS") + f" ({smi})")
+        regs = sorted(info[k].get("registers", 0) for k in f32_keys)
+        spilled = max(int(str(info[k].get("spills", "0")).split()[0])
+                      for k in f32_keys)
+        f32_hmma = None if sass is None else sum(sass.get(k, 0)
+                                                 for k in f32_keys)
+        at = "; ".join(
+            f"mode{m} P={fp.phases} QT={fp.chunk} {fp.smem} bytes, "
+            f"{blocks(0, fp.phases, fp.chunk, fp.threads, fp.smem)} blocks "
+            f"an SM" for m, _, fp in geoms)
+        _say(f"phase 12: {src}.cu float32 walk: {len(f32_keys)} "
+             f"instantiations, {regs[0]}-{regs[-1]} registers a thread, "
+             f"spill stores up to {spilled} bytes; at C={C}: {at}; "
+             + ("HMMA not measured (no cuobjdump)" if f32_hmma is None
+                else f"{f32_hmma} HMMA instructions in their SASS")
+             + f" ({smi})")
+        if hmma is not None and (hmma == 0 or f32_hmma):
+            raise AssertionError(f"phase 12: {src}.cu: {hmma} HMMA in the "
+                                 f"tensor-core instantiation, {f32_hmma} in "
+                                 f"the float32 walk's")
 
 
 def _run_precision(dev, smi, all_wrappers, results, build=None) -> None:
@@ -6046,9 +6234,10 @@ def main() -> None:
     try:
         _run_phases(dev, smi, t_start, build)
     finally:
-        if build[0].poll() is None:
-            build[0].kill()
-            build[0].wait()
+        for proc in build[0].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def _run_phases(dev, smi, t_start: float, build) -> None:

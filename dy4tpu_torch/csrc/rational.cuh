@@ -59,12 +59,10 @@
 //     named barrier of theirs; one __syncthreads of the whole block ends
 //     an item and hands the buffers over.
 //
-// Precision.  At dy4tpu's mm_dtype=bf16 (precision "default" / "high",
-// ops/precision.py) an Io's `bf16` flag rounds each mixed input sample to
-// bf16 as the copy warps store it (Io::mix, the tail-fill slots Io::tail
-// too), and B4 also rounds its resampled stream before the RRC; the
-// wrapper passes bf16-rounded taps.  The new input tails are the float32
-// samples all the same (store_input_tails).
+// Precision.  This float32 walk is the "highest" path; at dy4tpu's
+// mm_dtype=bf16 (precision "default" / "high", ops/precision.py) the
+// kernels run rational_tc.cuh's tensor-core design instead, which shares
+// this file's Plan, items and tails.
 //
 // Numerics: every output is one chain of fmaf over its taps t = 0..S in
 // that order, from +0, whatever the plan: a zero tap of a shifted row
@@ -78,9 +76,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#ifdef __CUDACC__
-#include <cuda_bf16.h>
-#endif
 
 namespace rational {
 
@@ -112,6 +107,14 @@ struct Plan {
   int window;         // float2 a row's input window holds (even)
   int ystride, yhead; // floats a staged stream holds; where its tile starts
   int chunk, groups, compute_threads, threads, ctas, items, smem;
+  // the tensor-core design only (rational_tc.cuh; 0 in this walk's plans)
+  int col_groups;     // groups of 8 positions: ceil(span / 8)
+  int ks, ks2;        // k-steps of a group's product and of B4's RRC
+  int lead;           // bf16 zeros before window slot 0: (-S) mod 8
+  int pad, reach;     // the window's skew every step; a cycle row's reads
+  unsigned step_inv;  // ceil(2^32 / step): v / step as a multiply
+  int slen, rlen;     // bf16 of a stream's window, of its RRC input
+  int bufs;           // windows in the ring
 };
 
 __host__ __device__ inline int r4(int n) { return (n + 3) / 4 * 4; }
@@ -208,16 +211,6 @@ inline bool plan_ok(const Plan& p) {
          4 * layout(p).total == p.smem;
 }
 
-// x rounded to bf16 (round to nearest even) and back to float32.
-__device__ __forceinline__ float bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Both of a staged pair rounded to bf16 where `on`.
-__device__ __forceinline__ float2 bf16(float2 v, bool on) {
-  return on ? make_float2(bf16(v.x), bf16(v.y)) : v;
-}
-
 // Work item `it`: rows [row0, row0 + nrows) and outputs [m0, m1) of
 // tile `tile`; its resampler runs cycles [c_lo, c_hi), the halo's first.
 struct Item {
@@ -308,11 +301,9 @@ __device__ __forceinline__ void load_window(const Io& io, const Plan& p,
 }
 
 // Compute thread `ctid`: the new input tails of the item's rows, the last
-// S mixed samples of each (a and b: the two streams), where the item is
-// its row's last tile: from the window, or at bf16, which stages the
-// rounded samples, from the inputs themselves (Io::fetch, Io::mix_raw).
-template <class Io>
-__device__ __forceinline__ void store_input_tails(const Io& io, const Plan& p,
+// S mixed samples of each (a and b: the two streams), from the window,
+// where the item is its row's last tile.
+__device__ __forceinline__ void store_input_tails(const Plan& p,
                                                   const Item& it,
                                                   const float2* xw,
                                                   float* out_a, float* out_b,
@@ -323,14 +314,7 @@ __device__ __forceinline__ void store_input_tails(const Io& io, const Plan& p,
     const int r = i / p.s;
     const int j = i - r * p.s;
     const long long row = it.row0 + r;
-    float2 v;
-    if (io.bf16) {
-      float a, b, c;
-      io.fetch(row * p.n_in + p.n_in - p.s + j, a, b, c);
-      v = io.mix_raw(a, b, c);
-    } else {
-      v = xw[r * (p.guard + p.window) + w0 + j];
-    }
+    const float2 v = xw[r * (p.guard + p.window) + w0 + j];
     out_a[row * p.s + j] = v.x;
     out_b[row * p.s + j] = v.y;
   }
@@ -568,6 +552,44 @@ int launch(const Io& io, const Plan& p, void* stream) {
   }
 }
 
+// Thread blocks an SM of Kernel::fn<P, QT>() (the float32 walk at plan
+// shape (phases, chunk)), or of Kernel::tc() (rational_tc.cuh) where tc
+// != 0, at `threads` threads and `smem` bytes of dynamic shared memory, as
+// the card's occupancy calculator counts them; a negative cudaError on
+// failure or for a shape not instantiated.  For reports.
+template <class Kernel>
+int blocks(int tc, int phases, int chunk, int threads, long long smem) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  auto count = [&](auto kernel) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, threads, static_cast<size_t>(smem));
+  };
+  if (tc) {
+    count(Kernel::tc());
+  } else {
+    switch (phases * 8 + chunk) {
+      case 9: count(Kernel::template fn<1, 1>()); break;
+      case 10: count(Kernel::template fn<1, 2>()); break;
+      case 11: count(Kernel::template fn<1, 3>()); break;
+      case 12: count(Kernel::template fn<1, 4>()); break;
+      case 17: count(Kernel::template fn<2, 1>()); break;
+      case 18: count(Kernel::template fn<2, 2>()); break;
+      case 19: count(Kernel::template fn<2, 3>()); break;
+      case 25: count(Kernel::template fn<3, 1>()); break;
+      case 26: count(Kernel::template fn<3, 2>()); break;
+      case 33: count(Kernel::template fn<4, 1>()); break;
+      case 34: count(Kernel::template fn<4, 2>()); break;
+      default: break;
+    }
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // The entry points' geometry and plan arguments, in resample_cuda's order.
 inline Plan make_plan(long long c, int n_in, int up, int down, int k, int k2,
                       int span, int dinv, int phases, int tmul, int tinv,
@@ -576,7 +598,7 @@ inline Plan make_plan(long long c, int n_in, int up, int down, int k, int k2,
                       int halo_cycles, int window, int ystride, int yhead,
                       int chunk, int groups, int compute_threads,
                       int threads, int ctas, int items, int smem) {
-  Plan p;
+  Plan p{};
   p.c = c;
   p.n_in = n_in;
   p.m_out = static_cast<int>(static_cast<long long>(n_in) * up / down);

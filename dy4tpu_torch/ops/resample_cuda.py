@@ -30,9 +30,13 @@ resampler tails are exact.
 Every wrapper and plain version takes dy4tpu's ``precision=``
 (``ops/precision.py``), "highest" by default, the receiver's default (dy4tpu's
 direct Pallas entries default to ``mm_dtype=bf16``; the port's wrappers do
-not).  Below "highest" the taps are rounded to bf16 and the mixed input
-legs too, after the mix, as the copy warps stage them; B4 also rounds the
-resampled stream before the RRC.  The carried tails stay float32.
+not).  "highest" runs the float32 walk above.  Below it the kernels run the
+tensor-core design (``csrc/rational_tc.cuh``), dy4tpu's ``mm_dtype=bf16``
+dots as bf16 ``mma.sync`` products with float32 sums: the copy warps round
+the mixed input legs to bf16 as they stage them, one banded matrix of a
+phase cycle's taps (rounded by the kernel itself) serves every cycle,
+and B4 rounds its resampled stream before the RRC, a Toeplitz product;
+``_tc_plan`` sizes it, a rule.  The carried tails stay float32.
 """
 
 from __future__ import annotations
@@ -389,8 +393,208 @@ def _plan_args(plan: TilePlan, up: int, down: int) -> tuple[int, ...]:
 
 
 _PLAN_INTS = [ctypes.c_int] * 23
-_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
          + _PLAN_INTS + [ctypes.c_void_p])
+
+
+# ---- the tensor-core design below "highest" (csrc/rational_tc.cuh) ----
+
+# positions a column group, window samples a k-step, outputs of one RRC
+# MMA (rows of 8); ints of the kernel's table; (threads, compute threads)
+# of a block, one an SM, of B4 and of B3 / B5 (RdsIo / AudioIo::kThreads);
+# the fewest cycles a tile where a row splits to fill the card
+TC_N, TC_K, TC_UNIT = 8, 16, 128
+TC_TABLE = 3 * 256
+TC_B4_BLOCK, TC_AUDIO_BLOCK = (1024, 512), (512, 256)
+TC_MIN_CYCLES = 4
+# the most windows in the kernel's ring (rational_tc.cuh kMaxBufs); the
+# plan takes as many as fit beside the largest tile, at least 2
+TC_MAX_BUFS = 3
+
+
+class TcPlan(typing.NamedTuple):
+    """The tensor-core design's launch (``csrc/rational_tc.cuh``).
+
+    A cycle is ``span`` outputs (U, or 8 at U = 1) of ``step`` inputs.
+    Column group g of 8 positions reads a cycle's window from ``j0_g``
+    (``_tc_groups``) in ``ks`` k-steps; B4's RRC takes ``ks2``.  A
+    stream's window holds ``slen`` bf16: ``lead`` zeros, then the slots,
+    skewed by ``pad`` every step; a cycle row's reads ``reach`` bf16 from
+    its start.  B4's RRC input takes ``rlen`` bf16 a stream, B3 / B5's
+    staged outputs ``ystride`` floats; the copy warps fill a ring of
+    ``bufs`` windows.  Items, tiles and the halo as ``TilePlan``'s;
+    ``compute_threads`` of the block's ``threads`` compute, the rest
+    copy."""
+    rows: int
+    cycles: int
+    span: int
+    tile: int
+    n_tiles: int
+    halo: int
+    ks: int
+    ks2: int
+    lead: int
+    pad: int
+    reach: int
+    slen: int
+    rlen: int
+    ystride: int
+    bufs: int
+    compute_threads: int
+    threads: int
+    ctas: int
+    items: int
+    smem: int
+
+
+def _round_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _tc_ksteps(decim: int, taps: int) -> int:
+    """k-steps of a Toeplitz product over rows of 8 outputs
+    (``tc::ksteps``)."""
+    return -(-(7 * decim + taps) // TC_K)
+
+
+def _tc_groups(up: int, down: int, s: int):
+    """``(span, step, starts, ks, lead, reach, pad)`` of the design at U/D
+    with tails of ``s``: the cycle, each column group's first window
+    sample j0_g (b of its first position rounded down to S mod 8), the
+    k-steps of the widest group, the zeros before slot 0, the bf16 a cycle
+    row's reads reach from its start, and the window's skew every step
+    (8 where step is a multiple of 16, whose rows would share banks)."""
+    span = up if up > 1 else TC_N
+    step = span // up * down
+
+    def newest(p):
+        return p * step // span
+
+    starts = [newest(8 * g) - (newest(8 * g) - s) % 8
+              for g in range(-(-span // TC_N))]
+    ks = max(-(-(newest(min(8 * g + 7, span - 1)) + s + 1 - j0) // TC_K)
+             for g, j0 in enumerate(starts))
+    lead = -s % 8
+    reach = max(starts) + lead + TC_K * ks
+    return span, step, starts, ks, lead, reach, 0 if step % 16 else 8
+
+
+def _tc_place(v: int, step: int, pad: int) -> int:
+    """Where window position ``v`` sits (``rational_tc.cuh`` place)."""
+    return v + pad * (v // step)
+
+
+def _tc_layout(up: int, down: int, s: int, k2: int, rows: int, cycles: int,
+               halo_cycles: int, bufs: int) -> tuple[int, int, int, int]:
+    """``(slen, rlen, ystride, smem)``: csrc/rational_tc.cuh's shared
+    memory, in this order: the B fragments (256 bytes a group and k-step,
+    B4's RRC's too), a table of TC_TABLE ints, a ring of ``bufs`` windows
+    of ``2 * rows`` streams x ``slen`` bf16, and ``2 * rows`` of B4's RRC
+    inputs of ``rlen`` bf16 or of B3 / B5's staged outputs of ``ystride``
+    floats."""
+    span, step, starts, ks, lead, reach, pad = _tc_groups(up, down, s)
+    ncyc = cycles + halo_cycles
+    vend = max(lead + s + ncyc * step, (ncyc - 1) * step + reach)
+    slen = _round_to(_tc_place(vend - 1, step, pad) + 1, 8)
+    ks2 = _tc_ksteps(1, k2) if k2 else 0
+    rlen = (_round_to(cycles * span + 7, TC_UNIT) - 8 + TC_K * ks2
+            if k2 else 0)
+    ystride = 0 if k2 else _r4(cycles * span)
+    smem = (256 * (len(starts) * ks + ks2) + 4 * TC_TABLE
+            + 4 * bufs * rows * slen + 4 * rows * rlen + 8 * rows * ystride)
+    return slen, rlen, ystride, smem
+
+
+@functools.lru_cache(maxsize=256)
+def _tc_plan(c: int, n_in: int, up: int, down: int, k: int, k2: int, *,
+             sms: int = SMS, rows: typing.Optional[int] = None,
+             cycles: typing.Optional[int] = None) -> TcPlan:
+    """The tensor-core design's plan for ``c`` rows of ``n_in`` inputs
+    (``k2`` > 0: B4 and its RRC), a rule: blocks of TC_B4_BLOCK /
+    TC_AUDIO_BLOCK threads; items of one row (``rows`` pins it); a row in
+    as many tiles as fill the card's ``sms`` where the
+    rows alone do not (a tile at least TC_MIN_CYCLES cycles and twice B4's
+    halo), in more where its item would not fit the block's shared memory
+    (``kernels.SMEM_MAX``); ``cycles`` pins the tile.  B4's tiles after
+    the first recompute a halo of whole cycles, at least K2 - 1 + 7
+    outputs (its RRC rows start at multiples of 8).  Raises ``ValueError``
+    for rows that do not hold whole cycles, or where nothing fits."""
+    if c < 1 or up < 1 or math.gcd(up, down) != 1 or (n_in * up) % down:
+        raise ValueError(f"{c} rows of {n_in} do not resample by "
+                         f"{up}/{down} in whole phase cycles")
+    s = fir.state_len(k, up)
+    span, step = _tc_groups(up, down, s)[:2]
+    if n_in % step or n_in < s:
+        raise ValueError(f"rows of {n_in} inputs do not hold whole cycles "
+                         f"of {step} inputs ({span} outputs) and the "
+                         f"{s}-sample tail")
+    nc = n_in // step
+    rows = rows or 1
+    halo_tiled = -(-(k2 - 1 + TC_N - 1) // span) if k2 else 0
+    if cycles:
+        options = [cycles]
+    else:
+        fill = min(-(-sms // -(-c // rows)),
+                   max(1, nc // max(TC_MIN_CYCLES, 2 * halo_tiled)))
+        options = sorted({-(-nc // n) for n in range(fill, nc + 1)},
+                         reverse=True)
+    for q in options:
+        n_tiles = -(-nc // q)
+        hc = halo_tiled if n_tiles > 1 else 0
+        if q < hc or q > nc:
+            continue
+        for bufs in range(TC_MAX_BUFS, 1, -1):
+            slen, rlen, ystride, smem = _tc_layout(up, down, s, k2, rows, q,
+                                                   hc, bufs)
+            if smem <= kernels.SMEM_MAX:
+                break
+        else:
+            continue
+        items = -(-c // rows) * n_tiles
+        _, _, _, ks, lead, reach, pad = _tc_groups(up, down, s)
+        threads, compute_threads = TC_B4_BLOCK if k2 else TC_AUDIO_BLOCK
+        return TcPlan(rows, q, span, q * span, n_tiles, hc * span, ks,
+                      _tc_ksteps(1, k2) if k2 else 0, lead, pad, reach, slen,
+                      rlen, ystride, bufs, compute_threads, threads,
+                      min(items, sms), items, smem)
+    raise ValueError(f"no tile of {up}/{down} with {k} taps fits "
+                     f"{kernels.SMEM_MAX} bytes of shared memory a block "
+                     f"on the tensor cores (rows={rows}, cycles={cycles})")
+
+
+def _tc_plan_args(plan: TcPlan, up: int, down: int) -> tuple[int, ...]:
+    """The tensor-core plan as the ``_tc`` entry points take it after the
+    geometry."""
+    return (plan.span, pow(down, -1, up) if up > 1 else 0, plan.ks,
+            plan.lead, plan.pad, plan.reach, plan.slen, plan.rows,
+            plan.cycles,
+            plan.n_tiles, plan.halo // plan.span, plan.rlen, plan.ystride,
+            plan.bufs, plan.compute_threads, plan.threads, plan.ctas,
+            plan.items, plan.smem)
+
+
+_TC_INTS = [ctypes.c_int] * 19
+_TC_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+            + _TC_INTS + [ctypes.c_void_p])
+_AUDIO_TC_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 4 + _TC_INTS + [ctypes.c_void_p])
+_BLOCKS_ARGS = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+
+
+def _plan_for(c: int, n: int, up: int, down: int, k: int, k2: int,
+              plan, precision: str, dev: torch.device):
+    """The plan of the design ``precision`` runs (the tensor-core one
+    below "highest"): ``plan`` where given, which must be of that
+    design, else the rule's (``_tc_plan``) or the cost model's
+    (``_tile_plan``)."""
+    tc = rounds(precision)
+    if plan is None:
+        return (_tc_plan if tc else _tile_plan)(max(c, 1), n, up, down, k,
+                                                 k2, sms=_sms(dev))
+    if isinstance(plan, TcPlan) != tc:
+        raise ValueError(f"a {type(plan).__name__} does not run at "
+                         f"precision {precision!r}")
+    return plan
 
 
 def fused_rds_backend_plain(rds_delayed, nco_i, nco_q, h_lpf, h_rrc,
@@ -435,11 +639,12 @@ def fused_rds_backend(rds_delayed, nco_i, nco_q, h_lpf, h_rrc, lpf_tail_i,
 
 
 def _rds_launch(args, up: int, down: int,
-                plan: typing.Optional[TilePlan] = None,
+                plan: typing.Union[TilePlan, TcPlan, None] = None,
                 precision: str = "highest"):
     """B4 on CUDA tensors ``args`` (``fused_rds_backend``'s first nine)
-    under ``plan`` (``_tile_plan``'s own by default) at ``precision``: one
-    launch."""
+    at ``precision`` under ``plan`` (``_plan_for``: the tensor-core
+    design's ``TcPlan`` below "highest", else a ``TilePlan``; the rule's
+    or the cost model's by default): one launch."""
     rds_delayed, _, _, h_lpf, h_rrc = args[:5]
     c, n = rds_delayed.shape
     k, k2 = h_lpf.shape[0], h_rrc.shape[0]
@@ -456,20 +661,21 @@ def _rds_launch(args, up: int, down: int,
                               ((c, n),) * 3 + ((k,), (k2,)) + ((c, s),) * 2
                               + ((c, k2 - 1),) * 2):
         kernels.require(t, name, shape, device=dev)
-    if plan is None:
-        plan = _tile_plan(max(c, 1), n, up, down, k, k2, sms=_sms(dev))
+    plan = _plan_for(c, n, up, down, k, k2, plan, precision, dev)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=dev)
     outs = [new(c, m), new(c, m), new(c, s), new(c, s), new(c, k2 - 1),
             new(c, k2 - 1)]
-    args = (*args[:3], taps(h_lpf, precision), taps(h_rrc, precision),
-            *args[5:])
-    fn = kernels.entry("rds_backend", "dy4_rds_backend", _ARGS)
+    if isinstance(plan, TcPlan):
+        fn = kernels.entry("rds_backend", "dy4_rds_backend_tc", _TC_ARGS)
+        plan_args = _tc_plan_args(plan, up, down)
+    else:
+        fn = kernels.entry("rds_backend", "dy4_rds_backend", _ARGS)
+        plan_args = _plan_args(plan, up, down)
     with torch.cuda.device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     *(t.data_ptr() for t in outs), c, n, up, down, k, k2,
-                    int(rounds(precision)), *_plan_args(plan, up, down),
-                    kernels.stream_of(rds_delayed))
+                    *plan_args, kernels.stream_of(rds_delayed))
     kernels.check_launch(status, "rds_backend fused_rds_backend")
     fused_rds_backend.launches += 1
     return tuple(outs)
@@ -478,7 +684,7 @@ def _rds_launch(args, up: int, down: int,
 fused_rds_backend.launches = 0
 
 _AUDIO_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
-               + [ctypes.c_int] * 5 + _PLAN_INTS + [ctypes.c_void_p])
+               + [ctypes.c_int] * 4 + _PLAN_INTS + [ctypes.c_void_p])
 
 
 def fused_audio_backend_rational_plain(fm_delayed, stereo_band, nco,
@@ -521,12 +727,12 @@ def fused_audio_backend_rational(fm_delayed, stereo_band, nco, h_audio,
 
 
 def _audio_launch(args, up: int, down: int,
-                  plan: typing.Optional[TilePlan] = None,
+                  plan: typing.Union[TilePlan, TcPlan, None] = None,
                   precision: str = "highest"):
     """B5, or B3 at ``up`` = 1, on CUDA tensors ``args``
-    (``fused_audio_backend_rational``'s first six) under ``plan``
-    (``_tile_plan``'s own by default) at ``precision``: one launch, which
-    the calling wrapper counts."""
+    (``fused_audio_backend_rational``'s first six) at ``precision`` under
+    ``plan`` (as ``_rds_launch``'s): one launch, which the calling wrapper
+    counts."""
     fm_delayed, h_audio = args[0], args[3]
     c, n = fm_delayed.shape
     k = h_audio.shape[0]
@@ -540,20 +746,24 @@ def _audio_launch(args, up: int, down: int,
                                      "h_audio", "mono_tail", "stereo_tail"),
                               ((c, n),) * 3 + ((k,),) + ((c, s),) * 2):
         kernels.require(t, name, shape, device=dev)
-    if plan is None:
-        plan = _tile_plan(max(c, 1), n, up, down, k, 0, sms=_sms(dev))
+    plan = _plan_for(c, n, up, down, k, 0, plan, precision, dev)
     m = n * up // down
     outs = ([torch.empty(c, m, dtype=torch.float32, device=dev)
              for _ in range(3)]
             + [torch.empty(c, s, dtype=torch.float32, device=dev)
                for _ in range(2)])
-    args = (*args[:3], taps(h_audio, precision), *args[4:])
-    fn = kernels.entry("audio_rational", "dy4_audio_rational", _AUDIO_ARGS)
+    if isinstance(plan, TcPlan):
+        fn = kernels.entry("audio_rational", "dy4_audio_rational_tc",
+                           _AUDIO_TC_ARGS)
+        plan_args = _tc_plan_args(plan, up, down)
+    else:
+        fn = kernels.entry("audio_rational", "dy4_audio_rational",
+                           _AUDIO_ARGS)
+        plan_args = _plan_args(plan, up, down)
     with torch.cuda.device(dev):
         status = fn(*(t.data_ptr() for t in args),
                     *(t.data_ptr() for t in outs), c, n, up, down, k,
-                    int(rounds(precision)), *_plan_args(plan, up, down),
-                    kernels.stream_of(fm_delayed))
+                    *plan_args, kernels.stream_of(fm_delayed))
     kernels.check_launch(status, f"audio_rational at {up}/{down}")
     return tuple(outs)
 

@@ -7,11 +7,13 @@ the CUDA qualifiers become nothing, a launch ``kernel<<<grid, threads,
 smem, stream>>>(args)`` runs its blocks one after another with one
 ``std::thread`` per CUDA thread, ``__syncthreads`` is a ``std::barrier``
 of the block, a named barrier (``bar.sync id, count``) a ``std::barrier``
-of ``count`` threads, and the round-to-nearest intrinsics are the host's
+of ``count`` threads (``bar.arrive`` an arrival on it that does not
+wait), and the round-to-nearest intrinsics are the host's
 IEEE operations (``__fmaf_rn`` is ``std::fma``, ``__int_as_float`` a
 copy of the bits, ``__funnelshift_r`` a shift of the 64-bit pair,
 ``__float2bfloat16_rn`` a round to nearest even of the bits,
-``__byte_perm`` a pick of bytes).  The warp-wide tensor-core instructions
+``__byte_perm`` a pick of bytes, ``__umulhi`` the high half of a 64-bit
+product).  The warp-wide tensor-core instructions
 of ``csrc/mma_bf16.cuh`` (``MMA_REWRITES``) exchange through the warp:
 each of its 32 threads posts its fragments (or its row address) and
 waits at a barrier of the warp, then computes its own part from the
@@ -70,6 +72,9 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
       ((static_cast<unsigned long long>(hi) << 32) | lo) >> (shift & 31));
 }
 using std::min;
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
+}
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, sizeof f);
@@ -124,7 +129,18 @@ inline void named_sync(int id, int count) {
   }
   b->arrive_and_wait();
 }
+inline void named_arrive(int id, int count) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(g_named->m);
+    auto& slot = g_named->bars[id];
+    if (!slot) slot = std::make_unique<std::barrier<>>(count);
+    b = slot.get();
+  }
+  (void)b->arrive();
+}
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline void __threadfence_block() {}
 // one warp's exchange for mma.sync and ldmatrix
 struct WarpX {
   std::barrier<> bar{32};
@@ -199,6 +215,12 @@ template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) {
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
+  return 0;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                          size_t) {
+  *n = 0;
   return 0;
 }
 inline dim3 grid_of(dim3 d) { return d; }
@@ -315,13 +337,27 @@ def mma_header() -> str:
                    MMA_REWRITES)
 
 
+# csrc/rational_tc.cuh's ring barriers, dynamic shared memory and launch
+RATIONAL_TC_REWRITES = (
+    (r'asm volatile\("bar\.sync %0, %1;\\n" ::"r"\(id\), "r"\(n\) : '
+     r'"memory"\);', "named_sync(id, n);"),
+    (r'asm volatile\("bar\.arrive %0, %1;\\n" ::"r"\(id\), "r"\(n\) : '
+     r'"memory"\);', "named_arrive(id, n);"),
+) + RATIONAL_REWRITES[2:]
+
+
 def build_rational(out: Path, lib: str, names) -> ctypes.CDLL:
     """The ``csrc/<name>.cu`` files of ``names`` (kernels over
-    ``rational.cuh``) built for the host into ``out``/``lib``."""
+    ``rational.cuh`` and ``rational_tc.cuh``) built for the host into
+    ``out``/``lib``."""
     csrc = Path(__file__).resolve().parents[1] / "dy4tpu_torch" / "csrc"
     sources = {"rational.cuh": rewrite(
         (csrc / "rational.cuh").read_text(), "csrc/rational.cuh",
-        RATIONAL_REWRITES)}
+        RATIONAL_REWRITES),
+        "rational_tc.cuh": rewrite(
+            (csrc / "rational_tc.cuh").read_text(), "csrc/rational_tc.cuh",
+            RATIONAL_TC_REWRITES),
+        "mma_bf16.cuh": mma_header()}
     for name in names:
         sources[f"{name}.cpp"] = (csrc / f"{name}.cu").read_text()
     return build(out, lib, sources)
@@ -334,12 +370,6 @@ inline int atomicAdd(int* p, int v) { const int o = *p; *p += v; return o; }
 inline void __threadfence() {}
 inline float __ldcg(const float* p) { return *p; }
 inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t) {
-  return 0;
-}
-template <class K>
-cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
-                                                          size_t) {
-  *n = 0;
   return 0;
 }
 """

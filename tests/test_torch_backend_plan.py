@@ -20,8 +20,9 @@ it to its plain version.  Here:
    over plain torch ops, each output summed step by step from +0.  It
    must equal ``fused_audio_backend_plain`` within 1e-5 with the tails
    exact, and give the same bits under two plans;
-3. ``csrc/audio_rational.cu`` with ``rational.cuh`` built for the host
-   through ``cuda_host.py``'s shim, at U = 1: within 1e-5 of the plain
+3. ``csrc/audio_rational.cu`` with ``rational.cuh`` (and
+   ``rational_tc.cuh``, whose tensor-core design runs "default") built for
+   the host through ``cuda_host.py``'s shim, at U = 1: within 1e-5 of the plain
    version with the tails exact and bitwise equal under two plans and
    under every (outputs, cycles) shape a thread takes; one long row with
    a halo bitwise equal to the same samples run block by block with
@@ -41,7 +42,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from dy4tpu_torch.config import MODES  # noqa: E402
-from dy4tpu_torch.ops import backend_cuda, firdes, precision  # noqa: E402
+from dy4tpu_torch.ops import backend_cuda, firdes  # noqa: E402
 from dy4tpu_torch.ops import resample_cuda as rc  # noqa: E402
 from dy4tpu_torch.parallel.sharded import exact_min_halo_if  # noqa: E402
 from dy4tpu_torch.runtime import kernels  # noqa: E402
@@ -253,30 +254,41 @@ def test_shifted_model_matches_plain_under_two_plans(mode):
 
 @pytest.fixture(scope="module")
 def host_b3(tmp_path_factory):
-    """``csrc/audio_rational.cu`` with ``rational.cuh`` built for the
-    host: its entry point."""
+    """``csrc/audio_rational.cu`` with ``rational.cuh`` and
+    ``rational_tc.cuh`` built for the host: its float32 walk's entry
+    point, the tensor-core design's as its ``tc``."""
     so = cuda_host.build_rational(tmp_path_factory.mktemp("b3_host"),
                                   "libb3_host.so", ("audio_rational",))
     fn = so.dy4_audio_rational
     fn.argtypes = rc._AUDIO_ARGS
     fn.restype = ctypes.c_int
+    fn.tc = so.dy4_audio_rational_tc
+    fn.tc.argtypes = rc._AUDIO_TC_ARGS
+    fn.tc.restype = ctypes.c_int
     return fn
 
 
 def _host_run(fn, args, down, plan=None, bf16=0):
     """One launch of the host build under ``plan`` (the wrapper's own by
     default) with one copy warp (a thread of the block is a host thread
-    here), staging at bf16 where ``bf16``: the outputs
+    here): the float32 walk, or where ``bf16`` the tensor-core design
+    (``plan`` a ``TcPlan``, two compute warps): the outputs
     ``fused_audio_backend`` would return, filled."""
     c, n = args[0].shape
     k = args[3].shape[0]
-    if plan is None:
-        plan = rc._tile_plan(c, n, 1, down, k, 0)
+    if bf16:
+        fn = fn.tc
+        plan = (plan or rc._tc_plan(c, n, 1, down, k, 0))._replace(
+            compute_threads=64)
+        plan_args = rc._tc_plan_args
+    else:
+        plan = plan or rc._tile_plan(c, n, 1, down, k, 0)
+        plan_args = rc._plan_args
     plan = plan._replace(threads=plan.compute_threads + 32)
     outs = [torch.full(shape, math.nan) for shape in
             ((c, n // down),) * 3 + ((c, k - 1),) * 2]
     status = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
-                c, n, 1, down, k, bf16, *rc._plan_args(plan, 1, down), None)
+                c, n, 1, down, k, *plan_args(plan, 1, down), None)
     assert status == 0
     return outs
 
@@ -297,16 +309,18 @@ def test_host_kernel_matches_plain_under_two_plans(host_b3, mode):
 
 @pytest.mark.parametrize("mode", [0, 1])
 def test_host_kernel_bf16_matches_rounded_plain(host_b3, mode):
-    """At bf16 (precision "default"): the kernel fed the wrapper's rounded
-    taps, both legs staged rounded, against the plain version at
-    "default" within 1e-5, its tails (the unrounded legs) exact, bit for
-    bit under two plans."""
+    """At bf16 (precision "default"): the tensor-core design
+    (``csrc/rational_tc.cuh`` at U = 1, rounding its own taps, both legs
+    staged rounded) against the plain version at "default" within 1e-5,
+    its tails (the unrounded legs) exact, bit for bit under two plans."""
     down = MODES[mode].audio_down
     args = _args(np.random.default_rng(80 + mode), mode, RAGGED)
     want = backend_cuda.fused_audio_backend_plain(*args, down, "default")
-    kargs = args[:3] + (precision.taps(args[3], "default"),) + args[4:]
-    outs = [_host_run(host_b3, kargs, down, p, bf16=1)
-            for p in _plans(args, down)]
+    n, k = args[0].shape[-1], args[3].shape[0]
+    plans = (rc._tc_plan(RAGGED, n, 1, down, k, 0),
+             rc._tc_plan(RAGGED, n, 1, down, k, 0, rows=2, cycles=7))
+    assert plans[0] != plans[1]
+    outs = [_host_run(host_b3, args, down, p, bf16=1) for p in plans]
     for got in outs:
         _check(got, want)
     for a, b in zip(*outs):
@@ -390,6 +404,6 @@ def test_host_kernel_refuses_a_plan_it_cannot_run(host_b3, bad):
     outs = [torch.empty(2, n // down) for _ in range(3)] + [
         torch.empty(2, k - 1) for _ in range(2)]
     status = host_b3(*(t.data_ptr() for t in args),
-                     *(t.data_ptr() for t in outs), 2, n, 1, down, k, 0,
+                     *(t.data_ptr() for t in outs), 2, n, 1, down, k,
                      *rc._plan_args(plan, 1, down), None)
     assert status == 1               # cudaErrorInvalidValue, no launch

@@ -20,7 +20,9 @@ first for its RRC.  The kernels run only on the card, where
    within 1e-5), give the same bits under two plans, and once equal
    dy4tpu's Pallas kernel in interpret mode;
 3. ``csrc/rds_backend.cu`` and ``csrc/audio_rational.cu`` themselves, with
-   ``rational.cuh``, built for the host by g++ through ``cuda_host.py``'s
+   ``rational.cuh`` (and ``rational_tc.cuh``, the tensor-core design at
+   "default": ``tests/test_torch_resample_mma.py``), built for the host by
+   g++ through ``cuda_host.py``'s
    shim (a ``std::thread`` per CUDA thread, ``std::barrier`` for
    ``__syncthreads`` and the compute warps' named barrier, ``std::fma``
    for ``__fmaf_rn``): within 1e-5 of the plain versions with the tails
@@ -306,21 +308,25 @@ def test_tiled_model_matches_plain_under_two_plans(which, mode):
 @pytest.mark.parametrize("which,mode", CASES,
                          ids=[f"{w}-mode{m}" for w, m in CASES])
 def test_host_kernel_bf16_matches_rounded_plain(host_lib, which, mode):
-    """At bf16 (precision "default"), the kernel fed the wrapper's rounded
-    taps against the plain version at "default", bit for bit under two
-    plans (B4's halo rounded as its own tile rounds it).  Both round the
-    same mixed products, so B5 holds 1e-5 with its tails exact.  B4 sums
-    its resampled stream in another order than the plain version, so the
-    stream's rounding before the RRC can flip: at most 0.5% of the
-    baseband past 1e-5, each within 2^-8 max|y| sum|h_rrc|; the LPF tails
-    exact, the RRC tails (the unrounded stream) within 1e-5."""
+    """At bf16 (precision "default"), the tensor-core design
+    (``csrc/rational_tc.cuh``, rounding its own taps) against the plain
+    version at "default", bit for bit under two plans (B4's halo rounded
+    as its own tile rounds it).  Both round the same mixed products, so
+    B5 holds 1e-5 with its tails exact.  B4 sums its resampled stream in
+    another order than the plain version, so the stream's rounding before
+    the RRC can flip: at most 0.5% of the baseband past 1e-5, each within
+    2^-8 max|y| sum|h_rrc|; the LPF tails exact, the RRC tails (the
+    unrounded stream) within 1e-5."""
     args, up, down, plain, _, exact = _case(which, mode, RAGGED, 80 + mode)
     want = plain(*args, up, down, "default")
-    n_taps = 5 if which == "B4" else 4
-    kargs = tuple(precision.taps(a, "default") if 3 <= i < n_taps else a
-                  for i, a in enumerate(args))
-    outs = [_host_run(host_lib[which], which, kargs, up, down, p, bf16=1)
-            for p in _plans(which, args, up, down, RAGGED)]
+    n, k = args[0].shape[-1], args[3].shape[0]
+    k2 = args[4].shape[0] if which == "B4" else 0
+    plans = (rc._tc_plan(RAGGED, n, up, down, k, k2),
+             rc._tc_plan(RAGGED, n, up, down, k, k2, rows=2,
+                         cycles=7 if up == 19 else 3))
+    assert plans[0] != plans[1] and plans[1].n_tiles > 1
+    outs = [_host_run(host_lib[which], which, args, up, down, p, bf16=1)
+            for p in plans]
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     if which == "B5":
@@ -328,7 +334,8 @@ def test_host_kernel_bf16_matches_rounded_plain(host_lib, which, mode):
         return
     y, _ = fir.block_fir_resample(
         precision.bf16(torch.stack([args[1] * args[0], args[2] * args[0]])),
-        kargs[3], precision.bf16(torch.stack(args[5:7])), up=up, down=down)
+        precision.taps(args[3], "default"),
+        precision.bf16(torch.stack(args[5:7])), up=up, down=down)
     bound = TOL + 2.0 ** -8 * float(y.abs().max()) * float(
         args[4].abs().sum())
     for i, (g, w) in enumerate(zip(outs[0], want)):
@@ -365,25 +372,38 @@ def test_tiled_model_matches_pallas():
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """``csrc/rds_backend.cu`` and ``csrc/audio_rational.cu`` with
-    ``rational.cuh`` built for the host: their entry points."""
+    ``rational.cuh`` and ``rational_tc.cuh`` built for the host: their
+    entry points, the float32 walk's under "B4" / "B5" and the
+    tensor-core design's under "B4 tc" / "B5 tc"."""
     so = cuda_host.build_rational(tmp_path_factory.mktemp("rational_host"),
                                   "librational_host.so",
                                   ("rds_backend", "audio_rational"))
     fns = {}
     for which, name, argtypes in (("B4", "dy4_rds_backend", rc._ARGS),
                                   ("B5", "dy4_audio_rational",
-                                   rc._AUDIO_ARGS)):
+                                   rc._AUDIO_ARGS),
+                                  ("B4 tc", "dy4_rds_backend_tc",
+                                   rc._TC_ARGS),
+                                  ("B5 tc", "dy4_audio_rational_tc",
+                                   rc._AUDIO_TC_ARGS)):
         fn = getattr(so, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[which] = fn
+    for which in ("B4", "B5"):
+        fns[which].tc = fns[f"{which} tc"]
     return fns
 
 
 def _host_run(fn, which, args, up, down, plan, bf16=0):
     """One launch of the host build under ``plan`` with one copy warp (a
-    thread of the block is a host thread here), staging at bf16 where
-    ``bf16``: the outputs the wrapper would allocate, filled."""
+    thread of the block is a host thread here): the float32 walk, or
+    where ``bf16`` the tensor-core design (``fn.tc``, ``plan`` a
+    ``TcPlan``, two compute warps): the outputs the wrapper would
+    allocate, filled."""
+    if bf16:
+        fn = fn.tc
+        plan = plan._replace(compute_threads=64)
     plan = plan._replace(threads=plan.compute_threads + 32)
     c, n = args[0].shape
     k = args[3].shape[0]
@@ -398,8 +418,10 @@ def _host_run(fn, which, args, up, down, plan, bf16=0):
         outs = [torch.full(shape, math.nan) for shape in
                 ((c, m),) * 3 + ((c, s),) * 2]
         geom = (c, n, up, down, k)
+    plan_args = (rc._tc_plan_args if bf16 else rc._plan_args)(plan, up,
+                                                              down)
     status = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
-                *geom, bf16, *rc._plan_args(plan, up, down), None)
+                *geom, *plan_args, None)
     assert status == 0
     return outs
 
@@ -474,5 +496,5 @@ def test_host_kernel_refuses_a_plan_it_cannot_run(host_lib):
     status = host_lib["B5"](*(t.data_ptr() for t in args),
                             *(t.data_ptr() for t in outs), 2,
                             args[0].shape[-1], up, down, args[3].shape[0],
-                            0, *rc._plan_args(bad, up, down), None)
+                            *rc._plan_args(bad, up, down), None)
     assert status == 1               # cudaErrorInvalidValue, no launch
