@@ -1,0 +1,7 @@
+"""``glue.device_ms_per_block`` of the small-site cells, read as the fleet's
+is, under a name of its own because it moves the small site's end-to-end
+metric."""
+
+from rxbench import spec
+
+read = spec.metric_reader("glue.device_ms_per_block").read
