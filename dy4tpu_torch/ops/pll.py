@@ -48,6 +48,7 @@ import torch
 
 from dy4tpu_torch.ops import trig
 from dy4tpu_torch.runtime import consts as _consts
+from dy4tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -282,55 +283,61 @@ def pll(pll_in: Tensor, state: PLLState, *, freq, fs: float,
     """
     from dy4tpu_torch.ops import pll_cuda  # its plain twin imports us
 
-    dev = pll_in.device
-    consts = _loop_consts(freq, fs, norm_bandwidth)
-    kp, ki, dtheta, scale = device_consts(dev, *consts, nco_scale)
-    carry0 = (state.integrator, state.phase_est, state.angle)
-    if impl not in ("plain", "kernel", "auto"):
-        raise ValueError(f"unknown pll impl {impl!r}")
-    if impl == "kernel" and not pll_in.is_cuda:
-        raise ValueError(f"impl='kernel' needs a CUDA tensor, got {dev}")
-    if span_emit not in ("torch", "kernel"):
-        raise ValueError(f"span_emit must be 'torch' or 'kernel', got "
-                         f"{span_emit!r}")
-    plain = impl == "plain"
-    if span > 1:
-        n = pll_in.shape[-1]
-        if n % span:
-            raise ValueError(f"block length {n} not divisible by pll span "
-                             f"{span}")
-        k, *eff = _span_consts(*consts, span)
-        kp_e, ki_e, dth_e = device_consts(dev, *eff)
-        targets = _span_targets(pll_in, dtheta, span).contiguous()
-        scan = (pll_cuda.phase_scan_target_plain if plain
-                else pll_cuda.phase_scan_target)
-        if span_emit == "kernel":
-            phis, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
-                                          carry0, span=span,
-                                          expand=(kp, ki, dtheta))
+    with profiling.span("rx.pll_scan"):
+        dev = pll_in.device
+        consts = _loop_consts(freq, fs, norm_bandwidth)
+        kp, ki, dtheta, scale = device_consts(dev, *consts, nco_scale)
+        carry0 = (state.integrator, state.phase_est, state.angle)
+        if impl not in ("plain", "kernel", "auto"):
+            raise ValueError(f"unknown pll impl {impl!r}")
+        if impl == "kernel" and not pll_in.is_cuda:
+            raise ValueError(f"impl='kernel' needs a CUDA tensor, got {dev}")
+        if span_emit not in ("torch", "kernel"):
+            raise ValueError(f"span_emit must be 'torch' or 'kernel', got "
+                             f"{span_emit!r}")
+        plain = impl == "plain"
+        if span > 1:
+            n = pll_in.shape[-1]
+            if n % span:
+                raise ValueError(f"block length {n} not divisible by pll "
+                                 f"span {span}")
+            k, *eff = _span_consts(*consts, span)
+            kp_e, ki_e, dth_e = device_consts(dev, *eff)
+            targets = _span_targets(pll_in, dtheta, span).contiguous()
+            scan = (pll_cuda.phase_scan_target_plain if plain
+                    else pll_cuda.phase_scan_target)
+            if span_emit == "kernel":
+                phis, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
+                                              carry0, span=span,
+                                              expand=(kp, ki, dtheta))
+            else:
+                phi0, i0, (integ, pe, ang) = scan(targets, kp_e, ki_e,
+                                                  dth_e, carry0, span=span)
+                phis = _span_expand(phi0, i0, targets, kp, ki, dtheta,
+                                    span)
+        elif span == 1:
+            scan = (pll_cuda.phase_scan_plain if plain
+                    else pll_cuda.phase_scan)
+            phis, (integ, pe, ang) = scan(pll_in, kp, ki, dtheta, carry0)
         else:
-            phi0, i0, (integ, pe, ang) = scan(targets, kp_e, ki_e, dth_e,
-                                              carry0, span=span)
-            phis = _span_expand(phi0, i0, targets, kp, ki, dtheta, span)
-    elif span == 1:
-        scan = pll_cuda.phase_scan_plain if plain else pll_cuda.phase_scan
-        phis, (integ, pe, ang) = scan(pll_in, kp, ki, dtheta, carry0)
-    else:
-        raise ValueError(f"pll span must be >= 1, got {span}")
+            raise ValueError(f"pll span must be >= 1, got {span}")
 
-    nco_q, nco_i = trig.nco_sincos(phis * scale[..., None])
-    # the first output comes from the carried NCO (handles the reference's
-    # inconsistent q_ncoState=1.0 init, fmMonoBlock.py:441)
-    nco_i = torch.cat([state.nco[..., None], nco_i[..., 1:]], dim=-1)
-    nco_q = torch.cat([state.nco_q[..., None], nco_q[..., 1:]], dim=-1)
+    with profiling.span("rx.nco"):
+        nco_q, nco_i = trig.nco_sincos(phis * scale[..., None])
+        # the first output comes from the carried NCO (handles the
+        # reference's inconsistent q_ncoState=1.0 init,
+        # fmMonoBlock.py:441)
+        nco_i = torch.cat([state.nco[..., None], nco_i[..., 1:]], dim=-1)
+        nco_q = torch.cat([state.nco_q[..., None], nco_q[..., 1:]], dim=-1)
 
-    phi_end = ang + pe
-    # the carried nco/nco_q become the NEXT block's first emitted sample,
-    # so they ride the same trig as the bulk synthesis
-    end_q, end_i = trig.nco_sincos(phi_end * scale)
-    new_state = PLLState(
-        feedback_i=torch.cos(phi_end), feedback_q=torch.sin(phi_end),
-        integrator=integ, phase_est=pe, angle=ang, nco=end_i, nco_q=end_q)
+        phi_end = ang + pe
+        # the carried nco/nco_q become the NEXT block's first emitted
+        # sample, so they ride the same trig as the bulk synthesis
+        end_q, end_i = trig.nco_sincos(phi_end * scale)
+        new_state = PLLState(
+            feedback_i=torch.cos(phi_end), feedback_q=torch.sin(phi_end),
+            integrator=integ, phase_est=pe, angle=ang, nco=end_i,
+            nco_q=end_q)
     return nco_i, nco_q, new_state
 
 

@@ -51,6 +51,14 @@ kernels the card ran (the warm-up's included; ``warm_blocks`` counts its
 steps).  A capture or replay error raises; nothing falls back to the
 eager step.  On a CPU state (the caller asked for the CPU) the runner
 runs the same body eagerly on the same static buffers.
+
+The runner's per-call steps are spans (``utils/profiling.py``, off by
+default): ``graph.lookup`` (``run_blocks``' runner by its key),
+``graph.load``, ``graph.input`` (the chunk's graph by its key, the chunk
+into its static input), ``graph.replay``, ``graph.output`` (``run_stream``'s
+copy-out) and ``graph.read``; inside a chunk's body, at capture or on the
+CPU, ``graph.stack`` and ``graph.assign``.  A replay runs no Python, so
+``span_map`` names its device work by the launches the capture recorded.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ import torch
 from dy4tpu_torch.config import ModeConfig
 from dy4tpu_torch.pipeline import receiver as rx
 from dy4tpu_torch.runtime import consts
+from dy4tpu_torch.utils.profiling import device_spans, settle, span, spans
 
 Tensor = torch.Tensor
 
@@ -201,12 +210,14 @@ class ChunkRunner:
     def load(self, carry) -> None:
         """Copy ``carry`` into the static carry (resume), in stream order
         after any chunk already issued."""
-        _assign(self.carry, carry)
+        with span("graph.load"):
+            _assign(self.carry, carry)
 
     def read(self):
         """Clones of the static carry (checkpoint), taken in stream order
         after the chunks issued so far."""
-        return _map(lambda t: t.clone(), self.carry)
+        with span("graph.read"):
+            return _map(lambda t: t.clone(), self.carry)
 
     # ---- the graphs ----
     def graph_key(self, inputs, bind: bool = False) -> tuple:
@@ -221,9 +232,10 @@ class ChunkRunner:
         for blocks in zip(*inputs):
             carry, out = self.step(carry, *blocks)
             outs.append(out)
-        stacked = _stack(outs)
-        return carry, (stacked if self.finish is None
-                       else self.finish(stacked))
+        with span("graph.stack"):
+            stacked = _stack(outs)
+            return carry, (stacked if self.finish is None
+                           else self.finish(stacked))
 
     def _entry(self, inputs, bind: bool) -> tuple[_Graph, bool]:
         """The graph of a chunk like ``inputs`` and whether it was made
@@ -265,7 +277,8 @@ class ChunkRunner:
                         graph, pool=self.pool,
                         capture_error_mode=self.capture_error_mode):
                     new, outputs = self._body(self.carry, static)
-                    _assign(self.carry, new)
+                    with span("graph.assign"):
+                        _assign(self.carry, new)
         finally:
             # the capture ran no kernel: take its counts back
             made = {w: w.launches - n for w, n in zip(wrappers, before)}
@@ -288,18 +301,58 @@ class ChunkRunner:
         own.  Returns the chunk's outputs, stacked on a leading K axis:
         on the card the graph's static outputs, valid until this runner's
         next run."""
-        ent, fresh = self._entry(inputs, bind)
-        if not (bind or fresh):
-            for s, t in zip(ent.inputs, inputs):
-                s.copy_(t)
-        if ent.graph is None:
-            new, outs = self._body(self.carry, ent.inputs)
-            _assign(self.carry, new)
-            return outs
-        ent.graph.replay()
-        for w, n in ent.launches.items():
-            w.launches += n
-        return ent.outputs
+        with span("graph.input"):
+            ent, fresh = self._entry(inputs, bind)
+            if not (bind or fresh):
+                for s, t in zip(ent.inputs, inputs):
+                    s.copy_(t)
+        with span("graph.replay"):
+            if ent.graph is None:
+                new, outs = self._body(self.carry, ent.inputs)
+                with span("graph.assign"):
+                    _assign(self.carry, new)
+                return outs
+            ent.graph.replay()
+            for w, n in ent.launches.items():
+                w.launches += n
+            return ent.outputs
+
+    def span_map(self, *inputs: Tensor, bind: bool = False
+                 ) -> list[tuple[str, Optional[str]]]:
+        """One chunk's device work in launch order, each kernel, copy
+        and memset as ``(name, innermost span)``: what a replay of the
+        graph of a chunk like ``inputs`` runs (a graph replays its
+        capture's launches in order), named by the spans the capture ran
+        through (``utils/profiling.py``).  The chunk's body and the
+        carry's assign run eagerly on clones of the carry and of the
+        graph's static inputs (``inputs`` where no graph is captured
+        yet): once as a capture's warm-up, then with the spans on under
+        ``torch.profiler``.  The runner's state and graphs stay as they
+        were; the wrappers count the kernels both runs launched.  On the
+        CPU there is no device work: the list is empty."""
+        from torch.profiler import ProfilerActivity, profile
+
+        ent = self._graphs.get(self.graph_key(inputs, bind))
+        carry = _map(lambda t: t.clone(), self.carry)
+        static = tuple(t.clone() for t in (inputs if ent is None
+                                            else ent.inputs))
+
+        def body():
+            new, _ = self._body(carry, static)
+            with span("graph.assign"):
+                _assign(carry, new)
+
+        acts = [ProfilerActivity.CPU]
+        if self.on_card:
+            acts.append(ProfilerActivity.CUDA)
+        body()
+        with spans(), profile(activities=acts) as prof:
+            if self.on_card:
+                settle(self.device)
+            body()
+            if self.on_card:
+                settle(self.device)
+        return [(e.name, name) for e, name, _ in device_spans(prof.events())]
 
     def run_stream(self, *inputs: Tensor, chunk: int):
         """``inputs`` [B, ...] in chunks of ``chunk`` blocks (the last one
@@ -312,11 +365,12 @@ class ChunkRunner:
         for lo in range(0, n, chunk):
             hi = min(n, lo + chunk)
             outs = self.run(*(t[lo:hi] for t in inputs))
-            if result is None:
-                result = _map(lambda t: t.new_empty((n, *t.shape[1:])),
-                              outs)
-            for r, o in zip(_leaves(result), _leaves(outs)):
-                r[lo:hi].copy_(o)
+            with span("graph.output"):
+                if result is None:
+                    result = _map(
+                        lambda t: t.new_empty((n, *t.shape[1:])), outs)
+                for r, o in zip(_leaves(result), _leaves(outs)):
+                    r[lo:hi].copy_(o)
         return result
 
 
@@ -348,22 +402,27 @@ def receiver_runner(params: rx.ReceiverParams, state: rx.ReceiverState,
 _RUNNERS: OrderedDict = OrderedDict()
 
 
-def _cached(key: tuple, held: tuple, state,
+def _cached(key_of: Callable[[], tuple], held: tuple, state,
             make: Callable[[], ChunkRunner]) -> ChunkRunner:
-    """The runner of ``key`` with ``state`` loaded into it: made by
-    ``make()`` at its first use, then kept among the last ``MAX_RUNNERS``
-    of ``run_blocks`` and ``run_wideband_blocks`` (their keys differ by
-    the entry ``_options`` puts in them).  The entry holds ``held`` (the
-    params the key names by ``id``), so that no ``id`` is reused while
-    the runner lives."""
-    hit = _RUNNERS.get(key)
-    if hit is None:
-        hit = (held, make())
-        _RUNNERS[key] = hit
-        while len(_RUNNERS) > MAX_RUNNERS:
-            _RUNNERS.popitem(last=False)
-    else:
-        _RUNNERS.move_to_end(key)
+    """The runner of the key ``key_of()`` with ``state`` loaded into it:
+    made by ``make()`` at its first use, then kept among the last
+    ``MAX_RUNNERS`` of ``run_blocks`` and ``run_wideband_blocks`` (their
+    keys differ by the entry ``_options`` puts in them).  The entry holds
+    ``held`` (the params the key names by ``id``), so that no ``id`` is
+    reused while the runner lives.  The key and the lookup are the span
+    ``graph.lookup``; the load is the runner's ``graph.load``."""
+    with span("graph.lookup"):
+        key = key_of()
+        hit = _RUNNERS.get(key)
+        made = hit is None
+        if made:
+            hit = (held, make())
+            _RUNNERS[key] = hit
+            while len(_RUNNERS) > MAX_RUNNERS:
+                _RUNNERS.popitem(last=False)
+        else:
+            _RUNNERS.move_to_end(key)
+    if not made:
         hit[1].load(state)
     return hit[1]
 
@@ -373,9 +432,9 @@ def cached_runner(params, state, cfg, entry: str = "rf",
     """``run_blocks``' runner for these params, state structure and
     options, with ``state`` loaded into it (``_cached``)."""
     step_kwargs = step_kwargs or {}
-    key = (id(params), _signature(state),
-           *_options(entry, cfg, step_kwargs))
-    return _cached(key, (params,), state,
+    return _cached(lambda: (id(params), _signature(state),
+                            *_options(entry, cfg, step_kwargs)),
+                   (params,), state,
                    lambda: receiver_runner(params, state, cfg, entry=entry,
                                            **step_kwargs))
 
@@ -495,9 +554,9 @@ def cached_wideband_runner(params, chan, state, cfg: ModeConfig,
     """``run_wideband_blocks``' runner for these params, bank, state
     structure and options, with ``state`` loaded into it (``_cached``)."""
     step_kwargs = step_kwargs or {}
-    key = (id(params), id(chan), _signature(state),
-           *_options("wideband", cfg, step_kwargs))
-    return _cached(key, (params, chan), state,
+    return _cached(lambda: (id(params), id(chan), _signature(state),
+                            *_options("wideband", cfg, step_kwargs)),
+                   (params, chan), state,
                    lambda: wideband_runner(params, chan, state, cfg,
                                            **step_kwargs))
 

@@ -63,6 +63,7 @@ from dy4tpu_torch.ops import (backend_cuda, demod, fir, firdes,
                               frontend_cuda, iqcorr, mix, pll, resample_cuda)
 from dy4tpu_torch.ops.precision import rounds
 from dy4tpu_torch.runtime import consts
+from dy4tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -621,18 +622,20 @@ def receiver_step(params: ReceiverParams, state: ReceiverState,
     _check_step(state, cdr_timing, precision)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
     new_iqcorr = None
-    if state.iqcorr is not None:
-        corr = iqcorr.coeffs(state.iqcorr)
-        fstate, fo, mom = front_step(
-            params, front_state_of(state), iq_u8, cfg, precision=precision,
-            rds_enabled=rds_enabled, frontend=frontend,
-            demod_kind=demod_kind, corr=corr, corr_moments=True)
-        new_iqcorr = iqcorr.fold(state.iqcorr, mom)
-    else:
-        fstate, fo = front_step(params, front_state_of(state), iq_u8, cfg,
-                                precision=precision,
-                                rds_enabled=rds_enabled, frontend=frontend,
-                                demod_kind=demod_kind)
+    with span("rx.front"):
+        if state.iqcorr is not None:
+            corr = iqcorr.coeffs(state.iqcorr)
+            fstate, fo, mom = front_step(
+                params, front_state_of(state), iq_u8, cfg,
+                precision=precision, rds_enabled=rds_enabled,
+                frontend=frontend, demod_kind=demod_kind, corr=corr,
+                corr_moments=True)
+            new_iqcorr = iqcorr.fold(state.iqcorr, mom)
+        else:
+            fstate, fo = front_step(params, front_state_of(state), iq_u8,
+                                    cfg, precision=precision,
+                                    rds_enabled=rds_enabled,
+                                    frontend=frontend, demod_kind=demod_kind)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
                         backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
                         pll_span_emit, precision)
@@ -658,13 +661,15 @@ def receiver_step_if(params: ReceiverParams, state: ReceiverState,
     _check_step(state, cdr_timing, precision)
     rds_enabled = _rds_on(cfg, with_rds) and state.rds is not None
     new_iqcorr = None
-    if state.iqcorr is not None:
-        corr = iqcorr.coeffs(state.iqcorr)
-        new_iqcorr = iqcorr.estimate(i_if, q_if, state.iqcorr)
-        i_if, q_if = iqcorr.apply(i_if, q_if, corr)
-    fstate, fo = front_step_if(params, front_state_of(state), i_if, q_if,
-                               cfg, precision=precision,
-                               rds_enabled=rds_enabled, frontend=frontend)
+    with span("rx.front"):
+        if state.iqcorr is not None:
+            corr = iqcorr.coeffs(state.iqcorr)
+            new_iqcorr = iqcorr.estimate(i_if, q_if, state.iqcorr)
+            i_if, q_if = iqcorr.apply(i_if, q_if, corr)
+        fstate, fo = front_step_if(params, front_state_of(state), i_if,
+                                   q_if, cfg, precision=precision,
+                                   rds_enabled=rds_enabled,
+                                   frontend=frontend)
     return _finish_step(params, state, fstate, fo, cfg, rds_enabled,
                         backend, pll_impl, cdr_timing, pll_span, new_iqcorr,
                         pll_span_emit, precision)
@@ -686,46 +691,52 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
                  pll_span_emit: str = "torch", precision: str = "highest"
                  ) -> tuple[ReceiverState, StepOutputs]:
     # ---- stereo + RDS PLLs (project.cpp:118-133; fmMonoBlock.py:683) ----
-    if rds_enabled:
-        # the pilot (19 kHz, x2, bw .01) and RDS carrier (114 kHz, x0.5,
-        # bw .001) loops stacked on a lane axis: ONE scan
-        rds = state.rds
-        both_in = torch.stack([fo.pilot, fo.carrier], dim=-2)  # [..., 2, N]
-        both_state = pll.PLLState(*(torch.stack([a, b], dim=-1) for a, b
-                                    in zip(state.audio.pll, rds.pll)))
-        nco_i2, nco_q2, both_pll = pll.pll(
-            both_in, both_state,
-            freq=np.array([cfg.pll_freq, cfg.rds_pll_freq], np.float32),
-            fs=cfg.if_fs,
-            nco_scale=np.array([cfg.pll_nco_scale, cfg.rds_pll_nco_scale],
-                               np.float32),
-            norm_bandwidth=np.array([cfg.pll_bandwidth,
-                                     cfg.rds_pll_bandwidth], np.float32),
-            impl=pll_impl, span=pll_span, span_emit=pll_span_emit)
-        nco = nco_i2[..., 0, :]
-        nco_i = nco_i2[..., 1, :]
-        nco_q = nco_q2[..., 1, :]
-        pll_state = pll.PLLState(*(a[..., 0] for a in both_pll))
-        rds_pll = pll.PLLState(*(a[..., 1] for a in both_pll))
-    else:
-        nco_i = nco_q = None
-        nco, _, pll_state = pll.pll(
-            fo.pilot.contiguous(), state.audio.pll, freq=cfg.pll_freq,
-            fs=cfg.if_fs, nco_scale=cfg.pll_nco_scale,
-            norm_bandwidth=cfg.pll_bandwidth, impl=pll_impl, span=pll_span,
-            span_emit=pll_span_emit)
+    # (the lanes' span holds the PLL's own: rx.pll_scan, rx.nco)
+    with span("rx.pll_lanes"):
+        if rds_enabled:
+            # the pilot (19 kHz, x2, bw .01) and RDS carrier (114 kHz,
+            # x0.5, bw .001) loops stacked on a lane axis: ONE scan
+            rds = state.rds
+            both_in = torch.stack([fo.pilot, fo.carrier], dim=-2)  # [.., 2, N]
+            both_state = pll.PLLState(*(torch.stack([a, b], dim=-1)
+                                        for a, b in zip(state.audio.pll,
+                                                        rds.pll)))
+            nco_i2, nco_q2, both_pll = pll.pll(
+                both_in, both_state,
+                freq=np.array([cfg.pll_freq, cfg.rds_pll_freq], np.float32),
+                fs=cfg.if_fs,
+                nco_scale=np.array([cfg.pll_nco_scale,
+                                    cfg.rds_pll_nco_scale], np.float32),
+                norm_bandwidth=np.array([cfg.pll_bandwidth,
+                                         cfg.rds_pll_bandwidth], np.float32),
+                impl=pll_impl, span=pll_span, span_emit=pll_span_emit)
+            nco = nco_i2[..., 0, :]
+            nco_i = nco_i2[..., 1, :]
+            nco_q = nco_q2[..., 1, :]
+            pll_state = pll.PLLState(*(a[..., 0] for a in both_pll))
+            rds_pll = pll.PLLState(*(a[..., 1] for a in both_pll))
+        else:
+            nco_i = nco_q = None
+            nco, _, pll_state = pll.pll(
+                fo.pilot.contiguous(), state.audio.pll, freq=cfg.pll_freq,
+                fs=cfg.if_fs, nco_scale=cfg.pll_nco_scale,
+                norm_bandwidth=cfg.pll_bandwidth, impl=pll_impl,
+                span=pll_span, span_emit=pll_span_emit)
 
     # pilot-lock SNR estimate: E[pilot^2 * nco] = (A^2/4) cos(2 phase_err)
     # while the in-band noise is uncorrelated with the NCO
-    p2 = torch.mean(fo.pilot * fo.pilot, dim=-1)
-    c2 = torch.mean(fo.pilot * fo.pilot * nco, dim=-1)
-    sig = torch.clamp(2.0 * c2, min=0.0)            # = A^2/2
-    noise = torch.clamp(p2 - sig, min=1e-12)
-    pilot_snr_db = 10.0 * torch.log10(torch.clamp(sig, min=1e-12) / noise)
+    with span("rx.pilot_snr"):
+        p2 = torch.mean(fo.pilot * fo.pilot, dim=-1)
+        c2 = torch.mean(fo.pilot * fo.pilot * nco, dim=-1)
+        sig = torch.clamp(2.0 * c2, min=0.0)            # = A^2/2
+        noise = torch.clamp(p2 - sig, min=1e-12)
+        pilot_snr_db = 10.0 * torch.log10(torch.clamp(sig, min=1e-12)
+                                          / noise)
 
-    bstate, bo = back_step(params, back_state_of(state), fo, nco, nco_i,
-                           nco_q, cfg, precision=precision,
-                           rds_enabled=rds_enabled, backend=backend)
+    with span("rx.back"):
+        bstate, bo = back_step(params, back_state_of(state), fo, nco, nco_i,
+                               nco_q, cfg, precision=precision,
+                               rds_enabled=rds_enabled, backend=backend)
 
     new_audio = AudioState(mono_delay=fstate.mono_delay,
                            mono_tail=bstate.mono_tail,
@@ -736,8 +747,9 @@ def _finish_step(params: ReceiverParams, state: ReceiverState,
     new_rds = None
     rds_out = (None,) * 6
     if rds_enabled:
-        sym_i, _, symbols, resync, cdr = _cdr(bo.bb_i, bo.bb_q, rds.cdr,
-                                              cfg.rds_sps, cdr_timing)
+        with span("rx.cdr"):
+            sym_i, _, symbols, resync, cdr = _cdr(bo.bb_i, bo.bb_q, rds.cdr,
+                                                  cfg.rds_sps, cdr_timing)
         new_rds = RDSState(carrier_tail=fstate.carrier_tail,
                            delay=fstate.rds_delay,
                            lpf_tail_i=bstate.lpf_tail_i,

@@ -1,49 +1,128 @@
-"""Profiling & observability, the counterpart of
-``dy4tpu/utils/profiling.py``.
+"""Profiling of the port: the operator's Chrome trace and the program's
+own spans, the counterpart of ``dy4tpu/utils/profiling.py``.
 
 * ``trace(logdir)``: context manager around ``torch.profiler`` (host ops,
-  and the card's kernels and copies where there is a card); writes a
-  Chrome trace into ``logdir`` (TensorBoard's torch profiler plugin and
-  ``chrome://tracing`` read it).
-* ``StageTimer``: lightweight named wall-clock accumulator for host-side
-  stage breakdowns (synchronizes the card before it reads the clock, so
-  timings are honest under asynchronous launches).
-* ``Throughput``: running samples/s + x-real-time meter used by the CLI.
+  and the card's kernels and copies where there is a card), with the
+  spans on; writes a Chrome trace into ``logdir`` (TensorBoard's torch
+  profiler plugin and ``chrome://tracing`` read it).
+* ``span(name)``: a ``torch.profiler.record_function`` range named
+  ``name`` while the spans are on, else one shared no-op context: off,
+  a span costs one flag test.  ``spans()`` switches them on for its
+  block.
+* ``device_spans(events)``: each device event of a profiler's events
+  with the innermost span around the host call that launched it;
+  ``settle(device)`` keeps a profiler's first and last moments clear of
+  the work it traces.
+
+The spans name the code that makes the card's work: ``graph.*`` around
+``run_blocks``' per-call steps in ``pipeline/graph.py`` (the runner's
+lookup, the state's ``load`` and ``read``, the chunk's input copy, the
+replay, the output copy; inside a chunk's body its ``stack`` and the
+carry's ``assign``), ``rx.*`` around the receiver step's parts in
+``pipeline/receiver.py`` and ``ops/pll.py`` (``front``, ``pll_lanes``,
+``pll_scan``, ``nco``, ``pilot_snr``, ``back``, ``cdr``).  A replayed
+graph runs no Python, so its kernels carry no span of their own:
+``graph.ChunkRunner.span_map`` names them from the launches its
+capture recorded.
+
+Under a profiler with CUDA activity a span also shows on the device's
+timeline, as an annotation over the kernels it launched: a reader of
+device time drops those annotations (``is_span``).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import time
-from typing import Optional
 
 import torch
 
+SPAN_PREFIXES = ("graph.", "rx.")
 
-def _sync(result) -> None:
-    """Wait for the work that makes ``result``: synchronize the device of
-    every CUDA tensor in it (tuples, lists and NamedTuples are walked);
-    CPU tensors are ready when they are returned."""
-    devices = set()
+_on = False
+_OFF = contextlib.nullcontext()
 
-    def walk(v):
-        if isinstance(v, torch.Tensor):
-            if v.is_cuda:
-                devices.add(v.device)
-        elif isinstance(v, (tuple, list)):
-            for u in v:
-                walk(u)
 
-    walk(result)
-    for d in devices:
-        torch.cuda.synchronize(d)
+def span(name: str):
+    """A profiler range named ``name`` while the spans are on; else the
+    shared no-op context."""
+    if not _on:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans():
+    """Switch the spans on for the block (and back to what they were)."""
+    global _on
+    was, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = was
+
+
+def is_span(name: str, prefixes=SPAN_PREFIXES) -> bool:
+    return name.startswith(prefixes)
+
+
+def settle(device) -> None:
+    """Wait for the card, then 50 ms: called inside a profiler before
+    and after the work it traces.  A profiler drops the card's work of
+    its first and last moments (on the H100 under torch 2.11 the first
+    1-2 ms of kernels), which would cut a traced replay short."""
+    torch.cuda.synchronize(device)
+    time.sleep(0.05)
+
+
+def device_spans(events, prefixes=SPAN_PREFIXES) -> list[tuple]:
+    """``(device event, innermost span, launching call)`` for each device
+    event (kernel, copy, memset) of a profiler's ``events()``, by start.
+    A device event is tied to the host runtime call that launched it
+    (``cudaLaunchKernel``, ``cudaMemcpyAsync``, ``cudaGraphLaunch``, ...)
+    by their correlation id, and takes the name of the innermost span
+    whose name has one of ``prefixes`` and that holds that call's start
+    (None where no span does, or the call was not recorded).  The spans'
+    own annotations on the device timeline (any name with one of
+    ``prefixes``) are left out."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    launch = {e.id: e for e in cpu if e.name.startswith("cu")}
+    ranges = sorted(((e.time_range.start, -e.time_range.end, e.name)
+                     for e in cpu if is_span(e.name, prefixes)))
+    starts = [s for s, _, _ in ranges]
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                  and not is_span(e.name, prefixes)),
+                 key=lambda e: e.time_range.start)
+
+    def innermost(t):
+        # ranges nest: the latest-starting one that still holds t
+        for s, neg_end, name in reversed(ranges[:bisect.bisect_right(
+                starts, t)]):
+            if t < -neg_end:
+                return name
+        return None
+
+    named = {}                  # a replay's events share one call
+    out = []
+    for e in dev:
+        call = launch.get(e.id)
+        if call is None:
+            out.append((e, None, None))
+            continue
+        if e.id not in named:
+            named[e.id] = innermost(call.time_range.start)
+        out.append((e, named[e.id], call.name))
+    return out
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """``torch.profiler`` over the block, its trace written into
-    ``logdir`` as ``<host>_<pid>.<time>.pt.trace.json`` when the block
-    ends, also when it raises.  Yields the profiler."""
+    """``torch.profiler`` over the block with the spans on, its trace
+    written into ``logdir`` as ``<host>_<pid>.<time>.pt.trace.json`` when
+    the block ends, also when it raises.  Yields the profiler."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 
@@ -52,66 +131,9 @@ def trace(logdir: str):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts,
                    on_trace_ready=tensorboard_trace_handler(logdir))
-    prof.start()
-    try:
-        yield prof
-    finally:
-        prof.stop()
-
-
-class StageTimer:
-    """Accumulate wall-clock per named stage; waits for device outputs."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        if result is not None:
-            _sync(result)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def time_fn(self, name: str, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _sync(out)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-        return out
-
-    def report(self) -> str:
-        lines = []
-        for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:<30} {tot * 1e3:9.2f} ms total "
-                         f"({tot / n * 1e3:8.3f} ms/call, {n} calls)")
-        return "\n".join(lines)
-
-
-class Throughput:
-    """Running IQ-samples/s and x-real-time meter."""
-
-    def __init__(self, rf_fs: float, ema: float = 0.9):
-        self.rf_fs = rf_fs
-        self.ema = ema
-        self.rate: Optional[float] = None
-        self._last: Optional[float] = None
-
-    def update(self, iq_samples: int) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            inst = iq_samples / (now - self._last)
-            self.rate = (inst if self.rate is None
-                         else self.ema * self.rate + (1 - self.ema) * inst)
-        self._last = now
-        return self.rate or 0.0
-
-    @property
-    def x_realtime(self) -> float:
-        return (self.rate or 0.0) / self.rf_fs
+    with spans():
+        prof.start()
+        try:
+            yield prof
+        finally:
+            prof.stop()

@@ -1,0 +1,11 @@
+"""Device milliseconds a block of the glue (kernels no roofline file
+names) under the span ``rx.pilot_snr``: the pilot-lock SNR estimate
+(``receiver._finish_step``). Read from ``spans.py``'s pass, a replay's
+kernels named by the launches its capture recorded."""
+
+
+def read(run):
+    from rxbench import spans
+
+    s = spans.of(run)
+    return None if s is None else s.device_ms("glue", ("rx.pilot_snr",))

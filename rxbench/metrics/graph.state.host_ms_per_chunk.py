@@ -1,0 +1,11 @@
+"""Host milliseconds a chunk of the state's copy into the runner and
+clone out of it (``ChunkRunner.load`` and ``read``): the program's span
+durations in ``spans.py``'s pass, read under a profiler
+of the host's activity alone."""
+
+
+def read(run):
+    from rxbench import spans
+
+    s = spans.of(run)
+    return None if s is None else s.host_ms("graph.load", "graph.read")

@@ -2,8 +2,8 @@
 against dy4tpu's, on CPU: the twins of tests/test_utils.py's logging
 cases (``log_vector``'s file byte-equal to dy4tpu's, ``log_psd``'s bins
 within 1e-3 dB of dy4tpu's on a tone, as test_fft_psd.py holds its PSD
-routes) and of tests/test_multihost_profiling.py's ``StageTimer`` and
-``Throughput`` cases, plus the profiler trace and the device sync."""
+routes), plus the profiler trace (the program's spans:
+tests/test_torch_spans.py)."""
 
 import json
 import os
@@ -18,7 +18,6 @@ from dy4tpu.utils import gen  # noqa: E402
 from dy4tpu.utils import logging as jlog  # noqa: E402
 from dy4tpu_torch.utils import logging as dlog  # noqa: E402
 from dy4tpu_torch.utils import profiling  # noqa: E402
-from dy4tpu_torch.utils.profiling import StageTimer, Throughput  # noqa: E402
 
 
 def test_log_vector_gnuplot_format(tmp_path):
@@ -74,50 +73,6 @@ def test_log_psd_defaults_to_the_card():
         pytest.skip("this machine has a card")
     with pytest.raises((RuntimeError, AssertionError)):
         dlog.log_psd("p", np.ones(1024), 48e3, directory="/nonexistent")
-
-
-def test_stage_timer_reports():
-    t = StageTimer()
-    x = t.time_fn("mul", lambda: torch.ones(8) * 2)
-    np.testing.assert_array_equal(x.numpy(), 2.0)
-    with t.stage("block", result=x):
-        pass
-    rep = t.report()
-    assert "mul" in rep and "block" in rep
-    assert t.counts == {"mul": 1, "block": 1}
-
-
-def test_throughput_meter():
-    m = Throughput(rf_fs=2.4e6)
-    m.update(0)
-    rate = m.update(240000)
-    assert rate > 0
-    assert m.x_realtime == rate / 2.4e6
-
-
-def test_sync_walks_nested_results(monkeypatch):
-    """Every CUDA device among the tensors of a result (tuples, lists,
-    NamedTuples, nested) is synchronized once; CPU tensors need none."""
-    class Fake:
-        def __init__(self, index):
-            self.is_cuda = True
-            self.device = torch.device("cuda", index)
-
-    synced = []
-    monkeypatch.setattr(profiling.torch, "Tensor", Fake)
-    monkeypatch.setattr(profiling.torch.cuda, "synchronize",
-                        lambda d: synced.append(d))
-    from typing import NamedTuple
-
-    class Out(NamedTuple):
-        a: object
-        b: object
-
-    profiling._sync(Out(Fake(0), [Fake(1), (Fake(0), None, 3)]))
-    assert sorted(d.index for d in synced) == [0, 1]
-    synced.clear()
-    profiling._sync((None, "x"))
-    assert synced == []
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
